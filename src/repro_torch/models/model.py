@@ -1,0 +1,53 @@
+"""Public model facade: prefill / decode / caches (port of
+``repro.models.model.Model``'s serving half)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.policy import CompressionPolicy
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import resolve_device
+
+__all__ = ["Model", "build_model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        tfm.check_supported(self.cfg)
+
+    def init(self, seed: int = 0, device=None) -> tfm.Transformer:
+        """Random weights from a seeded generator (CUDA unless ``device``
+        names another)."""
+        return tfm.Transformer.random(self.cfg, seed, device)
+
+    @torch.inference_mode()
+    def prefill(self, params: tfm.Transformer, batch: dict, policy: CompressionPolicy,
+                capacity: int):
+        """Monolithic prefill of ``batch["tokens"]`` [B, S] on the weights'
+        device.  Returns (logits [B, 1, V], per-layer caches)."""
+        tokens = torch.as_tensor(batch["tokens"], device=params.device)
+        return tfm.forward_prefill(params, tokens, policy, capacity)
+
+    @torch.inference_mode()
+    def decode_step(self, params: tfm.Transformer, token_batch: dict, caches, pos,
+                    policy: CompressionPolicy, capacity: int, lengths=None):
+        """One decode step; ``pos`` is a scalar or a per-slot [B] vector of
+        absolute positions.  The caches advance in place; returns (logits
+        [B, 1, V], caches)."""
+        tokens = torch.as_tensor(token_batch["tokens"], device=params.device)
+        logits = tfm.decode_tokens(params, tokens, caches, pos, policy, capacity, lengths)
+        return logits, caches
+
+    def init_caches(self, policy: CompressionPolicy, batch: int, capacity: int, device=None):
+        return tfm.init_caches(self.cfg, policy, batch, capacity, resolve_device(device))
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -1,0 +1,164 @@
+"""Decoder stack: weights, monolithic prefill and one decode step (port of
+``repro.models.transformer`` for dense global-attention models).
+
+Where the reference stacks per-layer parameters and caches over repeats and
+drives them with ``lax.scan``, the port holds one :class:`Block` and one
+layer cache per layer and loops in Python.  Activations run in bf16
+(``COMPUTE_DTYPE``, as the reference); weight matrices are stored in bf16,
+which is what the reference computes with after its cast at use, and norm
+scales stay f32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import cache as cache_lib
+from repro_torch.core.policy import CompressionPolicy
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.common import resolve_device, rmsnorm, rope_tables
+from repro_torch.models.mlp import mlp_apply
+
+__all__ = ["COMPUTE_DTYPE", "Block", "Transformer", "check_supported", "cache_cfg_for",
+           "init_caches", "embed_tokens", "logits_from_hidden", "forward_prefill",
+           "decode_tokens"]
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port serves dense text decoders with global RMSNorm/SwiGLU
+    attention blocks (llama2); other families raise."""
+    if (cfg.family != "dense" or cfg.moe or cfg.ssm or cfg.rwkv or cfg.modality != "text"
+            or cfg.layer_pattern != ("global",) or cfg.norm != "rmsnorm"
+            or cfg.mlp_kind != "swiglu" or cfg.qk_norm):
+        raise NotImplementedError(
+            f"{cfg.name}: only dense global-attention RMSNorm/SwiGLU text decoders are "
+            "ported (other families: ROADMAP queue item 10)")
+
+
+def _param(x: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(x, requires_grad=False)
+
+
+class Block(nn.Module):
+    """One decoder layer's weights (``[d_in, d_out]`` matrices, as the reference)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype=COMPUTE_DTYPE):
+        super().__init__()
+        d, qd, kvd, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+
+        def mat(*shape):
+            return _param(torch.zeros(shape, dtype=dtype, device=device))
+
+        self.ln1 = _param(torch.zeros(d, dtype=torch.float32, device=device))
+        self.ln2 = _param(torch.zeros(d, dtype=torch.float32, device=device))
+        self.wq, self.wk, self.wv, self.wo = mat(d, qd), mat(d, kvd), mat(d, kvd), mat(qd, d)
+        self.w_gate, self.w_up, self.w_down = mat(d, ff), mat(d, ff), mat(ff, d)
+
+
+class Transformer(nn.Module):
+    """All weights of a dense decoder; build with :meth:`random` or
+    :func:`repro_torch.models.convert.params_from_reference`."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dtype=COMPUTE_DTYPE):
+        super().__init__()
+        check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        d, v = cfg.d_model, cfg.vocab_size
+        self.embed = _param(torch.zeros(v, d, dtype=dtype, device=device))
+        self.lm_head = (None if cfg.tie_embeddings
+                        else _param(torch.zeros(d, v, dtype=dtype, device=device)))
+        self.final_norm = _param(torch.zeros(d, dtype=torch.float32, device=device))
+        self.blocks = nn.ModuleList(Block(cfg, device, dtype) for _ in range(cfg.num_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @classmethod
+    def random(cls, cfg: ModelConfig, seed: int = 0, device=None) -> "Transformer":
+        """Random weights from a seeded ``torch.Generator`` on the target
+        device: normal draws scaled by ``fan_in ** -0.5`` as the reference's
+        init (untruncated); norm scales zero, i.e. unit gain."""
+        model = cls(cfg, device)
+        gen = torch.Generator(device=model.device).manual_seed(seed)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if p.dim() == 2:
+                    fan_in = p.shape[1] if name == "embed" else p.shape[0]
+                    p.normal_(0.0, fan_in ** -0.5, generator=gen)
+        return model
+
+
+def cache_cfg_for(cfg: ModelConfig, policy: CompressionPolicy, batch: int,
+                  capacity: int) -> cache_lib.CacheConfig:
+    return cache_lib.CacheConfig(batch=batch, kv_heads=cfg.num_kv_heads,
+                                 head_dim=cfg.head_dim, capacity=capacity, policy=policy)
+
+
+def init_caches(cfg: ModelConfig, policy: CompressionPolicy, batch: int, capacity: int,
+                device, dtype=torch.bfloat16) -> list:
+    """One empty :class:`~repro_torch.core.cache.GEARLayerCache` per layer."""
+    if policy.is_fp16:
+        raise NotImplementedError("fp16 caches are not ported yet (ROADMAP queue item 10)")
+    ccfg = cache_cfg_for(cfg, policy, batch, capacity)
+    return [cache_lib.init_layer_cache(ccfg, dtype, device) for _ in range(cfg.num_layers)]
+
+
+def embed_tokens(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    return model.embed[tokens.to(torch.int64)].to(COMPUTE_DTYPE)
+
+
+def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
+    if model.lm_head is None:
+        return h @ model.embed.to(h.dtype).T
+    return h @ model.lm_head
+
+
+def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: CompressionPolicy,
+                    capacity: int):
+    """Monolithic prefill of ``tokens`` [B, S].  Returns (logits of the last
+    position [B, 1, V], one filled layer cache per layer)."""
+    cfg = model.cfg
+    x = embed_tokens(model, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    ccfg = cache_cfg_for(cfg, policy, B, capacity)
+    caches = []
+    for blk in model.blocks:
+        h, (k, v) = attn_lib.attention_prefill(cfg, blk, rmsnorm(x, blk.ln1), rope)
+        x = x + h
+        x = x + mlp_apply(blk, rmsnorm(x, blk.ln2))
+        cache = cache_lib.init_layer_cache(ccfg, torch.bfloat16, x.device)
+        caches.append(cache_lib.prefill_layer_cache(ccfg, cache, k, v))
+    x = rmsnorm(x, model.final_norm)
+    return logits_from_hidden(model, x[:, -1:, :]), caches
+
+
+def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
+                  policy: CompressionPolicy, capacity: int, lengths=None) -> torch.Tensor:
+    """One decode step.  tokens [B, 1]; ``pos`` [B] per-slot absolute
+    positions; ``lengths`` the host copy of the caches' per-slot lengths
+    (read from the first layer cache, one device sync per step, when not
+    given).  Updates ``caches`` in place; returns logits [B, 1, V]."""
+    cfg = model.cfg
+    x = embed_tokens(model, tokens)
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).reshape(-1).expand(B)
+    rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)      # [B, 1, Dh/2]
+    if lengths is None:
+        lengths = caches[0].length.cpu().numpy()
+    lengths = np.asarray(lengths)
+    ccfg = cache_cfg_for(cfg, policy, B, capacity)
+    for blk, cache in zip(model.blocks, caches):
+        x = x + attn_lib.attention_decode(cfg, blk, rmsnorm(x, blk.ln1), rope, cache, ccfg,
+                                          lengths)
+        x = x + mlp_apply(blk, rmsnorm(x, blk.ln2))
+    x = rmsnorm(x, model.final_norm)
+    return logits_from_hidden(model, x)

@@ -6,23 +6,44 @@
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. environment: torch / CUDA versions and the card's name and power limit;
-2. build: ``nvcc`` compiles every ``src/repro_torch/kernels/csrc/*.cu``;
+2. build: ``nvcc`` compiles every ``src/repro_torch/kernels/csrc/*.cu``, one
+   process per source, in parallel;
 3. ``gear_decode`` against its plain PyTorch version at the main path's
    shapes (4 slots, 32 kv heads, head_dim 128, capacity 1152) for
    gear_kcvt4 and gear_kivi2, with ragged extents and a constant
-   channel / token whose outlier index is stored twice;
+   channel / token whose outlier index is stored twice; then at the
+   streaming history scorer's shape (G * T = 64 query rows per row of a
+   batch-1 cache, one shared extent);
 4. ``flash_prefill`` against its plain version (S = 1024, a ragged S = 1000,
    kv_repeat = 4, window + softcap, a bidirectional prefix), with
    ``torch.nn.functional.scaled_dot_product_attention`` timed beside it;
-5. serving: llama2-7b at full width (``--layers`` of its 32 layers) with
-   random bf16 weights from a seeded generator, gear_kcvt4,
-   ``Engine(batch=4, capacity=1152)`` and ``Scheduler.run_continuous`` over 8
-   requests; the launch counters must show both kernels on the path, and the
-   live layer-0 cache of one decode step is held against the plain version;
+5. ``gear_compress`` against its plain version for both policies, K and V
+   orientation, over the B * H * C' = 448 [64, 128] tiles a 900-token
+   prompt closes per layer;
+6. ``flash_prefill_block`` against its plain version: 448 row-groups of
+   T = 64 (kv_len = 64) and a ragged tail (T = 37, random kv_len);
+7. ``gear_decode_paged`` against its plain version, and bit for bit against
+   ``gear_decode`` on the gathered operands, over a shuffled pool of the
+   main path's shapes whose tables name the zero page past each extent;
+8. serving, path 1: llama2-7b at full width (``--layers`` of its 32 layers)
+   with random bf16 weights from a seeded generator, gear_kcvt4,
+   ``Engine(batch=4, capacity=1152)`` (monolithic prefill, dense layout) and
+   ``Scheduler.run_continuous`` over 8 requests; the launch counters must
+   show ``gear_decode`` and ``flash_prefill`` on the path, and the live
+   layer-0 cache of one decode step is held against the plain version;
    then ``torch.profiler`` windows over one prefill and 8 decode steps say
    where the time goes (tables under ``build/profile/``);
-6. summary: one ``{"kernels": [...]}`` JSON line, the card's name and power
-   limit, and the final ``{"ok": true, "device": {...}}`` line.
+9. serving, path 2: the same requests through llama2-7b at all its 32
+   layers with ``prefill_mode="streaming", layout="paged"`` and a pool of
+   two thirds of the dense-equivalent pages, so that a decode step runs
+   while a request waits for pages (``--layers`` does not cut it); the
+   counters must show ``gear_compress``, ``flash_prefill_block``,
+   ``gear_decode`` (history) and ``gear_decode_paged`` on the path, each
+   kernel's live layer-0 call is held against its plain version and timed,
+   and profiler windows cover one streaming prefill and 8 paged decode
+   steps;
+10. summary: one ``{"kernels": [...]}`` JSON line, the card's name and power
+    limit, and the final ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.  Without a CUDA
 device, or without the repository beside it, it exits non-zero and prints
@@ -32,6 +53,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses as dc
 import json
 import pathlib
 import subprocess
@@ -52,6 +74,13 @@ DEV = torch.device("cuda")
 
 DECODE_TOL = 1e-3      # merged decode output, kernel vs plain (f32 both; sum order differs)
 PREFILL_TOL = 3e-2     # bf16 output; the kernel rounds P to bf16 before P.V
+BLOCK_TOL = 1e-4       # flash_prefill_block normalized output and score max (f32 both)
+# gear_compress: the reference's own kernel budget -- stats, outlier values
+# and indices exact, codes off by at most 1 on under 0.1% of entries, the
+# residual off by at most one scale step
+CODE_FLIP_BUDGET = 1e-3
+
+B_SERVE, CAP_SERVE, N_REQUESTS, NEW_TOKENS = 4, 1152, 8, 96
 
 
 def fail(msg: str) -> None:
@@ -218,127 +247,476 @@ def flash_case(case, flush, report: dict, main: bool) -> None:
 
 
 # ---------------------------------------------------------------------------
-# serving
+# gear_decode at the streaming history scorer's shape
 
 
-def serving(layers: int, flush, reports: dict) -> dict:
-    import dataclasses as dc
-
-    from repro_torch.configs import get_config
+def history_case(flush, report: dict) -> None:
+    """``gear_decode`` as the streaming prefill's history scorer: a batch-1
+    cache of llama2-7b's 32 kv heads, G * T = 64 query rows per row, one
+    extent n_comp = c * 64 shared by all rows (blocks past it exit)."""
+    from repro_torch.core import cache as cache_lib
     from repro_torch.core.policy import named_policy
-    from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import gear_decode as gd
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import gear_decode_ref
-    from repro_torch.models.model import build_model
-    from repro_torch.serving.engine import Engine, EngineConfig
+
+    H, Dh = 32, 128
+    pol = named_policy("gear_kcvt4")
+    cfg = cache_lib.CacheConfig(batch=1, kv_heads=H, head_dim=Dh, capacity=CAP_SERVE,
+                                policy=pol)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    k = torch.randn(1, H, CAP_SERVE, Dh, generator=gen, device=DEV).to(torch.bfloat16)
+    v = torch.randn(1, H, CAP_SERVE, Dh, generator=gen, device=DEV).to(torch.bfloat16)
+    cache = cache_lib.prefill_layer_cache(
+        cfg, cache_lib.init_layer_cache(cfg, torch.bfloat16, DEV), k, v)
+    arrays, lr, sp = ops._gear_operands(cfg, cache, H)
+    q = torch.randn(H, 64, Dh, generator=gen, device=DEV)
+    kw = dict(bits=pol.bits, chunk=cfg.chunk, scale_factor=Dh ** -0.5, **lr, **sp)
+    for c in (1, 7, 13):
+        acc_k, m_k, l_k = gd.gear_decode(q, *arrays, c * cfg.chunk, **kw)
+        acc_p, m_p, l_p = gear_decode_ref(q, *arrays, c * cfg.chunk, **kw)
+        torch.cuda.synchronize()
+        err = max(float((acc_k / l_k[..., None] - acc_p / l_p[..., None]).abs().max()),
+                  float((m_k - m_p).abs().max()))
+        print(f"  gear_decode G*T=64, n_comp={c * cfg.chunk}: max_abs_err={err:.3e} "
+              f"(tol {DECODE_TOL})")
+        if not err <= DECODE_TOL:
+            fail(f"gear_decode at 64 query rows disagrees with its plain version: {err}")
+        report["err"] = max(report.get("err", 0.0), err)
+
+
+# ---------------------------------------------------------------------------
+# gear_compress
+
+
+def compress_check(x, kw, label: str, report: dict) -> None:
+    """Kernel vs plain version on ``x`` within the reference's kernel budget."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import gear_compress as gc
+    from repro_torch.kernels.ref import gear_compress_ref
+
+    pk, sk, zk, svk, sik, rk = gc.gear_compress(x, **kw)
+    pp, sp, zp, svp, sip, rp = gear_compress_ref(x, **kw)
+    torch.cuda.synchronize()
+    d = x.shape[-1]
+    flips = (packing.unpack(pk, kw["bits"], d) - packing.unpack(pp, kw["bits"], d)).abs()
+    stats_exact = torch.equal(sk, sp) and torch.equal(zk, zp)
+    out_exact = svk is None or (torch.equal(svk, svp) and torch.equal(sik, sip.to(torch.int32)))
+    resid_err = float((rk - rp).abs().max())
+    flip_share = float((flips > 0).float().mean())
+    print(f"  gear_compress {label}: stats exact={stats_exact}, outliers exact={out_exact}, "
+          f"code flips {flip_share:.2e} (max {int(flips.max())}; budget {CODE_FLIP_BUDGET}), "
+          f"residual max_abs_err={resid_err:.3e} (bound: one scale step {float(sk.max()):.3e})")
+    if not (stats_exact and out_exact and int(flips.max()) <= 1
+            and flip_share < CODE_FLIP_BUDGET and resid_err <= float(sk.max()) + 1e-6):
+        fail(f"gear_compress {label} disagrees with its plain version")
+    report["err"] = max(report.get("err", 0.0), resid_err)
+
+
+def compress_kwargs(pol, kind: str, nb: int, d: int) -> dict:
+    from repro_torch.core.outlier import outlier_count
+
+    scheme, group = pol.scheme_for(kind)
+    vec = nb if scheme == "per_channel" else d
+    n_out = outlier_count(vec, pol.sparsity) if pol.use_sparse else 0
+    return dict(bits=pol.bits, scheme=scheme, group=group, n_out=n_out,
+                stat_dtype=pol.stat_dtype)
+
+
+def compress_case(policy_name: str, report: dict) -> None:
+    """Both orientations over 448 [64, 128] tiles (32 kv heads x 14 chunks),
+    with a constant channel and a constant token (top and bottom outliers
+    share an index)."""
+    from repro_torch.core.policy import named_policy
+
+    pol = named_policy(policy_name)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    x = torch.randn(448, 64, 128, generator=gen, device=DEV).to(torch.bfloat16).float()
+    x[0, :, 5] = 1.25
+    x[1, 9, :] = -0.75
+    for kind in ("k", "v"):
+        kw = compress_kwargs(pol, kind, 64, 128)
+        compress_check(x, kw, f"{policy_name} {kind.upper()} ({kw['scheme']}, "
+                       f"group {kw['group']}, {kw['n_out']} outliers per extreme)", report)
+
+
+def compress_bytes_flops(x: torch.Tensor, kw: dict):
+    """Least bytes and f32 operations of one ``gear_compress`` call: x read
+    once; packed codes, stats, outliers and the residual written once; per
+    element, 2 compares per outlier sweep of each extreme, the group
+    min/max, and the quantize / dequantize / residual arithmetic (~10)."""
+    N, nb, d = x.shape
+    per = 32 // kw["bits"]
+    group = kw["group"] or (nb if kw["scheme"] == "per_channel" else d)
+    n_stat = (nb // group) * d if kw["scheme"] == "per_channel" else nb * (d // group)
+    sp_rows = d if kw["scheme"] == "per_channel" else nb
+    out = N * (nb * d // per + 2 * n_stat + 2 * sp_rows * 2 * kw["n_out"] + nb * d) * 4
+    nbytes = x.numel() * 4 + out
+    flops = x.numel() * (2 * 2 * kw["n_out"] + 2 + 10)
+    return nbytes, flops
+
+
+# ---------------------------------------------------------------------------
+# flash_prefill_block
+
+
+def block_bytes_flops(q, k, kv_len):
+    """Least bytes and f32 operations of one ``flash_prefill_block`` call:
+    q, k, v and kv_len read once, (acc, m, l) written once; 4 Dh operations
+    (q.k and p.v) per visible (query, key) pair of this call's masks."""
+    N, T, Dh = q.shape
+    t = torch.arange(T, device=q.device)
+    pairs = int(torch.minimum(t[None, :] + 1, kv_len.long()[:, None]).sum())
+    nbytes = (q.numel() + 2 * k.numel() + N * T * (Dh + 2) + N) * 4
+    return nbytes, 4 * Dh * pairs
+
+
+def block_case(T: int, rep: int, report: dict) -> None:
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels.ref import flash_block_ref
+
+    N, Dh = 448, 128
+    gen = torch.Generator(device=DEV).manual_seed(T + rep)
+    q = torch.randn(N, T, Dh, generator=gen, device=DEV)
+    k = torch.randn(N // rep, T, Dh, generator=gen, device=DEV)
+    v = torch.randn(N // rep, T, Dh, generator=gen, device=DEV)
+    kv_len = (torch.full((N,), T, dtype=torch.int32, device=DEV) if T == 64 else
+              torch.randint(1, T + 1, (N,), generator=gen, device=DEV, dtype=torch.int32))
+    kw = dict(scale=Dh ** -0.5, kv_repeat=rep)
+    acc_k, m_k, l_k = fp.flash_prefill_block(q, k, v, kv_len, **kw)
+    acc_p, m_p, l_p = flash_block_ref(q, k, v, kv_len, **kw)
+    torch.cuda.synchronize()
+    err = max(float((acc_k / l_k[..., None] - acc_p / l_p[..., None]).abs().max()),
+              float((m_k - m_p).abs().max()))
+    print(f"  flash_prefill_block N={N} T={T} kv_repeat={rep} kv_len "
+          f"{'= T' if T == 64 else 'random in [1, T]'}: max_abs_err={err:.3e} (tol {BLOCK_TOL})")
+    if not err <= BLOCK_TOL:
+        fail(f"flash_prefill_block T={T} disagrees with its plain version: {err}")
+    report["err"] = max(report.get("err", 0.0), err)
+
+
+# ---------------------------------------------------------------------------
+# gear_decode_paged
+
+
+def paged_case(policy_name: str, report: dict) -> None:
+    """A 4-slot cache of the main path's shapes scattered into a shuffled
+    pool; table entries past each slot's extent name the zero page.  The
+    paged kernel must equal ``gear_decode`` on the gathered operands bit for
+    bit and its plain version within DECODE_TOL."""
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import gear_decode as gd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gather_paged_operands, gear_decode_paged_ref
+
+    B, H, Dh = B_SERVE, 32, 128
+    pol = named_policy(policy_name)
+    cfg = cache_lib.CacheConfig(batch=B, kv_heads=H, head_dim=Dh, capacity=CAP_SERVE, policy=pol)
+    cfg1 = cache_lib.CacheConfig(batch=1, kv_heads=H, head_dim=Dh, capacity=CAP_SERVE, policy=pol)
+    nb, C = cfg.chunk, cfg.n_chunks
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    lengths = [5, 67, 586, CAP_SERVE]
+    live = [n // nb for n in lengths]
+    n_pages = 1 + sum(live)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(0)) + 1
+    pool = cache_lib.init_paged_layer_cache(cfg, n_pages, torch.bfloat16, DEV)
+    bt = torch.zeros((B, C), dtype=torch.int32)
+    used = 0
+    for b in range(B):
+        k = torch.randn(1, H, CAP_SERVE, Dh, generator=gen, device=DEV).to(torch.bfloat16)
+        v = torch.randn(1, H, CAP_SERVE, Dh, generator=gen, device=DEV).to(torch.bfloat16)
+        one = cache_lib.prefill_layer_cache(
+            cfg1, cache_lib.init_layer_cache(cfg1, torch.bfloat16, DEV), k, v)
+        pages = perm[used:used + live[b]]
+        used += live[b]
+        bt[b, :live[b]] = pages
+        cache_lib.scatter_pool_chunks(cfg1, pool, pages.to(DEV),
+                                      cache_lib.extract_prefix_chunks(cfg1, one, live[b]))
+    bt = bt.to(DEV)
+    BH = B * H
+    n_comp = torch.tensor(lengths, dtype=torch.int32, device=DEV).repeat_interleave(H) // nb * nb
+    q = torch.randn(BH, 1, Dh, generator=gen, device=DEV)
+    arrays, lr, sp = ops._paged_operands(cfg, pool)
+    kw = dict(bits=pol.bits, chunk=nb, scale_factor=Dh ** -0.5)
+    paged = gd.gear_decode_paged(q, *arrays, n_comp, bt, **kw, **lr, **sp)
+    plain = gear_decode_paged_ref(q, *arrays, n_comp, bt, **kw, **lr, **sp)
+    names = ("k_packed", "k_scale", "k_zero", "v_packed", "v_scale", "v_zero")
+    g = gather_paged_operands(bt, BH, dict(zip(names, arrays)) | lr | sp)
+    flat = gd.gear_decode(q, *[g[n] for n in names], n_comp, **kw,
+                          **{n: g[n] for n in list(lr) + list(sp)})
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(paged, flat))
+    rows = n_comp > 0
+    err = max(float((paged[0] / paged[2][..., None] - plain[0] / plain[2][..., None])[rows]
+                    .abs().max()), float((paged[1] - plain[1])[rows].abs().max()))
+    print(f"  gear_decode_paged {policy_name}: {n_pages} pages, n_comp per slot "
+          f"{[int(x) for x in n_comp[::H]]}: bitwise equal to gear_decode on gathered operands "
+          f"= {bitwise}; vs plain max_abs_err={err:.3e} (tol {DECODE_TOL})")
+    if not bitwise:
+        fail(f"gear_decode_paged {policy_name} differs from gear_decode on gathered operands")
+    if not err <= DECODE_TOL:
+        fail(f"gear_decode_paged {policy_name} disagrees with its plain version: {err}")
+    report["err"] = max(report.get("err", 0.0), err)
+
+
+# ---------------------------------------------------------------------------
+# serving
+
+
+class Capture:
+    """Stand-in for ``module.name`` that keeps a copy of the arguments of its
+    ``index``-th call (0-based) and forwards every call."""
+
+    def __init__(self, module, name: str, index: int):
+        self.module, self.name, self.index = module, name, index
+        self.real = getattr(module, name)
+        self.calls = 0
+        self.args = self.kwargs = None
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        if self.calls == self.index:
+            self.args = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+            self.kwargs = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                           for k, v in kwargs.items()}
+        self.calls += 1
+        return self.real(*args, **kwargs)
+
+    def restore(self) -> None:
+        setattr(self.module, self.name, self.real)
+
+
+def requests(cfg) -> list:
+    """The 8 prompts both serving paths answer: raw lengths drawn from
+    300-900 and token ids from numpy seed 0."""
+    rng = np.random.RandomState(0)
+    lengths = rng.randint(300, 901, size=N_REQUESTS)
+    return [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32) for n in lengths]
+
+
+def kernel_fns() -> dict:
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import gear_compress as gc
+    from repro_torch.kernels import gear_decode as gd
+
+    return {"gear_decode": gd.gear_decode, "flash_prefill": fp.flash_prefill,
+            "gear_compress": gc.gear_compress, "flash_prefill_block": fp.flash_prefill_block,
+            "gear_decode_paged": gd.gear_decode_paged}
+
+
+def drive(eng, cfg, prompts: list, captures: list) -> dict:
+    """Serve the 8 requests through ``Scheduler.run_continuous`` with every
+    launch counter set to 0 just before and read just after."""
     from repro_torch.serving.scheduler import Request, Scheduler
 
-    cfg = dc.replace(get_config("llama2-7b"), num_layers=layers)
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(seed=0, device=DEV)
-    torch.cuda.synchronize()
-    print(f"  llama2-7b width (d_model {cfg.d_model}, {cfg.num_heads} heads, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab_size}), depth {layers} of 32: "
-          f"{cfg.param_count() / 1e9:.2f} B params bf16, init {time.perf_counter() - t0:.1f} s")
-    pol = named_policy("gear_kcvt4")
-    eng = Engine(model, params, EngineConfig(batch=4, capacity=1152, policy=pol), device=DEV)
     sched = Scheduler(eng)
-    rng = np.random.RandomState(0)
-    lengths = rng.randint(300, 901, size=8)
-    for rid, n in enumerate(lengths):
-        sched.submit(Request(rid=rid, tokens=rng.randint(0, cfg.vocab_size, size=n)
-                             .astype(np.int32), max_new_tokens=96))
-
-    # hold one decode step's live layer-0 operands for the plain-version check
-    captured = {}
-    real = ops.gear_decode
-    target_call = 40 * layers            # layer 0 of decode step 40 (all 4 slots live)
-    calls = [0]
-
-    def capturing(*args, **kwargs):
-        if calls[0] == target_call:
-            captured["args"] = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
-            captured["kwargs"] = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
-                                  for k, v in kwargs.items()}
-        calls[0] += 1
-        return real(*args, **kwargs)
-
-    ops.gear_decode = capturing
+    for rid, toks in enumerate(prompts):
+        sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=NEW_TOKENS))
+    fns = kernel_fns()
     torch.cuda.reset_peak_memory_stats()
     try:
-        gd.gear_decode.launches = 0
-        fp.flash_prefill.launches = 0
+        for fn in fns.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         results = sched.run_continuous()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"gear_decode": gd.gear_decode.launches,
-                    "flash_prefill": fp.flash_prefill.launches}
+        launches = {name: fn.launches for name, fn in fns.items()}
     finally:
-        ops.gear_decode = real
+        for c in captures:
+            c.restore()
     stats = sched.last_stats
     peak = torch.cuda.max_memory_allocated()
-
-    if len(results) != 8 or any(str(r.status) != "ok" or len(r.tokens) != 96 for r in results):
+    if len(results) != N_REQUESTS or any(str(r.status) != "ok" or len(r.tokens) != NEW_TOKENS
+                                         for r in results):
         fail(f"serving results: {[(r.rid, str(r.status), len(r.tokens)) for r in results]}")
     for r in results:
         if r.tokens.min() < 0 or r.tokens.max() >= cfg.vocab_size:
             fail(f"request {r.rid}: token ids out of range")
-    steps = stats["decode_steps"]
-    if launches["flash_prefill"] != 8 * layers:
-        fail(f"flash_prefill launches {launches['flash_prefill']} != 8 prefills x {layers}")
-    if launches["gear_decode"] < steps * layers:
-        fail(f"gear_decode launches {launches['gear_decode']} < {steps} steps x {layers}")
-    if "args" not in captured:
-        fail("no live decode step was captured")
-
-    # live layer-0 operands: kernel vs plain version on rows with history
-    args, kwargs = captured["args"], captured["kwargs"]
-    acc_k, m_k, l_k = gd.gear_decode(*args, **kwargs)
-    acc_p, m_p, l_p = gear_decode_ref(*args, **kwargs)
-    live = args[7] > 0
-    err = float((acc_k / l_k[..., None] - acc_p / l_p[..., None])[live].abs().max())
-    err = max(err, float((m_k - m_p)[live].abs().max()))
-    print(f"  live layer-0 step: n_comp per slot {[int(x) for x in args[7][::cfg.num_kv_heads]]}, "
-          f"kernel vs plain max_abs_err={err:.3e} (tol {DECODE_TOL})")
-    if not err <= DECODE_TOL:
-        fail(f"live gear_decode disagrees with its plain version: {err}")
-    rep = reports["gear_decode"]
-    rep["err"] = max(rep.get("err", 0.0), err)
-    rep["ms"] = time_ms(lambda: gd.gear_decode(*args, **kwargs), 50, flush)
-    rep["plain_ms"] = time_ms(lambda: gear_decode_ref(*args, **kwargs), 5, flush)
-    names = ["q", "k_packed", "k_scale", "k_zero", "v_packed", "v_scale", "v_zero", "n_comp"]
-    op_args = dict(zip(names, args)) | {k: v for k, v in kwargs.items()
-                                        if isinstance(v, torch.Tensor)}
-    nbytes, flops = decode_bytes_flops(op_args, args[7], kwargs["chunk"])
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    rep.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-               library_ms=None)
-    print(f"  gear_decode live step: kernel {rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, "
-          f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}, {nbytes / 1e6:.2f} MB)")
-
+    for c in captures:
+        if c.args is None:
+            fail(f"no live {c.name} call was captured (call {c.index} of {c.calls})")
     decode_tokens = sum(len(r.tokens) - 1 for r in results)
     summary = {
-        "requests": len(results), "prompt_lengths": [int(x) for x in lengths],
-        "decode_steps": steps, "launches": launches,
+        "requests": len(results), "prompt_lengths": [len(p) for p in prompts],
+        "decode_steps": stats["decode_steps"], "launches": launches,
         "prefill_ms_per_request": [round(r.prefill_s * 1e3, 3) for r in results],
         "decode_tok_per_s": decode_tokens / stats["decode_s"],
-        "wall_s": wall, "max_memory_allocated_gb": peak / 1e9, "layers": layers,
+        "wall_s": wall, "max_memory_allocated_gb": peak / 1e9,
+        "waited_for_pages": stats["waited_for_pages"],
+        "page_wait_steps": stats["page_wait_steps"],
     }
-    print(f"  served {len(results)} requests, {decode_tokens} decode tokens in {steps} steps: "
-          f"decode {summary['decode_tok_per_s']:.1f} tok/s, prefill ms/request "
-          f"{summary['prefill_ms_per_request']}, "
-          f"peak memory {summary['max_memory_allocated_gb']:.2f} GB, "
-          f"launches {launches}")
-    reports["gear_decode"]["launches"] = launches["gear_decode"]
-    reports["flash_prefill"]["launches"] = launches["flash_prefill"]
-    profile(eng, cfg, HERE / "build" / "profile")
+    if "pool" in stats:
+        summary["pool"] = stats["pool"]
+    print(f"  served {len(results)} requests, {decode_tokens} decode tokens in "
+          f"{stats['decode_steps']} steps: decode {summary['decode_tok_per_s']:.1f} tok/s, "
+          f"prefill ms/request {summary['prefill_ms_per_request']}, "
+          f"peak memory {summary['max_memory_allocated_gb']:.2f} GB, launches {launches}")
     return summary
 
 
-def profile(eng, cfg, out_dir: pathlib.Path) -> None:
+def live_check(cap: Capture, plain, label: str, flush, report: dict, bytes_flops,
+               rows_of=None, tol: float = DECODE_TOL) -> tuple:
+    """Kernel vs plain version on one captured live call's operands, then
+    the kernel's and the plain version's times and the call's bound."""
+    args, kwargs = cap.args, cap.kwargs
+    acc_k, m_k, l_k = cap.real(*args, **kwargs)
+    acc_p, m_p, l_p = plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    rows = slice(None) if rows_of is None else rows_of(args)
+    err = max(float((acc_k / l_k[..., None] - acc_p / l_p[..., None])[rows].abs().max()),
+              float((m_k - m_p)[rows].abs().max()))
+    print(f"  {label}: kernel vs plain max_abs_err={err:.3e} (tol {tol})")
+    if not err <= tol:
+        fail(f"live {label} disagrees with its plain version: {err}")
+    report["err"] = max(report.get("err", 0.0), err)
+    ms = time_ms(lambda: cap.real(*args, **kwargs), 50, flush)
+    plain_ms = time_ms(lambda: plain(*args, **kwargs), 5, flush)
+    nbytes, flops = bytes_flops(args, kwargs)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({by}, {nbytes / 1e6:.2f} MB)")
+    return ms, plain_ms, bound, by
+
+
+DECODE_NAMES = ["q", "k_packed", "k_scale", "k_zero", "v_packed", "v_scale", "v_zero", "n_comp"]
+
+
+def decode_call_bytes_flops(args, kwargs):
+    ops_ = dict(zip(DECODE_NAMES, args)) | {k: v for k, v in kwargs.items()
+                                            if isinstance(v, torch.Tensor)}
+    n_comp = args[7]
+    if not isinstance(n_comp, torch.Tensor):
+        n_comp = torch.full((args[0].shape[0],), int(n_comp), dtype=torch.int32)
+    nbytes, flops = decode_bytes_flops(ops_, n_comp, kwargs["chunk"])
+    if len(args) > 8:                                # block tables
+        nbytes += args[8].numel() * 4
+    return nbytes, flops
+
+
+def serving(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 1: monolithic prefill, dense layout."""
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gear_decode_ref
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = named_policy("gear_kcvt4")
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=CAP_SERVE, policy=pol),
+                 device=DEV)
+    # layer 0 of decode step 40 (all 4 slots live)
+    cap = Capture(ops, "gear_decode", 40 * layers)
+    summary = drive(eng, cfg, requests(cfg), [cap])
+    launches, steps = summary["launches"], summary["decode_steps"]
+    if launches["flash_prefill"] != N_REQUESTS * layers:
+        fail(f"flash_prefill launches {launches['flash_prefill']} != 8 prefills x {layers}")
+    if launches["gear_decode"] < steps * layers:
+        fail(f"gear_decode launches {launches['gear_decode']} < {steps} steps x {layers}")
+    print(f"  live layer-0 step: n_comp per slot "
+          f"{[int(x) for x in cap.args[7][::cfg.num_kv_heads]]}")
+    rep = reports["gear_decode"]
+    rep["ms"], rep["plain_ms"], rep["bound_ms"], rep["bound_by"] = live_check(
+        cap, gear_decode_ref, "gear_decode live decode step", flush, rep,
+        decode_call_bytes_flops, rows_of=lambda a: a[7] > 0)
+    rep["library_ms"] = None
+    reports["gear_decode"]["launches_by_path"] = {"monolithic_dense": launches["gear_decode"]}
+    reports["flash_prefill"]["launches"] = launches["flash_prefill"]
+    summary["layers"] = layers
+    profile(eng, cfg, HERE / "build" / "profile", "monolithic_dense")
+    return summary
+
+
+def serving_paged(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 2: streaming prefill into the paged pool."""
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (flash_block_ref, gear_compress_ref, gear_decode_paged_ref,
+                                         gear_decode_ref)
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = named_policy("gear_kcvt4")
+    dense_pages = B_SERVE * (CAP_SERVE // pol.buffer_size)
+    pool_pages = dense_pages * 2 // 3 + 1
+    eng = Engine(model, params, EngineConfig(
+        batch=B_SERVE, capacity=CAP_SERVE, policy=pol, prefill_mode="streaming", layout="paged",
+        pool_pages=pool_pages), device=DEV)
+    prompts = requests(cfg)
+    lengths = [len(p) for p in prompts]
+    print(f"  pool: {pool_pages - 1} allocatable pages of {eng.pool.page_bytes / 1e6:.3f} MB "
+          f"(the dense layout holds {dense_pages}); lifetime pages per request "
+          f"{[-(-(int(n) + NEW_TOKENS - 1) // pol.buffer_size) for n in lengths]}")
+    caps = {"gear_compress": Capture(cache_lib, "gear_compress", 0),    # request 0, layer 0, K
+            "flash_prefill_block": Capture(ops, "flash_prefill_block", 0),
+            # request 0, layer 0: the history call of its last block (largest extent)
+            "gear_decode": Capture(ops, "gear_decode", (int(lengths[0]) - 1) // pol.buffer_size),
+            "gear_decode_paged": Capture(ops, "gear_decode_paged", 40 * layers)}
+    summary = drive(eng, cfg, prompts, list(caps.values()))
+    launches, steps = summary["launches"], summary["decode_steps"]
+    for name, least in (("gear_compress", 2 * N_REQUESTS * layers),
+                        ("flash_prefill_block", N_REQUESTS * layers),
+                        ("gear_decode", N_REQUESTS * layers),
+                        ("gear_decode_paged", steps * layers)):
+        if launches[name] < least:
+            fail(f"{name} launches {launches[name]} < {least} on the streaming + paged path")
+    if summary["waited_for_pages"] < 1:
+        fail("no decode step ran while a request waited for pages; the pool is not under pressure")
+    print(f"  {summary['waited_for_pages']} requests waited for pages, over "
+          f"{summary['page_wait_steps']} decode steps; pool {summary['pool']}")
+    eng.pool.check()
+
+    c = caps["gear_compress"]
+    rep = reports["gear_compress"]
+    x, kw = c.args[0], c.kwargs
+    print(f"  live gear_compress call: {tuple(x.shape)} tiles, {kw}")
+    compress_check(x, kw, "live layer-0 K event", rep)
+    rep["ms"] = time_ms(lambda: c.real(x, **kw), 50, flush)
+    rep["plain_ms"] = time_ms(lambda: gear_compress_ref(x, **kw), 5, flush)
+    nbytes, flops = compress_bytes_flops(x, kw)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    rep.update(bound_ms=max(t_bytes, t_ops), library_ms=None,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"  gear_compress live event: kernel {rep['ms']:.4f} ms, plain {rep['plain_ms']:.4f} ms, "
+          f"bound {rep['bound_ms']:.4f} ms ({rep['bound_by']}, {nbytes / 1e6:.2f} MB)")
+
+    c = caps["flash_prefill_block"]
+    rep = reports["flash_prefill_block"]
+    print(f"  live flash_prefill_block call: q {tuple(c.args[0].shape)}, kv_repeat "
+          f"{c.kwargs['kv_repeat']}")
+    rep["ms"], rep["plain_ms"], rep["bound_ms"], rep["bound_by"] = live_check(
+        c, flash_block_ref, "flash_prefill_block live layer-0 blocks", flush, rep,
+        lambda a, k: block_bytes_flops(a[0], a[1], a[3]), tol=BLOCK_TOL)
+    rep["library_ms"] = None
+
+    c = caps["gear_decode"]
+    rep = reports["gear_decode"]
+    print(f"  live history call: q {tuple(c.args[0].shape)}, n_comp {c.args[7]}")
+    rep["ms_history"], rep["plain_ms_history"], rep["bound_ms_history"], _ = live_check(
+        c, gear_decode_ref, "gear_decode live history scorer (64 query rows)", flush, rep,
+        decode_call_bytes_flops)
+
+    c = caps["gear_decode_paged"]
+    rep = reports["gear_decode_paged"]
+    print(f"  live paged layer-0 step: n_comp per slot "
+          f"{[int(x) for x in c.args[7][::cfg.num_kv_heads]]}, block tables "
+          f"{c.args[8].tolist()}")
+    rep["ms"], rep["plain_ms"], rep["bound_ms"], rep["bound_by"] = live_check(
+        c, gear_decode_paged_ref, "gear_decode_paged live decode step", flush, rep,
+        decode_call_bytes_flops, rows_of=lambda a: a[7] > 0)
+    rep["library_ms"] = None
+
+    for name in ("gear_compress", "flash_prefill_block", "gear_decode_paged"):
+        reports[name]["launches"] = launches[name]
+    reports["gear_decode"]["launches_by_path"]["streaming_paged"] = launches["gear_decode"]
+    summary["layers"] = layers
+    profile(eng, cfg, HERE / "build" / "profile", "streaming_paged")
+    return summary
+
+
+def profile(eng, cfg, out_dir: pathlib.Path, tag: str) -> None:
     """Where the time goes: ``torch.profiler`` over one 640-token prefill and
     over 8 decode steps of 4 live slots (after warm-up).  Prints each
     window's wall time, device-busy share (summed kernel time / wall) and
@@ -349,8 +727,9 @@ def profile(eng, cfg, out_dir: pathlib.Path) -> None:
     rng = np.random.RandomState(1)
     view = eng.new_view()
     prompts = [rng.randint(0, cfg.vocab_size, size=640).astype(np.int32)[None] for _ in range(4)]
+    reserve = 640 + 16                                       # paged: 11 steps' pages
     for s, p in enumerate(prompts):
-        view.prefill_slot({"tokens": p}, s)
+        view.prefill_slot({"tokens": p}, s, reserve_tokens=reserve)
     pos = np.full(4, 640, np.int32)
     tok = np.zeros((4, 1), np.int32)
     for _ in range(3):                                       # warm-up steps
@@ -360,7 +739,7 @@ def profile(eng, cfg, out_dir: pathlib.Path) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     windows = {
-        "prefill": lambda: view.prefill_slot({"tokens": prompts[0]}, 0),
+        "prefill": lambda: view.prefill_slot({"tokens": prompts[0]}, 0, reserve_tokens=reserve),
         "decode": lambda: [view.decode({"tokens": tok}, pos + i) for i in range(8)],
     }
     for name, fn in windows.items():
@@ -373,10 +752,10 @@ def profile(eng, cfg, out_dir: pathlib.Path) -> None:
         kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kernels) / 1e6
         n_launch = sum(e.count for e in kernels)
-        (out_dir / f"profile_{name}.txt").write_text(
+        (out_dir / f"profile_{tag}_{name}.txt").write_text(
             events.table(sort_by="self_device_time_total", row_limit=40) + "\n"
             + events.table(sort_by="cpu_time_total", row_limit=40))
-        print(f"  profile {name}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+        print(f"  profile {tag} {name}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
               f"({100 * busy / wall:.1f}%), {n_launch} kernel launches, profiler on")
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    {e.key[:70]:70s} {e.self_device_time_total / 1e3:9.3f} ms x{e.count}")
@@ -388,7 +767,9 @@ def profile(eng, cfg, out_dir: pathlib.Path) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=32, help="model depth to serve (of 32)")
+    ap.add_argument("--layers", type=int, default=32,
+                    help="model depth of serving path 1, monolithic + dense (of 32); "
+                         "path 2 always runs every layer")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -425,24 +806,68 @@ def main() -> int:
         "flash_prefill": {"name": "flash_prefill", "route": "cuda",
                           "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
                           "replaces": "src/repro/kernels/flash_prefill.py:80"},
+        "gear_compress": {"name": "gear_compress", "route": "cuda",
+                          "source": "src/repro_torch/kernels/csrc/gear_compress.cu",
+                          "replaces": "src/repro/kernels/gear_compress.py:128"},
+        "flash_prefill_block": {"name": "flash_prefill_block", "route": "cuda",
+                                "source": "src/repro_torch/kernels/csrc/flash_prefill_block.cu",
+                                "replaces": "src/repro/kernels/flash_prefill.py:145"},
+        "gear_decode_paged": {"name": "gear_decode_paged", "route": "cuda",
+                              "source": "src/repro_torch/kernels/csrc/gear_decode.cu",
+                              "replaces": "src/repro/kernels/gear_decode.py:219"},
     }
     print("[3] gear_decode vs plain")
     for pol in ("gear_kcvt4", "gear_kivi2"):
         decode_case(pol, flush, reports["gear_decode"])
+    history_case(flush, reports["gear_decode"])
     print("[4] flash_prefill vs plain")
     for i, case in enumerate(FLASH_CASES):
         flash_case(case, flush, reports["flash_prefill"], main=i == MAIN_FLASH_CASE)
-    print(f"[5] serving llama2-7b, gear_kcvt4, depth {args.layers}")
-    summary = serving(args.layers, flush, reports)
+    print("[5] gear_compress vs plain")
+    for pol in ("gear_kcvt4", "gear_kivi2"):
+        compress_case(pol, reports["gear_compress"])
+    print("[6] flash_prefill_block vs plain")
+    for T, rep in ((64, 1), (64, 4), (37, 1)):
+        block_case(T, rep, reports["flash_prefill_block"])
+    print("[7] gear_decode_paged vs plain and vs gear_decode")
+    for pol in ("gear_kcvt4", "gear_kivi2"):
+        paged_case(pol, reports["gear_decode_paged"])
 
-    print("[6] summary")
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    full = get_config("llama2-7b")
+    built_models, summaries = {}, {}
+    for phase, key, layers, fn, title in (
+            (8, "monolithic_dense", args.layers, serving, "monolithic prefill, dense layout"),
+            (9, "streaming_paged", full.num_layers, serving_paged,
+             "streaming prefill, paged pool")):
+        print(f"[{phase}] serving llama2-7b, gear_kcvt4, {title}, depth {layers}"
+              + ("" if layers == full.num_layers else
+                 f" (cut from {full.num_layers} by --layers)"))
+        if layers not in built_models:
+            cfg = dc.replace(full, num_layers=layers)
+            model = build_model(cfg)
+            t0 = time.perf_counter()
+            built_models[layers] = (model, model.init(seed=0, device=DEV), cfg)
+            torch.cuda.synchronize()
+            print(f"  llama2-7b width (d_model {cfg.d_model}, {cfg.num_heads} heads, d_ff "
+                  f"{cfg.d_ff}, vocab {cfg.vocab_size}), depth {layers} of {full.num_layers}: "
+                  f"{cfg.param_count() / 1e9:.2f} B params bf16, "
+                  f"init {time.perf_counter() - t0:.1f} s")
+        summaries[key] = fn(*built_models[layers], layers, flush, reports)
+
+    print("[10] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    dec = reports["gear_decode"]
+    dec["launches"] = sum(dec["launches_by_path"].values())
     kernels = []
     for rep in reports.values():
         row = {("max_abs_err" if k == "err" else k): rep[k] for k in keys}
+        row.update({k: v for k, v in rep.items() if k not in keys})
         kernels.append(row)
-    print(json.dumps({"serving": summary}))
+    print(json.dumps({"serving": summaries}))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

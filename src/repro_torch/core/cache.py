@@ -22,6 +22,17 @@ stores K in the V layout.)  Where the reference returns a new pytree, the
 port writes into the cache's tensors in place and returns the same object;
 each such write says so.  FP16 and sliding-window caches are not ported yet
 (ROADMAP queue item 10).
+
+Two more ways in and one more layout come from the reference:
+
+* streaming prefill (:func:`streaming_prefill_layer_cache`): the prompt's
+  closed chunks are compressed in one fused event, and each chunk's queries
+  attend the compressed history before it plus the chunk itself — decode's
+  semantics.  The cache equals a monolithic prefill's bit for bit.
+* the paged pool (:class:`PagedGEARLayerCache`): closed chunks live in
+  pages of a pool shared by all slots, named by per-slot block tables;
+  page 0 stays zero, so gathering a slot's pages gives the dense cache bit
+  for bit (:func:`paged_to_dense`).
 """
 
 from __future__ import annotations
@@ -32,13 +43,21 @@ import numpy as np
 import torch
 
 from repro_torch.core import gear as gear_lib
+from repro_torch.core import lowrank as lr_lib
 from repro_torch.core.outlier import outlier_count
 from repro_torch.core.policy import CompressionPolicy
+from repro_torch.kernels.gear_compress import gear_compress
+from repro_torch.models.common import resolve_device
 
 __all__ = [
     "CacheConfig", "GEARLayerCache", "NumericFault",
     "init_layer_cache", "prefill_layer_cache", "append_token",
     "splice_slot", "reset_slot", "tree_finite", "FIELDS",
+    "streaming_supported", "chunk_prefix_view", "streaming_prefill_layer_cache",
+    "PagedGEARLayerCache", "BlockTables", "POOLED_FIELDS", "paged_supported",
+    "page_field_shapes", "page_nbytes", "init_paged_layer_cache", "paged_to_dense",
+    "extract_prefix_chunks", "gather_pool_chunks", "scatter_pool_chunks",
+    "zero_pool_pages", "append_token_paged",
 ]
 
 NEG_INF = -1e30
@@ -142,7 +161,9 @@ def _k_per_channel(cfg: CacheConfig) -> bool:
     return cfg.k_scheme()[0] == "per_channel"
 
 
-def init_layer_cache(cfg: CacheConfig, dtype=torch.bfloat16, device="cpu") -> GEARLayerCache:
+def init_layer_cache(cfg: CacheConfig, dtype=torch.bfloat16, device=None) -> GEARLayerCache:
+    """Zero layer cache on ``device`` (CUDA unless the caller names another)."""
+    device = resolve_device(device)
     B, H, Dh, S = cfg.batch, cfg.kv_heads, cfg.head_dim, cfg.capacity
     pol = cfg.policy
     per = 32 // pol.bits
@@ -203,6 +224,38 @@ def _compress_chunks(cfg: CacheConfig, k: torch.Tensor, v: torch.Tensor, rank: i
         if pol.use_sparse:
             out[f"{name}_sp_val"] = cm.sparse.values.to(torch.bfloat16)
             out[f"{name}_sp_idx"] = cm.sparse.indices.to(torch.int32)
+    return out
+
+
+def _compress_chunks_fused(cfg: CacheConfig, k: torch.Tensor, v: torch.Tensor,
+                           rank: int) -> dict:
+    """Fused-kernel twin of :func:`_compress_chunks` (same output layout):
+    one ``gear_compress`` launch for all of K's B*H*C' tiles, one for V's,
+    then one batched power iteration per tensor on the kernel's residuals.
+    Equal to :func:`_compress_chunks` bit for bit (the streaming prefill's
+    compression event; the reference's ``fused="auto"``)."""
+    pol = cfg.policy
+    out = {}
+    for name, x in (("k", k), ("v", v)):
+        scheme, group = pol.scheme_for(name)
+        B, H, C, nb, Dh = x.shape
+        vec_len = nb if scheme == "per_channel" else Dh
+        n_out = outlier_count(vec_len, pol.sparsity) if pol.use_sparse else 0
+        packed, scale, zero, spv, spi, resid = gear_compress(
+            x.reshape(B * H * C, nb, Dh), bits=pol.bits, scheme=scheme, group=group,
+            n_out=n_out, stat_dtype=pol.stat_dtype)
+        lead = (B, H, C)
+        out[f"{name}_packed"] = packed.reshape(lead + tuple(packed.shape[1:]))
+        out[f"{name}_scale"] = scale.reshape(lead + tuple(scale.shape[1:])).to(torch.bfloat16)
+        out[f"{name}_zero"] = zero.reshape(lead + tuple(zero.shape[1:])).to(torch.bfloat16)
+        if pol.use_lowrank:
+            a, b = lr_lib.power_iteration(resid.reshape(lead + (nb, Dh)), rank, pol.power_iters)
+            pad = pol.rank - rank
+            out[f"{name}_a"] = torch.nn.functional.pad(a.to(torch.bfloat16), (0, pad))
+            out[f"{name}_b"] = torch.nn.functional.pad(b.to(torch.bfloat16), (0, pad))
+        if pol.use_sparse:
+            out[f"{name}_sp_val"] = spv.reshape(lead + tuple(spv.shape[1:])).to(torch.bfloat16)
+            out[f"{name}_sp_idx"] = spi.reshape(lead + tuple(spi.shape[1:])).to(torch.int32)
     return out
 
 
@@ -304,6 +357,130 @@ def append_token(cfg: CacheConfig, cache: GEARLayerCache, k_t: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Streaming prefill
+
+
+def streaming_supported(cfg: CacheConfig) -> bool:
+    """True when this layer cache can take the streaming prefill: its
+    history scorer (``gear_decode``) streams one K-stat row per chunk, so it
+    needs a GEAR cache with per-channel K stats at chunk granularity."""
+    if cfg.kind != "gear" or cfg.policy.is_fp16:
+        return False
+    scheme, group = cfg.k_scheme()
+    return scheme == "per_channel" and (cfg.chunk if group is None else group) == cfg.chunk
+
+
+def chunk_prefix_view(cfg: CacheConfig, cache: GEARLayerCache, n_chunks: int) -> GEARLayerCache:
+    """View of the first ``n_chunks`` chunks of a dense GEAR cache (buffer and
+    length pass through).  Scores past a query's extent are exact zeros
+    after the softmax, so attending through the prefix changes no value;
+    the plain history scorer uses it to skip the chunks no query can see."""
+    if n_chunks >= cfg.n_chunks:
+        return cache
+    S_pre = n_chunks * cfg.chunk
+    pol = cfg.policy
+    k_rows = _k_stat_rows(cfg)[0] // cfg.n_chunks * n_chunks
+    d = dict(k_packed=cache.k_packed[:, :, :S_pre], v_packed=cache.v_packed[:, :, :S_pre],
+             k_scale=cache.k_scale[:, :, :k_rows], k_zero=cache.k_zero[:, :, :k_rows],
+             v_scale=cache.v_scale[:, :, :S_pre], v_zero=cache.v_zero[:, :, :S_pre])
+    if pol.use_lowrank:
+        d.update(k_a=cache.k_a[:, :, :S_pre], v_a=cache.v_a[:, :, :S_pre],
+                 k_b=cache.k_b[:, :, :n_chunks], v_b=cache.v_b[:, :, :n_chunks])
+    if pol.use_sparse:
+        k_sp = n_chunks if _k_per_channel(cfg) else S_pre
+        d.update(k_sp_val=cache.k_sp_val[:, :, :k_sp], k_sp_idx=cache.k_sp_idx[:, :, :k_sp],
+                 v_sp_val=cache.v_sp_val[:, :, :S_pre], v_sp_idx=cache.v_sp_idx[:, :, :S_pre])
+    return dataclasses.replace(cache, **d)
+
+
+def streaming_prefill_pipeline(cfg: CacheConfig, cache: GEARLayerCache, n: int, q_heads: int,
+                               project, scale: float, *, tail_is_padded: bool = False,
+                               true_n: int | None = None):
+    """Shared body of the streaming chunked prefill (port of the
+    reference's ``streaming_prefill_pipeline``).
+
+    ``project(t0, t1) -> (q [B, q_heads, t1 - t0, Dh], k, v [B, H, t1 - t0,
+    Dh])`` gives the attention inputs of tokens ``[t0, t1)``.  The model
+    layer projects there, one chunk at a time, so the full-sequence FP16 K/V
+    never exists: each closed chunk's K and V are widened straight into one
+    f32 tile buffer [B, H, C', n_b, Dh] each (its Q into [B, H, C', G, n_b,
+    Dh]).  Those buffers are the compression input, so every closed chunk
+    is compressed in one fused event (:func:`_compress_chunks_fused`: one
+    ``gear_compress`` launch for K, one for V), and the attention input, so
+    each chunk's queries attend the compressed history before it plus the
+    chunk itself in one ``ops.gear_attend_block`` call.  The leftover tokens
+    attend the same way and land in the FP16 buffer.  The cache equals
+    :func:`prefill_layer_cache`'s bit for bit; the attention output sees
+    the history compressed, as decode does.
+
+    ``tail_is_padded`` is the length-bucketing hook: ``n`` is then a chunk
+    multiple whose last ``n_b`` block is a right-padded tail holding
+    ``true_n - (n - n_b)`` real tokens.  That block is never compressed; it
+    lands in the buffer, and ``length`` is set from ``true_n``, so decode
+    masks the pad rows.  Writes ``cache`` in place; returns (cache,
+    out [B, q_heads, n, Dh] in q's dtype).
+    """
+    if not streaming_supported(cfg):
+        raise ValueError(
+            "streaming prefill requires a GEAR cache with per-channel K stats at chunk "
+            f"granularity (got k_scheme={cfg.k_scheme()!r}, chunk={cfg.chunk})")
+    from repro_torch.kernels import ops      # lazy: the kernels import this module
+
+    nb, H, Dh = cfg.chunk, cfg.kv_heads, cfg.head_dim
+    B = cache.length.shape[0]
+    G = q_heads // H
+    f32 = torch.float32
+    if tail_is_padded and n % nb:
+        raise ValueError(f"padded-tail prefill needs n % n_b == 0 (n={n}, n_b={nb})")
+    C_new = n // nb - 1 if tail_is_padded else n // nb
+    n_full = C_new * nb
+    rem = n - n_full
+    n_real = n if true_n is None else int(true_n)
+    if n_real > cfg.capacity:
+        raise ValueError(f"prefill of {n_real} tokens exceeds capacity {cfg.capacity}")
+    outs = []
+    if C_new:
+        dev = cache.length.device
+        kt = torch.empty((B, H, C_new, nb, Dh), dtype=f32, device=dev)
+        vt = torch.empty_like(kt)
+        qt = torch.empty((B, H, C_new, G, nb, Dh), dtype=f32, device=dev)
+        for c in range(C_new):
+            q_c, k_c, v_c = project(c * nb, (c + 1) * nb)
+            kt[:, :, c] = k_c                  # exact widening, as the reference's astype
+            vt[:, :, c] = v_c
+            qt[:, :, c] = q_c.reshape(B, H, G, nb, Dh)
+        comp = _compress_chunks_fused(cfg, kt, vt, cfg.policy.rank)
+        _store_chunks(cfg, cache, comp, slice(None), C_new, 0)
+        out = ops.gear_attend_block(cfg, cache, qt, kt, vt, [c * nb for c in range(C_new)], nb,
+                                    scale)
+        # [B, H, C', G, nb, Dh] -> [B, Hq, n_full, Dh]
+        outs.append(out.permute(0, 1, 3, 2, 4, 5).reshape(B, q_heads, n_full, Dh).to(q_c.dtype))
+    if rem:
+        q_c, k_t, v_t = project(n_full, n)
+        out = ops.gear_attend_block(cfg, cache, q_c.to(f32).reshape(B, H, 1, G, rem, Dh),
+                                    k_t.to(f32)[:, :, None], v_t.to(f32)[:, :, None], [n_full],
+                                    rem, scale)
+        outs.append(out[:, :, 0].reshape(B, q_heads, rem, Dh).to(q_c.dtype))
+        cache.buf_k[:, :, :rem] = k_t.to(cache.buf_k.dtype)
+        cache.buf_v[:, :, :rem] = v_t.to(cache.buf_v.dtype)
+    cache.length.fill_(n_real)
+    return cache, outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+def streaming_prefill_layer_cache(cfg: CacheConfig, cache: GEARLayerCache, q: torch.Tensor,
+                                  k: torch.Tensor, v: torch.Tensor, scale: float, *,
+                                  tail_is_padded: bool = False, true_n: int | None = None):
+    """Streaming chunked prefill over precomputed q [B, Hq, n, Dh] and k, v
+    [B, H, n, Dh], sliced per chunk into :func:`streaming_prefill_pipeline`
+    (the model layer instead projects per chunk).  Returns (cache,
+    out [B, Hq, n, Dh] in q's dtype)."""
+    return streaming_prefill_pipeline(
+        cfg, cache, q.shape[2], q.shape[1],
+        lambda t0, t1: (q[:, :, t0:t1], k[:, :, t0:t1], v[:, :, t0:t1]), scale,
+        tail_is_padded=tail_is_padded, true_n=true_n)
+
+
+# ---------------------------------------------------------------------------
 # Slot protocol + numeric guard
 
 
@@ -331,3 +508,216 @@ def tree_finite(caches) -> torch.Tensor:
     if not oks:
         return torch.tensor(True)
     return torch.stack(oks).all()
+
+
+# ---------------------------------------------------------------------------
+# Paged compressed KV pool
+#
+# One page holds one n_b-token chunk's compressed fields for one layer: every
+# chunk-indexed field of the dense layout (``_chunk_row_axes``) has a pooled
+# twin whose batch axis is a page axis and whose chunk-row axis is one
+# chunk's rows.  A per-slot block table [B, C] names the page of each logical
+# chunk; page 0 is never allocated and stays zero, and fresh pages are zeroed
+# at admission, so every table entry past a slot's extent reads the dense
+# layout's zeros.  The FP16 buffer and ``length`` stay per-slot.
+
+
+POOLED_FIELDS = FIELDS[:14]
+
+
+@dataclasses.dataclass
+class PagedGEARLayerCache:
+    """GEAR layer cache with pooled chunk storage: pooled fields are
+    ``[P, ...one page]``; ``buf_k``/``buf_v`` ``[B, H, n_b, Dh]`` and
+    ``length [B]`` stay per-slot."""
+
+    k_packed: torch.Tensor
+    k_scale: torch.Tensor
+    k_zero: torch.Tensor
+    v_packed: torch.Tensor
+    v_scale: torch.Tensor
+    v_zero: torch.Tensor
+    k_a: torch.Tensor | None
+    k_b: torch.Tensor | None
+    v_a: torch.Tensor | None
+    v_b: torch.Tensor | None
+    k_sp_val: torch.Tensor | None
+    k_sp_idx: torch.Tensor | None
+    v_sp_val: torch.Tensor | None
+    v_sp_idx: torch.Tensor | None
+    buf_k: torch.Tensor
+    buf_v: torch.Tensor
+    length: torch.Tensor
+
+    def tensors(self) -> dict:
+        return {f: getattr(self, f) for f in FIELDS if getattr(self, f) is not None}
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTables:
+    """A paged engine's block tables ``[B, C]`` (int32): the host mirror, from
+    which a closing decode chunk's page is chosen without a device sync, and
+    its device copy, which the kernel reads.  The engine builds a new pair
+    at each admission and release, never per step."""
+
+    host: np.ndarray
+    device: torch.Tensor
+
+
+def _chunk_row_axes(cfg: CacheConfig) -> dict:
+    """Field -> ``(rows_per_chunk, row_axis_from_end)``: chunk ``c`` of a dense
+    cache field occupies rows ``[c * rpc, (c + 1) * rpc)`` of that axis."""
+    if cfg.kind != "gear":
+        raise ValueError(f"chunk rows require a GEAR cache, got {cfg.kind!r}")
+    pol = cfg.policy
+    nb, C = cfg.chunk, cfg.n_chunks
+    spec = {"k_packed": (nb, -2), "v_packed": (nb, -2),
+            "k_scale": (_k_stat_rows(cfg)[0] // C, -2), "k_zero": (_k_stat_rows(cfg)[0] // C, -2),
+            "v_scale": (_v_stat_rows(cfg)[0] // C, -2), "v_zero": (_v_stat_rows(cfg)[0] // C, -2)}
+    if pol.use_lowrank:
+        spec.update(k_a=(nb, -2), v_a=(nb, -2), k_b=(1, -3), v_b=(1, -3))
+    if pol.use_sparse:
+        k_row = (1, -3) if _k_per_channel(cfg) else (nb, -2)
+        spec.update(k_sp_val=k_row, k_sp_idx=k_row, v_sp_val=(nb, -2), v_sp_idx=(nb, -2))
+    return spec
+
+
+def extract_prefix_chunks(cfg: CacheConfig, cache: GEARLayerCache,
+                          n_chunks: int) -> list[dict]:
+    """Per-chunk payload dicts (views) of the first ``n_chunks`` chunks of a
+    dense cache, batch axis kept."""
+    spec = _chunk_row_axes(cfg)
+    out = []
+    for c in range(n_chunks):
+        payload = {}
+        for field, (rpc, ax) in spec.items():
+            arr = getattr(cache, field)
+            payload[field] = arr.narrow(arr.dim() + ax, c * rpc, rpc)
+        out.append(payload)
+    return out
+
+
+def paged_supported(cfg: CacheConfig) -> bool:
+    """Any GEAR layout can live in the pool (gathering reassembles the dense
+    layout bit for bit); fp16 caches have no chunks."""
+    return cfg.kind == "gear" and not cfg.policy.is_fp16
+
+
+def page_field_shapes(cfg: CacheConfig, dtype=torch.bfloat16) -> dict:
+    """Field -> ``(page_shape, dtype)`` of one pool page: the batch-1 dense
+    field without its batch axis, its chunk-row axis cut to one chunk."""
+    one = init_layer_cache(dataclasses.replace(cfg, batch=1), dtype, device="meta")
+    out = {}
+    for field, (rpc, ax) in _chunk_row_axes(cfg).items():
+        leaf = getattr(one, field)
+        shape = list(leaf.shape[1:])
+        shape[len(shape) + ax] = rpc
+        out[field] = (tuple(shape), leaf.dtype)
+    return out
+
+
+def page_nbytes(cfg: CacheConfig, dtype=torch.bfloat16) -> int:
+    """Bytes of one pool page for one layer of this geometry."""
+    return sum(int(np.prod(shape)) * dt.itemsize
+               for shape, dt in page_field_shapes(cfg, dtype).values())
+
+
+def init_paged_layer_cache(cfg: CacheConfig, n_pages: int, dtype=torch.bfloat16,
+                           device=None) -> PagedGEARLayerCache:
+    """Zero pool of ``n_pages`` pages (page 0 reserved) plus per-slot buffers
+    for ``cfg.batch`` slots, on ``device`` (CUDA unless named)."""
+    if not paged_supported(cfg):
+        raise ValueError(f"paged layout requires a GEAR cache, got {cfg.kind!r}")
+    if n_pages < 2:
+        raise ValueError(f"need >= 2 pages (page 0 is reserved), got {n_pages}")
+    device = resolve_device(device)
+    shapes = page_field_shapes(cfg, dtype)
+    pooled = {f: None if f not in shapes else
+              torch.zeros((n_pages,) + shapes[f][0], dtype=shapes[f][1], device=device)
+              for f in POOLED_FIELDS}
+    B, H, Dh = cfg.batch, cfg.kv_heads, cfg.head_dim
+    return PagedGEARLayerCache(
+        **pooled,
+        buf_k=torch.zeros((B, H, cfg.chunk, Dh), dtype=dtype, device=device),
+        buf_v=torch.zeros((B, H, cfg.chunk, Dh), dtype=dtype, device=device),
+        length=torch.zeros((B,), dtype=torch.int32, device=device))
+
+
+def paged_to_dense(cfg: CacheConfig, pcache: PagedGEARLayerCache,
+                   block_tables: torch.Tensor) -> GEARLayerCache:
+    """Gather the pool through ``block_tables [B, C]`` into a dense cache
+    (bitwise the dense slot layout under the zero-page invariant)."""
+    bt = block_tables.to(torch.int64)
+    fields = {f: None for f in POOLED_FIELDS}
+    for field, (rpc, ax) in _chunk_row_axes(cfg).items():
+        g = getattr(pcache, field)[bt]                   # [B, C, ...page]
+        row_axis = g.dim() + ax
+        g = torch.movedim(g, 1, row_axis - 1)            # C next to the chunk rows
+        shape = list(g.shape)
+        shape[row_axis - 1:row_axis + 1] = [shape[row_axis - 1] * shape[row_axis]]
+        fields[field] = g.reshape(shape)
+    return GEARLayerCache(**fields, buf_k=pcache.buf_k, buf_v=pcache.buf_v,
+                          length=pcache.length)
+
+
+def gather_pool_chunks(cfg: CacheConfig, pcache: PagedGEARLayerCache,
+                       pages: torch.Tensor) -> list[dict]:
+    """Pool pages as per-chunk payload dicts with a leading batch-1 axis (the
+    inverse of :func:`scatter_pool_chunks`)."""
+    spec = _chunk_row_axes(cfg)
+    return [{f: getattr(pcache, f)[int(p)][None] for f in spec} for p in pages]
+
+
+def scatter_pool_chunks(cfg: CacheConfig, pcache: PagedGEARLayerCache, pages: torch.Tensor,
+                        chunks: list[dict]) -> PagedGEARLayerCache:
+    """Write batch-1 payload dicts (:func:`extract_prefix_chunks` layout) into
+    pool pages ``pages [len(chunks)]`` (a long tensor on the pool's device),
+    in place: a batch-1 prefill's closed chunks become the slot's pages."""
+    if not chunks:
+        return pcache
+    for field in _chunk_row_axes(cfg):
+        pool = getattr(pcache, field)
+        pool[pages] = torch.stack([ch[field][0] for ch in chunks]).to(pool.dtype)
+    return pcache
+
+
+def zero_pool_pages(cfg: CacheConfig, pcache: PagedGEARLayerCache,
+                    pages: torch.Tensor) -> PagedGEARLayerCache:
+    """Zero the given pool pages in place: run at admission on fresh pages,
+    so exposed-but-unwritten table entries keep reading zeros."""
+    if len(pages):
+        for field in _chunk_row_axes(cfg):
+            getattr(pcache, field).index_fill_(0, pages, 0)
+    return pcache
+
+
+def append_token_paged(cfg: CacheConfig, pcache: PagedGEARLayerCache, block_tables: np.ndarray,
+                       k_t: torch.Tensor, v_t: torch.Tensor,
+                       lengths: np.ndarray) -> PagedGEARLayerCache:
+    """Paged twin of :func:`append_token`: the same buffer writes and the same
+    batch-1 chunk compression, stored into the slot's page for that chunk
+    (``block_tables`` is the host mirror [B, C]).  A slot whose table names
+    page 0 there (an idle slot, or a chunk past its reservation) drops the
+    write, so the zero page is never touched.  All writes are in place."""
+    nb = cfg.chunk
+    B = pcache.length.shape[0]
+    lengths = np.asarray(lengths, np.int64)
+    bidx = torch.arange(B, device=k_t.device)
+    buf_pos = pcache.length.long() % nb
+    pcache.buf_k[bidx, :, buf_pos] = k_t.to(pcache.buf_k.dtype)
+    pcache.buf_v[bidx, :, buf_pos] = v_t.to(pcache.buf_v.dtype)
+    pcache.length += 1
+    new = lengths + 1
+    need = (new % nb == 0) & (new > 0) & (new <= cfg.capacity)
+    for b in np.nonzero(need)[0]:
+        b = int(b)
+        page = int(block_tables[b, (new[b] - 1) // nb])
+        if page == 0:
+            continue
+        comp = _compress_chunks(cfg, pcache.buf_k[b:b + 1, :, None].to(torch.float32),
+                                pcache.buf_v[b:b + 1, :, None].to(torch.float32),
+                                cfg.policy.rank_decode)
+        for field in _chunk_row_axes(cfg):
+            pool = getattr(pcache, field)
+            pool[page] = comp[field].reshape(pool.shape[1:])
+    return pcache

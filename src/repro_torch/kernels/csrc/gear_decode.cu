@@ -2,7 +2,11 @@
 //
 // Replaces: src/repro/kernels/gear_decode.py::gear_decode (Pallas `_kernel`),
 // the fused dequant + low-rank + outlier decode attention of one query token
-// per (batch, kv-head) row over that row's closed chunks.
+// per (batch, kv-head) row over that row's closed chunks, and its paged twin
+// gear_decode_paged, which reads each chunk from a pool page named by the
+// slot's block table (page 0 is the pool's zero page).  Streaming prefill
+// runs the dense kernel as its history scorer with the block's G x T query
+// rows per (batch, kv-head) row.
 //
 // What bounds it on the H100: bytes.  A decode step reads each row's packed
 // codes, quant stats, low-rank factors and outliers once (~15 KB per row and
@@ -48,7 +52,12 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// grid (C, BH); one block per (chunk c, row bh).
+// grid (C, BH); one block per (chunk c, row bh).  PAGED reads the chunk's
+// operands from pool page row bt[b, c] * H + h (each pool row holds one
+// chunk: S = nb tokens, 1 chunk row); the dense layout reads row bh at chunk
+// offset c.  Nothing else differs, so both give the same bits on the same
+// values.
+template <bool PAGED>
 __global__ void __launch_bounds__(THREADS) gear_decode_partial(
     const float* __restrict__ q,                 // [BH, G, Dh]
     const int32_t* __restrict__ k_packed,        // [BH, S, L]
@@ -69,7 +78,8 @@ __global__ void __launch_bounds__(THREADS) gear_decode_partial(
     float* __restrict__ part_acc,                // [BH, C, G, Dh]
     float* __restrict__ part_m,                  // [BH, C, G]
     float* __restrict__ part_l,
-    int G, int S, int nb, int Dh, int bits, int gv, int r, int ks, int kv,
+    const int32_t* __restrict__ bt,              // [B, C] block tables (PAGED only)
+    int H, int G, int S, int nb, int Dh, int bits, int gv, int r, int ks, int kv,
     float scale) {
   const int c = blockIdx.x;
   const int bh = blockIdx.y;
@@ -93,8 +103,16 @@ __global__ void __launch_bounds__(THREADS) gear_decode_partial(
   float* qb = sc + G * nb;          // [G, r]
   float* pa = qb + G * (r > 0 ? r : 1);  // [G, r]
 
-  const long row_tok = (long)bh * S + t0;       // first token row of the chunk
-  const long row_chk = (long)bh * C + c;        // chunk row
+  long row_tok, row_chk;                        // first token row, chunk row
+  if (PAGED) {
+    const long page_row = (long)bt[(bh / H) * C + c] * H + bh % H;
+    row_tok = page_row * nb;
+    row_chk = page_row;
+  } else {
+    row_tok = (long)bh * S + t0;
+    row_chk = (long)bh * C + c;
+  }
+  const long out_chk = (long)bh * C + c;        // partial-output row
 
   for (int i = tid; i < G * Dh; i += THREADS) qs[i] = q[(long)bh * G * Dh + i];
 
@@ -172,8 +190,8 @@ __global__ void __launch_bounds__(THREADS) gear_decode_partial(
     }
     sum = warp_sum(sum);
     if (lane == 0) {
-      part_m[row_chk * G + g] = mx;
-      part_l[row_chk * G + g] = sum;
+      part_m[out_chk * G + g] = mx;
+      part_l[out_chk * G + g] = sum;
     }
   }
   __syncthreads();
@@ -200,7 +218,7 @@ __global__ void __launch_bounds__(THREADS) gear_decode_partial(
       for (int rr = 0; rr < r; ++rr) lr += pa[g * r + rr] * bf(v_b, (row_chk * Dh + d) * r + rr);
       acc += lr;
     }
-    part_acc[(row_chk * G + g) * Dh + d] = acc;
+    part_acc[(out_chk * G + g) * Dh + d] = acc;
   }
 }
 
@@ -236,6 +254,39 @@ __global__ void __launch_bounds__(THREADS) gear_decode_combine(
   }
 }
 
+template <bool PAGED>
+int launch(const void* q, const void* k_packed, const void* k_scale, const void* k_zero,
+           const void* v_packed, const void* v_scale, const void* v_zero,
+           const void* k_a, const void* k_b, const void* v_a, const void* v_b,
+           const void* k_sp_val, const void* k_sp_idx, const void* v_sp_val,
+           const void* v_sp_idx, const void* n_comp, const void* bt, void* part_acc,
+           void* part_m, void* part_l, void* acc, void* m, void* l,
+           int BH, int H, int G, int C, int nb, int Dh, int bits, int gv, int r, int ks,
+           int kv, float scale, void* stream) {
+  const size_t smem = sizeof(float) *
+      (2 * (size_t)nb * Dh + (size_t)G * Dh + (size_t)G * nb + 2 * (size_t)G * (r > 0 ? r : 1));
+  cudaError_t err = cudaFuncSetAttribute(
+      gear_decode_partial<PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  gear_decode_partial<PAGED><<<dim3(C, BH), THREADS, smem, st>>>(
+      (const float*)q, (const int32_t*)k_packed,
+      (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)k_zero,
+      (const int32_t*)v_packed, (const __nv_bfloat16*)v_scale, (const __nv_bfloat16*)v_zero,
+      (const __nv_bfloat16*)k_a, (const __nv_bfloat16*)k_b,
+      (const __nv_bfloat16*)v_a, (const __nv_bfloat16*)v_b,
+      (const __nv_bfloat16*)k_sp_val, (const int32_t*)k_sp_idx,
+      (const __nv_bfloat16*)v_sp_val, (const int32_t*)v_sp_idx,
+      (const int32_t*)n_comp, (float*)part_acc, (float*)part_m, (float*)part_l,
+      (const int32_t*)bt, H, G, C * nb, nb, Dh, bits, gv, r, ks, kv, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gear_decode_combine<<<BH, THREADS, 0, st>>>(
+      (const float*)part_acc, (const float*)part_m, (const float*)part_l,
+      (const int32_t*)n_comp, (float*)acc, (float*)m, (float*)l, G, C, nb, Dh);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int gear_decode_launch(
@@ -247,27 +298,24 @@ extern "C" int gear_decode_launch(
     void* acc, void* m, void* l,
     int BH, int G, int S, int nb, int Dh, int bits, int gv, int r, int ks, int kv,
     float scale, void* stream) {
-  const int C = S / nb;
-  const size_t smem = sizeof(float) *
-      (2 * (size_t)nb * Dh + (size_t)G * Dh + (size_t)G * nb + 2 * (size_t)G * (r > 0 ? r : 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      gear_decode_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  gear_decode_partial<<<dim3(C, BH), THREADS, smem, st>>>(
-      (const float*)q, (const int32_t*)k_packed,
-      (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)k_zero,
-      (const int32_t*)v_packed, (const __nv_bfloat16*)v_scale, (const __nv_bfloat16*)v_zero,
-      (const __nv_bfloat16*)k_a, (const __nv_bfloat16*)k_b,
-      (const __nv_bfloat16*)v_a, (const __nv_bfloat16*)v_b,
-      (const __nv_bfloat16*)k_sp_val, (const int32_t*)k_sp_idx,
-      (const __nv_bfloat16*)v_sp_val, (const int32_t*)v_sp_idx,
-      (const int32_t*)n_comp, (float*)part_acc, (float*)part_m, (float*)part_l,
-      G, S, nb, Dh, bits, gv, r, ks, kv, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gear_decode_combine<<<BH, THREADS, 0, st>>>(
-      (const float*)part_acc, (const float*)part_m, (const float*)part_l,
-      (const int32_t*)n_comp, (float*)acc, (float*)m, (float*)l, G, C, nb, Dh);
-  return (int)cudaGetLastError();
+  return launch<false>(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, k_a, k_b, v_a,
+                       v_b, k_sp_val, k_sp_idx, v_sp_val, v_sp_idx, n_comp, nullptr, part_acc,
+                       part_m, part_l, acc, m, l, BH, 1, G, S / nb, nb, Dh, bits, gv, r, ks,
+                       kv, scale, stream);
+}
+
+// Paged twin: pool operands [P*H, nb or 1, ...] and block tables bt [B, C].
+extern "C" int gear_decode_paged_launch(
+    const void* q, const void* k_packed, const void* k_scale, const void* k_zero,
+    const void* v_packed, const void* v_scale, const void* v_zero,
+    const void* k_a, const void* k_b, const void* v_a, const void* v_b,
+    const void* k_sp_val, const void* k_sp_idx, const void* v_sp_val, const void* v_sp_idx,
+    const void* n_comp, const void* bt, void* part_acc, void* part_m, void* part_l,
+    void* acc, void* m, void* l,
+    int BH, int H, int G, int C, int nb, int Dh, int bits, int gv, int r, int ks, int kv,
+    float scale, void* stream) {
+  return launch<true>(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, k_a, k_b, v_a,
+                      v_b, k_sp_val, k_sp_idx, v_sp_val, v_sp_idx, n_comp, bt, part_acc,
+                      part_m, part_l, acc, m, l, BH, H, G, C, nb, Dh, bits, gv, r, ks, kv,
+                      scale, stream);
 }

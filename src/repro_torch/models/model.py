@@ -29,24 +29,34 @@ class Model:
 
     @torch.inference_mode()
     def prefill(self, params: tfm.Transformer, batch: dict, policy: CompressionPolicy,
-                capacity: int):
-        """Monolithic prefill of ``batch["tokens"]`` [B, S] on the weights'
-        device.  Returns (logits [B, 1, V], per-layer caches)."""
+                capacity: int, prefill_mode: str = "monolithic", padded_tail: bool = False,
+                true_len: int | None = None):
+        """Prefill of ``batch["tokens"]`` [B, S] on the weights' device,
+        ``prefill_mode`` "monolithic" or "streaming" (same caches; see
+        :func:`repro_torch.models.transformer.forward_prefill`, also for the
+        bucketing hooks ``padded_tail`` / ``true_len``).  Returns (logits
+        [B, 1, V], per-layer caches)."""
         tokens = torch.as_tensor(batch["tokens"], device=params.device)
-        return tfm.forward_prefill(params, tokens, policy, capacity)
+        return tfm.forward_prefill(params, tokens, policy, capacity, prefill_mode,
+                                   padded_tail, true_len)
 
     @torch.inference_mode()
     def decode_step(self, params: tfm.Transformer, token_batch: dict, caches, pos,
-                    policy: CompressionPolicy, capacity: int, lengths=None):
+                    policy: CompressionPolicy, capacity: int, lengths=None, block_tables=None):
         """One decode step; ``pos`` is a scalar or a per-slot [B] vector of
-        absolute positions.  The caches advance in place; returns (logits
-        [B, 1, V], caches)."""
+        absolute positions; ``block_tables`` (a
+        :class:`~repro_torch.core.cache.BlockTables`) is required for caches
+        built with ``layout="paged"``.  The caches advance in place; returns
+        (logits [B, 1, V], caches)."""
         tokens = torch.as_tensor(token_batch["tokens"], device=params.device)
-        logits = tfm.decode_tokens(params, tokens, caches, pos, policy, capacity, lengths)
+        logits = tfm.decode_tokens(params, tokens, caches, pos, policy, capacity, lengths,
+                                   block_tables)
         return logits, caches
 
-    def init_caches(self, policy: CompressionPolicy, batch: int, capacity: int, device=None):
-        return tfm.init_caches(self.cfg, policy, batch, capacity, resolve_device(device))
+    def init_caches(self, policy: CompressionPolicy, batch: int, capacity: int, device=None,
+                    layout: str = "dense", pool_pages: int = 0):
+        return tfm.init_caches(self.cfg, policy, batch, capacity, resolve_device(device),
+                               layout=layout, pool_pages=pool_pages)
 
 
 def build_model(cfg: ModelConfig) -> Model:

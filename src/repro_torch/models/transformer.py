@@ -1,5 +1,6 @@
-"""Decoder stack: weights, monolithic prefill and one decode step (port of
-``repro.models.transformer`` for dense global-attention models).
+"""Decoder stack: weights, monolithic or streaming prefill and one decode
+step over dense or paged caches (port of ``repro.models.transformer`` for
+dense global-attention models).
 
 Where the reference stacks per-layer parameters and caches over repeats and
 drives them with ``lax.scan``, the port holds one :class:`Block` and one
@@ -102,11 +103,20 @@ def cache_cfg_for(cfg: ModelConfig, policy: CompressionPolicy, batch: int,
 
 
 def init_caches(cfg: ModelConfig, policy: CompressionPolicy, batch: int, capacity: int,
-                device, dtype=torch.bfloat16) -> list:
-    """One empty :class:`~repro_torch.core.cache.GEARLayerCache` per layer."""
+                device, dtype=torch.bfloat16, layout: str = "dense", pool_pages: int = 0) -> list:
+    """One empty layer cache per layer: a dense
+    :class:`~repro_torch.core.cache.GEARLayerCache`, or for ``layout="paged"``
+    a :class:`~repro_torch.core.cache.PagedGEARLayerCache` whose pool holds
+    ``pool_pages`` pages (page 0 reserved).  Every layer's pool is addressed
+    by one engine-owned block table."""
     if policy.is_fp16:
         raise NotImplementedError("fp16 caches are not ported yet (ROADMAP queue item 10)")
+    if layout not in ("dense", "paged"):
+        raise ValueError(f"layout must be dense/paged, got {layout!r}")
     ccfg = cache_cfg_for(cfg, policy, batch, capacity)
+    if layout == "paged":
+        return [cache_lib.init_paged_layer_cache(ccfg, pool_pages, dtype, device)
+                for _ in range(cfg.num_layers)]
     return [cache_lib.init_layer_cache(ccfg, dtype, device) for _ in range(cfg.num_layers)]
 
 
@@ -121,32 +131,58 @@ def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
 
 
 def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: CompressionPolicy,
-                    capacity: int):
-    """Monolithic prefill of ``tokens`` [B, S].  Returns (logits of the last
-    position [B, 1, V], one filled layer cache per layer)."""
+                    capacity: int, prefill_mode: str = "monolithic", padded_tail: bool = False,
+                    true_len: int | None = None):
+    """Prefill of ``tokens`` [B, S].  Returns (logits [B, 1, V] of the last
+    real position, one filled layer cache per layer).
+
+    ``prefill_mode="monolithic"``: full-sequence attention, then one batched
+    compression event per layer.  ``"streaming"``: each layer compresses its
+    closed chunks first and attends the history in compressed form (a layer
+    that cannot stream falls back to monolithic); both build the same
+    caches.  ``padded_tail`` / ``true_len`` (streaming only) are the
+    length-bucketing hooks: ``tokens`` is right-padded to a chunk multiple,
+    the padded block stays out of compression, lengths and the returned
+    logits come from position ``true_len - 1``."""
+    if prefill_mode not in ("monolithic", "streaming"):
+        raise ValueError(f"prefill_mode must be monolithic/streaming, got {prefill_mode!r}")
+    if padded_tail and prefill_mode != "streaming":
+        raise ValueError("padded_tail requires prefill_mode='streaming'")
     cfg = model.cfg
     x = embed_tokens(model, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     ccfg = cache_cfg_for(cfg, policy, B, capacity)
+    stream = prefill_mode == "streaming" and attn_lib.streaming_prefill_supported(cfg, ccfg)
+    if padded_tail and not stream:
+        raise ValueError("bucketed prefill needs every layer to support streaming")
     caches = []
     for blk in model.blocks:
-        h, (k, v) = attn_lib.attention_prefill(cfg, blk, rmsnorm(x, blk.ln1), rope)
+        xin = rmsnorm(x, blk.ln1)
+        if stream:
+            h, cache = attn_lib.attention_prefill_streaming(
+                cfg, blk, xin, rope, ccfg, padded_tail=padded_tail, true_len=true_len)
+        else:
+            h, (k, v) = attn_lib.attention_prefill(cfg, blk, xin, rope)
+            cache = cache_lib.prefill_layer_cache(
+                ccfg, cache_lib.init_layer_cache(ccfg, torch.bfloat16, x.device), k, v)
         x = x + h
         x = x + mlp_apply(blk, rmsnorm(x, blk.ln2))
-        cache = cache_lib.init_layer_cache(ccfg, torch.bfloat16, x.device)
-        caches.append(cache_lib.prefill_layer_cache(ccfg, cache, k, v))
+        caches.append(cache)
     x = rmsnorm(x, model.final_norm)
-    return logits_from_hidden(model, x[:, -1:, :]), caches
+    last = S if true_len is None else int(true_len)
+    return logits_from_hidden(model, x[:, last - 1:last, :]), caches
 
 
 def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
-                  policy: CompressionPolicy, capacity: int, lengths=None) -> torch.Tensor:
+                  policy: CompressionPolicy, capacity: int, lengths=None,
+                  block_tables: cache_lib.BlockTables | None = None) -> torch.Tensor:
     """One decode step.  tokens [B, 1]; ``pos`` [B] per-slot absolute
     positions; ``lengths`` the host copy of the caches' per-slot lengths
     (read from the first layer cache, one device sync per step, when not
-    given).  Updates ``caches`` in place; returns logits [B, 1, V]."""
+    given); ``block_tables`` addresses every layer's pool for paged caches.
+    Updates ``caches`` in place; returns logits [B, 1, V]."""
     cfg = model.cfg
     x = embed_tokens(model, tokens)
     B = x.shape[0]
@@ -158,7 +194,7 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
     ccfg = cache_cfg_for(cfg, policy, B, capacity)
     for blk, cache in zip(model.blocks, caches):
         x = x + attn_lib.attention_decode(cfg, blk, rmsnorm(x, blk.ln1), rope, cache, ccfg,
-                                          lengths)
+                                          lengths, block_tables)
         x = x + mlp_apply(blk, rmsnorm(x, blk.ln2))
     x = rmsnorm(x, model.final_norm)
     return logits_from_hidden(model, x)

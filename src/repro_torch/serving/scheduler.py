@@ -4,8 +4,10 @@
 A step loop decodes all B slots each step with per-slot positions; the
 moment a slot's request reaches its EOS or budget, the next queued request
 is prefilled at batch 1 and spliced into that slot while the others keep
-decoding.  Retries, deadlines, quarantine handling, fault injection, prefix
-admission and telemetry arrive with ROADMAP queue item 9.
+decoding.  On the paged layout a request is admitted only when the pool
+holds the pages of its lifetime; until then it waits at the queue head.
+Retries, deadlines, quarantine handling, fault injection, prefix admission
+and telemetry arrive with ROADMAP queue item 9.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.pagedpool import PoolExhausted, pages_needed
 from repro_torch.serving.resilience import RequestStatus
 from repro_torch.serving.sampling import sample
 
@@ -52,7 +55,8 @@ class Scheduler:
 
     def _need_tokens(self, req: Request) -> int:
         """Cache tokens the request's lifetime holds: prompt + one appended
-        token per decode step (the first token comes from prefill)."""
+        token per decode step (the first token comes from prefill).  A paged
+        admission reserves exactly these pages."""
         return len(req.tokens) + req.max_new_tokens - 1
 
     def submit(self, req: Request) -> None:
@@ -63,6 +67,14 @@ class Scheduler:
             raise ValueError(
                 f"request {req.rid}: prompt of {len(req.tokens)} + budget "
                 f"{req.max_new_tokens} needs {need} cache tokens but engine capacity is {cap}")
+        pool = self.engine.pool
+        if pool is not None:
+            pages = pages_needed(need, self.engine.ecfg.policy.buffer_size)
+            most = min(pool.n_pages - 1, pool.n_chunks)
+            if pages > most:
+                raise ValueError(
+                    f"request {req.rid}: needs {pages} pool pages but the engine can ever "
+                    f"allocate at most {most} to one slot")
         self.queue.append(req)
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
@@ -88,6 +100,8 @@ class Scheduler:
         prefill_s = np.zeros(B)
         decode_s = np.zeros(B)
         steps = 0
+        waited = set()                     # rids a decode step ran without, for want of pages
+        wait_steps = 0                     # decode steps run with such a request waiting
         t_decode_total = 0.0
         t_all = time.time()
 
@@ -100,11 +114,16 @@ class Scheduler:
             done[s] = True
             cur[s] = 0
 
-        def splice(s: int) -> None:
-            r = self.queue.popleft()
+        def splice(s: int) -> bool:
+            r = self.queue[0]
             prompt = np.asarray(r.tokens, np.int32)[None]   # raw, unpadded
             t0 = time.time()
-            logits = view.prefill_slot({"tokens": prompt}, s)
+            try:
+                logits = view.prefill_slot({"tokens": prompt}, s,
+                                           reserve_tokens=self._need_tokens(r))
+            except PoolExhausted:
+                return False               # stays at the head until pages come back
+            self.queue.popleft()
             first = int(self._sample(logits)[0])
             prefill_s[s] = time.time() - t0
             fresh[s] = False
@@ -117,11 +136,13 @@ class Scheduler:
             done[s] = False
             if r.max_new_tokens <= 1 or (eos >= 0 and first == eos):
                 finish(s)
+            return True
 
         while self.queue or not bool(done.all()):
             for s in range(B):
                 while done[s] and self.queue and view.can_admit(self._need_tokens(self.queue[0])):
-                    splice(s)
+                    if not splice(s):
+                        break
                 if done[s] and not fresh[s]:
                     # queue drained: clear the slot so it idles on an empty row
                     view.reset_slot(s)
@@ -129,7 +150,18 @@ class Scheduler:
                     pos[s] = 0
                     cur[s] = 0
             if bool(done.all()):
-                break
+                if not self.queue:
+                    break
+                if view.can_admit(self._need_tokens(self.queue[0])):
+                    continue               # the resets above freed its pages
+                # submit() bounds a request by the whole pool, so an idle
+                # engine always admits the head
+                raise RuntimeError(f"request {self.queue[0].rid} cannot be admitted "
+                                   "with every slot idle")
+            if self.queue and bool(done.any()):
+                # a free slot decodes empty because the head's pages are not free
+                waited.add(self.queue[0].rid)
+                wait_steps += 1
             t0 = time.time()
             logits = view.decode({"tokens": cur[:, None].copy()}, pos)
             nxt = self._sample(logits)
@@ -153,7 +185,11 @@ class Scheduler:
             "attend_path": eng.attend_path,
             "layout": str(eng.ecfg.layout),
             "statuses": dict(Counter(str(r.status) for r in results)),
+            "waited_for_pages": len(waited),
+            "page_wait_steps": wait_steps,
         }
+        if eng.pool is not None:
+            self.last_stats["pool"] = eng.pool.snapshot()
         return results
 
 

@@ -229,7 +229,7 @@ def test_prefill_layer_cache_matches_reference(polname):
     fill = jax.jit(lambda a, b: jcache.prefill_layer_cache(
         jcfg, jcache.init_layer_cache(jcfg), a, b))
     ref = fill(jnp.asarray(k).astype(jnp.bfloat16), jnp.asarray(v).astype(jnp.bfloat16))
-    port = cache.prefill_layer_cache(pcfg, cache.init_layer_cache(pcfg),
+    port = cache.prefill_layer_cache(pcfg, cache.init_layer_cache(pcfg, device="cpu"),
                                      to_t(k).to(torch.bfloat16), to_t(v).to(torch.bfloat16))
     assert_caches_match(pcfg, ref, port)
 
@@ -264,10 +264,10 @@ def test_append_token_matches_reference(polname):
 def test_splice_reset_and_numeric_guard():
     _, pcfg = cache_cfgs("gear_kcvt4")
     pcfg1 = cache.CacheConfig(batch=1, kv_heads=2, head_dim=64, capacity=128, policy=pcfg.policy)
-    one = cache.prefill_layer_cache(pcfg1, cache.init_layer_cache(pcfg1),
+    one = cache.prefill_layer_cache(pcfg1, cache.init_layer_cache(pcfg1, device="cpu"),
                                     to_t(bf16_np((1, 2, 70, 64), 5)).to(torch.bfloat16),
                                     to_t(bf16_np((1, 2, 70, 64), 6)).to(torch.bfloat16))
-    full = cache.init_layer_cache(pcfg)
+    full = cache.init_layer_cache(pcfg, device="cpu")
     cache.splice_slot(full, one, 1)
     for name, t in full.tensors().items():
         assert torch.equal(t[1], getattr(one, name)[0]), name

@@ -8,8 +8,14 @@ Every test is marked ``cuda`` and skips without a CUDA device:
 Tolerances: ``gear_decode`` 1e-3 on the normalized output and score max of
 rows with history (f32 on both sides, different summation order; a row with
 no closed chunk returns (0, -1e30, 0) from the kernel by design, see
-``csrc/gear_decode.cu``); ``flash_prefill`` 3e-2 on the bf16 output (the
-kernel rounds P to bf16 before P·V).
+``csrc/gear_decode.cu``), also at G = 64 query rows (the streaming history
+scorer); ``gear_decode_paged`` bitwise equal to ``gear_decode`` on the
+gathered operands and 1e-3 from its plain version; ``flash_prefill`` 3e-2
+on the bf16 output (the kernel rounds P to bf16 before P·V);
+``flash_prefill_block`` 1e-4 on the normalized output and score max (f32
+both sides); ``gear_compress`` within the reference's own kernel budget
+(stats, outlier values and indices exact, codes off by at most 1 on under
+0.1% of entries, the residual off by at most one scale step).
 """
 
 import pytest
@@ -18,10 +24,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import cache  # noqa: E402
 from repro_torch.core.policy import named_policy  # noqa: E402
+from repro_torch.core import packing  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp  # noqa: E402
+from repro_torch.kernels import gear_compress as gc  # noqa: E402
 from repro_torch.kernels import gear_decode as gd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.ref import flash_prefill_ref, gear_decode_ref  # noqa: E402
+from repro_torch.kernels.ref import (flash_block_ref, flash_prefill_ref,  # noqa: E402
+                                     gather_paged_operands, gear_compress_ref,
+                                     gear_decode_paged_ref, gear_decode_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +94,118 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.randn(2, 64, 128, device=dev).to(torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         fp.flash_prefill(x.transpose(1, 2).contiguous().transpose(1, 2), x, x)
+
+
+def decode_fixture(dev, polname, B=2, H=4, Dh=128, S=256, seed=0):
+    cfg = cache.CacheConfig(batch=B, kv_heads=H, head_dim=Dh, capacity=S,
+                            policy=named_policy(polname))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randn(B, H, S, Dh, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, H, S, Dh, generator=g, device=dev).to(torch.bfloat16)
+    c = cache.prefill_layer_cache(cfg, cache.init_layer_cache(cfg, torch.bfloat16, dev), k, v)
+    arrays, lr, sp = ops._gear_operands(cfg, c, B * H)
+    return cfg, arrays, lr | sp, g
+
+
+@pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
+def test_gear_decode_kernel_at_streaming_block_rows(dev, polname):
+    """The history scorer's shape: G * T = 64 query rows per row, one shared
+    extent n_comp = c * n_b over a whole batch-1 cache (blocks past it exit)."""
+    cfg, arrays, extra, g = decode_fixture(dev, polname, B=1, H=8, S=512)
+    q = torch.randn(8, 64, 128, generator=g, device=dev)
+    kw = dict(bits=cfg.policy.bits, chunk=64, scale_factor=128 ** -0.5, **extra)
+    for c in (1, 3, 8):
+        acc_k, m_k, l_k = gd.gear_decode(q, *arrays, c * 64, **kw)
+        acc_p, m_p, l_p = gear_decode_ref(q, *arrays, c * 64, **kw)
+        torch.testing.assert_close(acc_k / l_k[..., None], acc_p / l_p[..., None],
+                                   rtol=0, atol=1e-3)
+        torch.testing.assert_close(m_k, m_p, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
+def test_gear_decode_paged_kernel_equals_dense_on_gathered_operands(dev, polname):
+    """Pool pages in a shuffled order, block-table entries past each slot's
+    extent on the zero page: the paged kernel's triple equals the dense
+    kernel's on the gathered operands bit for bit, and its plain version
+    within 1e-3."""
+    B, H, S, nb = 2, 4, 256, 64
+    cfg, arrays, extra, g = decode_fixture(dev, polname, B=B, H=H, S=S, seed=3)
+    C = S // nb
+    names = ("k_packed", "k_scale", "k_zero", "v_packed", "v_scale", "v_zero")
+    dense = dict(zip(names, arrays)) | extra
+    n_comp = torch.tensor([64] * H + [192] * H, dtype=torch.int32, device=dev)
+    live = [1, 3]                                  # chunks each slot holds
+    P = 1 + sum(live)
+    pages = torch.randperm(P - 1, generator=torch.Generator().manual_seed(0)) + 1
+    bt = torch.zeros((B, C), dtype=torch.int32)
+    it = iter(pages.tolist())
+    for b in range(B):
+        for c in range(live[b]):
+            bt[b, c] = next(it)
+    bt = bt.to(dev)
+    pools = {}
+    for name, x in dense.items():
+        rpc = x.shape[1] // C                      # rows of one chunk
+        pool = torch.zeros((P * H, rpc) + tuple(x.shape[2:]), dtype=x.dtype, device=dev)
+        for b in range(B):
+            for c in range(live[b]):
+                p = int(bt[b, c])
+                pool[p * H:(p + 1) * H] = x[b * H:(b + 1) * H, c * rpc:(c + 1) * rpc]
+        pools[name] = pool
+    gathered = gather_paged_operands(bt, B * H, pools)
+    q = torch.randn(B * H, 1, 128, generator=g, device=dev)
+    kw = dict(bits=cfg.policy.bits, chunk=nb, scale_factor=128 ** -0.5)
+    before = gd.gear_decode_paged.launches
+    paged = gd.gear_decode_paged(q, *[pools[n] for n in names], n_comp, bt, **kw,
+                                 **{n: pools[n] for n in extra})
+    assert gd.gear_decode_paged.launches == before + 1
+    flat = gd.gear_decode(q, *[gathered[n] for n in names], n_comp, **kw,
+                          **{n: gathered[n] for n in extra})
+    for a, b in zip(paged, flat):
+        assert torch.equal(a, b)
+    acc_p, m_p, l_p = gear_decode_paged_ref(q, *[pools[n] for n in names], n_comp, bt, **kw,
+                                            **{n: pools[n] for n in extra})
+    torch.testing.assert_close(paged[0] / paged[2][..., None], acc_p / l_p[..., None],
+                               rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("T,rep", [(64, 1), (64, 4), (37, 1)])
+def test_flash_prefill_block_kernel_matches_plain(dev, T, rep):
+    N, Dh = 64, 128
+    g = torch.Generator(device=dev).manual_seed(T + rep)
+    q = torch.randn(N, T, Dh, generator=g, device=dev)
+    k = torch.randn(N // rep, T, Dh, generator=g, device=dev)
+    v = torch.randn(N // rep, T, Dh, generator=g, device=dev)
+    kv_len = torch.randint(1, T + 1, (N,), generator=g, device=dev, dtype=torch.int32)
+    kw = dict(scale=Dh ** -0.5, kv_repeat=rep)
+    before = fp.flash_prefill_block.launches
+    acc_k, m_k, l_k = fp.flash_prefill_block(q, k, v, kv_len, **kw)
+    assert fp.flash_prefill_block.launches == before + 1
+    acc_p, m_p, l_p = flash_block_ref(q, k, v, kv_len, **kw)
+    torch.testing.assert_close(acc_k / l_k[..., None], acc_p / l_p[..., None], rtol=0, atol=1e-4)
+    torch.testing.assert_close(m_k, m_p, rtol=0, atol=1e-4)
+    torch.testing.assert_close(l_k, l_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("scheme,group,n_out", [("per_channel", None, 1), ("per_token", None, 2),
+                                                ("per_channel", 64, 1), ("per_token", 64, 2),
+                                                ("per_channel", 16, 0)])
+@pytest.mark.parametrize("bits", [2, 4])
+def test_gear_compress_kernel_matches_plain(dev, scheme, group, n_out, bits):
+    g = torch.Generator(device=dev).manual_seed(bits)
+    x = torch.randn(96, 64, 128, generator=g, device=dev).to(torch.bfloat16).float()
+    x[0, :, 5] = 1.25                      # constant channel: top and bottom share an index
+    x[1, 7, :] = -0.5                      # constant token, likewise
+    kw = dict(bits=bits, scheme=scheme, group=group, n_out=n_out)
+    before = gc.gear_compress.launches
+    pk, sk, zk, svk, sik, rk = gc.gear_compress(x, **kw)
+    assert gc.gear_compress.launches == before + 1
+    pr, sr, zr, svr, sir, rr = gear_compress_ref(x, **kw)
+    assert torch.equal(sk, sr) and torch.equal(zk, zr)
+    if n_out:
+        assert torch.equal(sik, sir.to(torch.int32)) and torch.equal(svk, svr)
+    else:
+        assert svk is None and sik is None
+    diff = (packing.unpack(pk, bits, 128) - packing.unpack(pr, bits, 128)).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+    assert float((rk - rr).abs().max()) <= float(sk.max()) + 1e-6

@@ -108,15 +108,23 @@ def test_engine_runs_on_cuda_unless_the_cpu_is_named(pair):
     assert Engine(pair.model, pair.params, ecfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("field,value,exc", [
-    ("fused", "off", NotImplementedError), ("fused", "interpret", NotImplementedError),
-    ("prefill_mode", "streaming", NotImplementedError), ("layout", "paged", NotImplementedError),
-    ("prefix_cache", True, NotImplementedError), ("obs", True, NotImplementedError),
-    ("fused", "bogus", ValueError),
-])
-def test_engine_config_rejects_unported_options(field, value, exc):
+STREAM_PAGED = dict(prefill_mode="streaming", layout="paged")
+
+
+@pytest.mark.parametrize("options,exc", [
+    (dict(fused="off"), NotImplementedError), (dict(fused="interpret"), NotImplementedError),
+    (dict(STREAM_PAGED, prefix_cache=True), NotImplementedError),
+    (dict(pool_pages=8), ValueError),
+    (dict(prefix_cache=True), NotImplementedError), (dict(obs=True), NotImplementedError),
+    (dict(fused="bogus"), ValueError),
+], ids=["fused-off-NotImplementedError", "fused-interpret-NotImplementedError",
+        "prefix_cache-streaming-paged-NotImplementedError", "pool_pages-dense-ValueError",
+        "prefix_cache-True-NotImplementedError", "obs-True-NotImplementedError",
+        "fused-bogus-ValueError"])
+def test_engine_config_rejects_unported_options(options, exc):
     with pytest.raises(exc):
-        EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **{field: value})
+        EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **options)
+    EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **STREAM_PAGED)
 
 
 def test_prefill_logits_and_greedy_decode_match_reference(pair):

@@ -11,11 +11,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
 3. ``gear_decode`` against its plain PyTorch version at the main path's
    shapes (4 slots, 32 kv heads, head_dim 128, capacity 1152) for
    gear_kcvt4 and gear_kivi2, with ragged extents and a constant
-   channel / token whose outlier index is stored twice; then at the
+   channel / token whose outlier index is stored twice; again at hymba's
+   shape (5 kv heads with G = 5 query rows each, head_dim 64); then at the
    streaming history scorer's shape (G * T = 64 query rows per row of a
    batch-1 cache, one shared extent);
 4. ``flash_prefill`` against its plain version (S = 1024, a ragged S = 1000,
-   kv_repeat = 4, window + softcap, a bidirectional prefix), with
+   kv_repeat = 4, window + softcap, a bidirectional prefix, and hymba's
+   25 query heads over 5 kv heads at head_dim 64), with
    ``torch.nn.functional.scaled_dot_product_attention`` timed beside it;
 5. ``gear_compress`` against its plain version for both policies, K and V
    orientation, over the B * H * C' = 448 [64, 128] tiles a 900-token
@@ -25,7 +27,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
 7. ``gear_decode_paged`` against its plain version, and bit for bit against
    ``gear_decode`` on the gathered operands, over a shuffled pool of the
    main path's shapes whose tables name the zero page past each extent;
-8. serving, path 1: llama2-7b at full width (``--layers`` of its 32 layers)
+8. ``linear_scan_chunked`` against its plain version (y and final state):
+   hymba's SSM heads (25 rows, Dk 16, Dv 64, one decay per head) at an
+   aligned S = 1024 in chunks of 64, at the live S = chunk = 859, per-Dk
+   decay at S = chunk = 200, and the ``bonus`` mode at RWKV6-3b's head
+   shape (40 rows, Dk = Dv = 64, chunk 64); each case timed beside its bound;
+9. serving, path 1: llama2-7b at full width (``--layers`` of its 32 layers)
    with random bf16 weights from a seeded generator, gear_kcvt4,
    ``Engine(batch=4, capacity=1152)`` (monolithic prefill, dense layout) and
    ``Scheduler.run_continuous`` over 8 requests; the launch counters must
@@ -33,16 +40,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    layer-0 cache of one decode step is held against the plain version;
    then ``torch.profiler`` windows over one prefill and 8 decode steps say
    where the time goes (tables under ``build/profile/``);
-9. serving, path 2: the same requests through llama2-7b at all its 32
-   layers with ``prefill_mode="streaming", layout="paged"`` and a pool of
-   two thirds of the dense-equivalent pages, so that a decode step runs
-   while a request waits for pages (``--layers`` does not cut it); the
-   counters must show ``gear_compress``, ``flash_prefill_block``,
-   ``gear_decode`` (history) and ``gear_decode_paged`` on the path, each
-   kernel's live layer-0 call is held against its plain version and timed,
-   and profiler windows cover one streaming prefill and 8 paged decode
-   steps;
-10. summary: one ``{"kernels": [...]}`` JSON line, the card's name and power
+10. serving, path 2: the same requests through llama2-7b at all its 32
+    layers with ``prefill_mode="streaming", layout="paged"`` and a pool of
+    two thirds of the dense-equivalent pages, so that a decode step runs
+    while a request waits for pages (``--layers`` does not cut it); the
+    counters must show ``gear_compress``, ``flash_prefill_block``,
+    ``gear_decode`` (history) and ``gear_decode_paged`` on the path, each
+    kernel's live layer-0 call is held against its plain version and timed,
+    and profiler windows cover one streaming prefill and 8 paged decode
+    steps;
+11. serving, path 3: hymba-1.5b (GEAR attention beside Mamba-2 SSM heads)
+    at its 32 layers and published widths, random bf16 weights with the
+    reference's SSM constants, the same 8 requests (ids from its vocab),
+    monolithic prefill on the dense layout; the counters must show 32
+    ``linear_scan_chunked`` and 32 ``flash_prefill`` launches per prefill
+    and 32 ``gear_decode`` launches per step; the live layer-0 scan (S =
+    chunk = 859) and decode step are held against their plain versions and
+    timed, and profiler windows cover one unaligned prefill and 8 decode
+    steps;
+12. summary: one ``{"kernels": [...]}`` JSON line, the card's name and power
     limit, and the final ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.  Without a CUDA
@@ -142,7 +158,8 @@ def pol_half(idx: torch.Tensor) -> int:
     return idx.shape[-1] // 2
 
 
-def decode_case(policy_name: str, flush, report: dict) -> None:
+def decode_case(policy_name: str, flush, report: dict, H: int = 32, Dh: int = 128,
+                G: int = 1) -> None:
     from repro_torch.core import cache as cache_lib
     from repro_torch.core.policy import named_policy
     from repro_torch.kernels import gear_decode as gd
@@ -150,7 +167,7 @@ def decode_case(policy_name: str, flush, report: dict) -> None:
     from repro_torch.kernels.ref import gear_decode_ref
 
     dev = DEV
-    B, H, Dh, cap = 4, 32, 128, 1152
+    B, cap = 4, 1152
     pol = named_policy(policy_name)
     cfg = cache_lib.CacheConfig(batch=B, kv_heads=H, head_dim=Dh, capacity=cap, policy=pol)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -169,9 +186,8 @@ def decode_case(policy_name: str, flush, report: dict) -> None:
     cache.buf_v.copy_(torch.randn(cache.buf_v.shape, generator=gen, device=dev))
     # ragged slots: empty history, one chunk, mid-cache, full
     cache.length.copy_(torch.tensor([5, 67, 586, cap], dtype=torch.int32, device=dev))
-    q = torch.randn(B, H, Dh, generator=gen, device=dev)
     BH = B * H
-    qf = q.reshape(BH, 1, Dh)
+    qf = torch.randn(BH, G, Dh, generator=gen, device=dev)
     len_bh = cache.length.repeat_interleave(H)
     n_comp = (len_bh // cfg.chunk * cfg.chunk).to(torch.int32)
     arrays, lr, sp = ops._gear_operands(cfg, cache, BH)
@@ -183,7 +199,8 @@ def decode_case(policy_name: str, flush, report: dict) -> None:
     out_k = ops._merge_buffer(cfg, cache, qf, *triple_k, len_bh - n_comp, Dh ** -0.5)
     out_p = ops._merge_buffer(cfg, cache, qf, *triple_p, len_bh - n_comp, Dh ** -0.5)
     err = float((out_k - out_p).abs().max())
-    print(f"  gear_decode {policy_name}: merged max_abs_err={err:.3e} (tol {DECODE_TOL}) "
+    print(f"  gear_decode {policy_name} H={H} G={G} Dh={Dh}: merged max_abs_err={err:.3e} "
+          f"(tol {DECODE_TOL}) "
           f"n_comp per slot {[int(x) for x in n_comp[::H]]}, duplicate outlier index "
           f"K={dup_k} V={dup_v}")
     if not err <= DECODE_TOL:
@@ -196,24 +213,26 @@ def decode_case(policy_name: str, flush, report: dict) -> None:
 
 
 FLASH_CASES = [
-    # (S, BHq, kv_repeat, window, prefix_len, softcap)
-    (1024, 32, 1, 0, 0, 0.0),
-    (1000, 32, 1, 0, 0, 0.0),
-    (1000, 32, 4, 0, 0, 0.0),
-    (1000, 32, 1, 256, 0, 30.0),
-    (777, 16, 2, 0, 100, 0.0),
+    # (S, BHq, kv_repeat, window, prefix_len, softcap, head_dim)
+    (1024, 32, 1, 0, 0, 0.0, 128),
+    (1000, 32, 1, 0, 0, 0.0, 128),
+    (1000, 32, 4, 0, 0, 0.0, 128),
+    (1000, 32, 1, 256, 0, 30.0, 128),
+    (777, 16, 2, 0, 100, 0.0, 128),
+    (1000, 25, 5, 0, 0, 0.0, 64),
 ]
-MAIN_FLASH_CASE = 1          # S = 1000 lies in the main path's prompt range
+# timed cases: S = 1000 lies in the serving paths' prompt range; llama2-7b
+# (path 1) reports as "ms", hymba (path 3) as "ms_hymba"
+TIMED_FLASH_CASES = {1: "", 5: "_hymba"}
 
 
-def flash_case(case, flush, report: dict, main: bool) -> None:
+def flash_case(case, flush, report: dict, suffix) -> None:
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels.ref import flash_prefill_ref
 
-    S, BH, rep, window, prefix, cap = case
+    S, BH, rep, window, prefix, cap, Dh = case
     dev = DEV
     gen = torch.Generator(device=dev).manual_seed(S + rep)
-    Dh = 128
     q = torch.randn(BH, S, Dh, generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn(BH // rep, S, Dh, generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn(BH // rep, S, Dh, generator=gen, device=dev).to(torch.bfloat16)
@@ -222,12 +241,12 @@ def flash_case(case, flush, report: dict, main: bool) -> None:
     o_p = flash_prefill_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err = float((o_k.float() - o_p.float()).abs().max())
-    line = (f"  flash_prefill S={S} BHq={BH} kv_repeat={rep} window={window} "
+    line = (f"  flash_prefill S={S} BHq={BH} kv_repeat={rep} Dh={Dh} window={window} "
             f"prefix={prefix} softcap={cap}: max_abs_err={err:.3e} (tol {PREFILL_TOL})")
     if not err <= PREFILL_TOL:
         fail(line)
     report["err"] = max(report.get("err", 0.0), err)
-    if main:
+    if suffix is not None:
         ms = time_ms(lambda: fp.flash_prefill(q, k, v, **kw), 20, flush)
         plain = time_ms(lambda: flash_prefill_ref(q, k, v, **kw), 3, flush)
         qs = q[None]
@@ -239,10 +258,11 @@ def flash_case(case, flush, report: dict, main: bool) -> None:
         flops = 4.0 * pairs * Dh * BH
         nbytes = 2.0 * Dh * S * (2 * BH + 2 * BH // rep)
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        report.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(t_ops, t_bytes),
-                      bound_by="operations" if t_ops >= t_bytes else "bytes")
+        timed = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(t_ops, t_bytes),
+                     bound_by="operations" if t_ops >= t_bytes else "bytes")
+        report.update({key + suffix: value for key, value in timed.items()})
         line += (f" | kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
-                 f"bound {report['bound_ms']:.4f} ms ({report['bound_by']})")
+                 f"bound {timed['bound_ms']:.4f} ms ({timed['bound_by']})")
     print(line)
 
 
@@ -461,6 +481,113 @@ def paged_case(policy_name: str, report: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# linear_scan_chunked
+
+
+SCAN_CASES = [
+    # (mode, BH, S, Dk, Dv, log_w columns, chunk)
+    ("inclusive", 25, 1024, 16, 64, 1, 64),     # hymba heads, aligned: state over 16 chunks
+    ("inclusive", 25, 859, 16, 64, 1, 859),     # the live shape: chunk = S
+    ("inclusive", 4, 200, 16, 64, 16, 200),     # per-Dk decay, chunk = S
+    ("bonus", 40, 1024, 64, 64, 64, 64),        # RWKV6-3b's head shape, u nonzero
+]
+
+
+def scan_inputs(mode, BH, S, Dk, Dv, lw_cols, seed: int):
+    """Hymba-like inputs: one decay per head near the reference's init
+    (-softplus(x - 1), x ~ N(0, 0.5^2)); RWKV-like: per-Dk log w = -exp(x)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    r = torch.randn(BH, S, Dk, generator=gen, device=DEV)
+    k = torch.randn(BH, S, Dk, generator=gen, device=DEV)
+    v = torch.randn(BH, S, Dv, generator=gen, device=DEV)
+    x = torch.randn(BH, S, lw_cols, generator=gen, device=DEV) * 0.5
+    lw = (-torch.exp(x - 2.0) if mode == "bonus"
+          else -torch.nn.functional.softplus(x - 1.0))
+    u = torch.randn(BH, Dk, generator=gen, device=DEV) * 0.5 if mode == "bonus" else None
+    return r, k, v, lw, u
+
+
+def scan_bytes_flops(r, k, v, lw, u, chunk: int, mode: str):
+    """Least bytes and f32 operations of one ``linear_scan_chunked`` call:
+    r, k, v, log w (and u) read once, y and the final state written once.
+    Per chunk of W tokens: 2 (Dk + Dv) operations per visible (query, key)
+    pair of the causal intra product (W (W + 1) / 2 pairs, or W (W - 1) / 2
+    for ``bonus``) and 2 Dk Dv per token for the state update; per token, the
+    cumsum and 3 exponentials per log w column and 3 Dk factor products, and
+    the bonus term.  The state starts at zero, so the cross-chunk read
+    (2 Dk Dv per token) and the state's decay (Dk Dv) count only for the
+    chunks after the first."""
+    BH, S, Dk = r.shape
+    Dv, L = v.shape[-1], lw.shape[-1]
+    W = chunk
+    n = S // W
+    pairs = W * (W + 1) // 2 if mode == "inclusive" else W * (W - 1) // 2
+    per_chunk = pairs * 2 * (Dk + Dv) + W * (2 * Dk * Dv + 4 * L + 3 * Dk)
+    if mode == "bonus":
+        per_chunk += W * (3 * Dk + 2 * Dv)
+    cross = W * 2 * Dk * Dv + Dk * Dv
+    flops = BH * (n * per_chunk + (n - 1) * cross)
+    inputs = r.numel() + k.numel() + v.numel() + lw.numel() + (0 if u is None else u.numel())
+    nbytes = 4 * (inputs + BH * S * Dv + BH * Dk * Dv)
+    return nbytes, flops
+
+
+def row_err(got: torch.Tensor, want: torch.Tensor):
+    """Largest error over the rows of the last dim, each against 2e-3 x max(1,
+    max |want| of that row): (worst ratio err / limit, median |want|)."""
+    limit = 2e-3 * want.abs().amax(-1).clamp_min(1.0)
+    ratio = float(((got - want).abs().amax(-1) / limit).max())
+    return ratio, float(want.abs().median())
+
+
+def scan_check(fn, args: tuple, kw: dict, label: str, flush, report: dict, iters: int = 20):
+    """Kernel vs plain version (y and final state) within 2e-3 x max(1,
+    max |plain|), and within 2e-3 x max(1, max |plain| of the row) for every
+    row (token of y, Dk row of the state), so a wrong ordinary-sized entry
+    fails even where the clamp has blown a few late rows up.  Then both
+    times and the call's bound.  Returns (ms, plain_ms, bound_ms, bound_by)."""
+    from repro_torch.kernels.ref import linear_scan_ref
+
+    y_k, st_k = fn(*args, **kw)
+    y_p, st_p = linear_scan_ref(*args, **kw)
+    torch.cuda.synchronize()
+    scale_y = max(1.0, float(y_p.abs().max()))
+    scale_s = max(1.0, float(st_p.abs().max()))
+    err_y = float((y_k - y_p).abs().max())
+    err_s = float((st_k - st_p).abs().max())
+    row_y, med_y = row_err(y_k, y_p)
+    row_s, med_s = row_err(st_k, st_p)
+    ok = (err_y <= 2e-3 * scale_y and err_s <= 2e-3 * scale_s
+          and row_y <= 1.0 and row_s <= 1.0)
+    ms = time_ms(lambda: fn(*args, **kw), iters, flush)
+    plain_ms = time_ms(lambda: linear_scan_ref(*args, **kw), 3, flush)
+    nbytes, flops = scan_bytes_flops(*args, kw["chunk"], kw["mode"])
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    print(f"  {label}: y max_abs_err={err_y:.3e} (tol 2e-3 x {scale_y:.3g}; median |y| "
+          f"{med_y:.3g}; worst row at {row_y:.3g} of its limit), state max_abs_err="
+          f"{err_s:.3e} (tol 2e-3 x {scale_s:.3g}; median {med_s:.3g}; worst row at "
+          f"{row_s:.3g} of its limit) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    if not ok:
+        fail(f"{label} disagrees with its plain version")
+    report["err"] = max(report.get("err", 0.0), err_y, err_s)
+    report["err_over_scale"] = max(report.get("err_over_scale", 0.0), err_y / scale_y,
+                                   err_s / scale_s)
+    return ms, plain_ms, bound, by
+
+
+def scan_case(case, flush, report: dict) -> None:
+    from repro_torch.kernels import linear_scan_kernel as lsk
+
+    mode, BH, S, Dk, Dv, lw_cols, chunk = case
+    r, k, v, lw, u = scan_inputs(mode, BH, S, Dk, Dv, lw_cols, S + Dk)
+    scan_check(lsk.linear_scan_chunked, (r, k, v, lw, u), dict(chunk=chunk, mode=mode),
+               f"linear_scan_chunked {mode} BH={BH} S={S} Dk={Dk} Dv={Dv} log_w[..,{lw_cols}] "
+               f"chunk={chunk}", flush, report)
+
+
+# ---------------------------------------------------------------------------
 # serving
 
 
@@ -499,10 +626,12 @@ def kernel_fns() -> dict:
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import gear_compress as gc
     from repro_torch.kernels import gear_decode as gd
+    from repro_torch.kernels import linear_scan_kernel as lsk
 
     return {"gear_decode": gd.gear_decode, "flash_prefill": fp.flash_prefill,
             "gear_compress": gc.gear_compress, "flash_prefill_block": fp.flash_prefill_block,
-            "gear_decode_paged": gd.gear_decode_paged}
+            "gear_decode_paged": gd.gear_decode_paged,
+            "linear_scan_chunked": lsk.linear_scan_chunked}
 
 
 def drive(eng, cfg, prompts: list, captures: list) -> dict:
@@ -623,7 +752,7 @@ def serving(model, params, cfg, layers: int, flush, reports: dict) -> dict:
         decode_call_bytes_flops, rows_of=lambda a: a[7] > 0)
     rep["library_ms"] = None
     reports["gear_decode"]["launches_by_path"] = {"monolithic_dense": launches["gear_decode"]}
-    reports["flash_prefill"]["launches"] = launches["flash_prefill"]
+    reports["flash_prefill"]["launches_by_path"] = {"monolithic_dense": launches["flash_prefill"]}
     summary["layers"] = layers
     profile(eng, cfg, HERE / "build" / "profile", "monolithic_dense")
     return summary
@@ -716,21 +845,75 @@ def serving_paged(model, params, cfg, layers: int, flush, reports: dict) -> dict
     return summary
 
 
-def profile(eng, cfg, out_dir: pathlib.Path, tag: str) -> None:
-    """Where the time goes: ``torch.profiler`` over one 640-token prefill and
-    over 8 decode steps of 4 live slots (after warm-up).  Prints each
-    window's wall time, device-busy share (summed kernel time / wall) and
-    top operators by device time; full tables go to ``out_dir``."""
+def serving_hybrid(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 3: hymba-1.5b, monolithic prefill, dense layout."""
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gear_decode_ref
+    from repro_torch.models import linear_scan as ls_mod
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = named_policy("gear_kcvt4")
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=CAP_SERVE, policy=pol),
+                 device=DEV)
+    prompts = requests(cfg)
+    # request 0's layer-0 scan (S = chunk = 859); layer 0 of decode step 40
+    caps = {"linear_scan_chunked": Capture(ls_mod, "linear_scan_chunked", 0),
+            "gear_decode": Capture(ops, "gear_decode", 40 * layers)}
+    summary = drive(eng, cfg, prompts, list(caps.values()))
+    launches, steps = summary["launches"], summary["decode_steps"]
+    for name, want in (("linear_scan_chunked", N_REQUESTS * layers),
+                       ("flash_prefill", N_REQUESTS * layers)):
+        if launches[name] != want:
+            fail(f"{name} launches {launches[name]} != 8 prefills x {layers} on the hybrid path")
+    if launches["gear_decode"] < steps * layers:
+        fail(f"gear_decode launches {launches['gear_decode']} < {steps} steps x {layers}")
+    print(f"  per prefill: {launches['linear_scan_chunked'] // N_REQUESTS} linear_scan_chunked, "
+          f"{launches['flash_prefill'] // N_REQUESTS} flash_prefill; per decode step: "
+          f"{launches['gear_decode'] / steps:.1f} gear_decode")
+
+    c = caps["linear_scan_chunked"]
+    rep = reports["linear_scan_chunked"]
+    r, k, v, lw, u = c.args
+    print(f"  live linear_scan_chunked call: r {tuple(r.shape)}, v {tuple(v.shape)}, log_w "
+          f"{tuple(lw.shape)}, {c.kwargs}")
+    rep["ms"], rep["plain_ms"], rep["bound_ms"], rep["bound_by"] = scan_check(
+        c.real, tuple(c.args), c.kwargs, "linear_scan_chunked live layer-0 scan", flush, rep,
+        iters=50)
+    rep["library_ms"] = None
+    rep["launches"] = launches["linear_scan_chunked"]
+
+    c = caps["gear_decode"]
+    rep = reports["gear_decode"]
+    _, G, Dh = c.args[0].shape
+    print(f"  live hymba layer-0 step: q {tuple(c.args[0].shape)}, n_comp per slot "
+          f"{[int(x) for x in c.args[7][::cfg.num_kv_heads]]}")
+    rep["ms_hymba"], rep["plain_ms_hymba"], rep["bound_ms_hymba"], _ = live_check(
+        c, gear_decode_ref, f"gear_decode live hymba decode step (G = {G}, Dh = {Dh})", flush,
+        rep, decode_call_bytes_flops, rows_of=lambda a: a[7] > 0)
+    reports["gear_decode"]["launches_by_path"]["hybrid_dense"] = launches["gear_decode"]
+    reports["flash_prefill"]["launches_by_path"]["hybrid_dense"] = launches["flash_prefill"]
+    summary["layers"] = layers
+    profile(eng, cfg, HERE / "build" / "profile", "hybrid_dense", prompt_len=659)
+    return summary
+
+
+def profile(eng, cfg, out_dir: pathlib.Path, tag: str, prompt_len: int = 640) -> None:
+    """Where the time goes: ``torch.profiler`` over one ``prompt_len``-token
+    prefill and over 8 decode steps of 4 live slots (after warm-up).  Prints
+    each window's wall time, device-busy share (summed kernel time / wall)
+    and top operators by device time; full tables go to ``out_dir``."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     rng = np.random.RandomState(1)
     view = eng.new_view()
-    prompts = [rng.randint(0, cfg.vocab_size, size=640).astype(np.int32)[None] for _ in range(4)]
-    reserve = 640 + 16                                       # paged: 11 steps' pages
+    prompts = [rng.randint(0, cfg.vocab_size, size=prompt_len).astype(np.int32)[None]
+               for _ in range(4)]
+    reserve = prompt_len + 16                                # paged: 11 steps' pages
     for s, p in enumerate(prompts):
         view.prefill_slot({"tokens": p}, s, reserve_tokens=reserve)
-    pos = np.full(4, 640, np.int32)
+    pos = np.full(4, prompt_len, np.int32)
     tok = np.zeros((4, 1), np.int32)
     for _ in range(3):                                       # warm-up steps
         view.decode({"tokens": tok}, pos)
@@ -815,14 +998,18 @@ def main() -> int:
         "gear_decode_paged": {"name": "gear_decode_paged", "route": "cuda",
                               "source": "src/repro_torch/kernels/csrc/gear_decode.cu",
                               "replaces": "src/repro/kernels/gear_decode.py:219"},
+        "linear_scan_chunked": {"name": "linear_scan_chunked", "route": "cuda",
+                                "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+                                "replaces": "src/repro/kernels/linear_scan_kernel.py:77"},
     }
     print("[3] gear_decode vs plain")
     for pol in ("gear_kcvt4", "gear_kivi2"):
         decode_case(pol, flush, reports["gear_decode"])
+        decode_case(pol, flush, reports["gear_decode"], H=5, Dh=64, G=5)     # hymba
     history_case(flush, reports["gear_decode"])
     print("[4] flash_prefill vs plain")
     for i, case in enumerate(FLASH_CASES):
-        flash_case(case, flush, reports["flash_prefill"], main=i == MAIN_FLASH_CASE)
+        flash_case(case, flush, reports["flash_prefill"], TIMED_FLASH_CASES.get(i))
     print("[5] gear_compress vs plain")
     for pol in ("gear_kcvt4", "gear_kivi2"):
         compress_case(pol, reports["gear_compress"])
@@ -833,35 +1020,51 @@ def main() -> int:
     for pol in ("gear_kcvt4", "gear_kivi2"):
         paged_case(pol, reports["gear_decode_paged"])
 
+    print("[8] linear_scan_chunked vs plain")
+    for case in SCAN_CASES:
+        scan_case(case, flush, reports["linear_scan_chunked"])
+
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
+
+    def build(cfg, full_layers: int):
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=DEV)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"  {cfg.name} width (d_model {cfg.d_model}, {cfg.num_heads} heads / "
+              f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}), depth {cfg.num_layers} of {full_layers}: "
+              f"{n_params / 1e9:.2f} B params, init {time.perf_counter() - t0:.1f} s")
+        return model, params, cfg
 
     full = get_config("llama2-7b")
     built_models, summaries = {}, {}
     for phase, key, layers, fn, title in (
-            (8, "monolithic_dense", args.layers, serving, "monolithic prefill, dense layout"),
-            (9, "streaming_paged", full.num_layers, serving_paged,
+            (9, "monolithic_dense", args.layers, serving, "monolithic prefill, dense layout"),
+            (10, "streaming_paged", full.num_layers, serving_paged,
              "streaming prefill, paged pool")):
         print(f"[{phase}] serving llama2-7b, gear_kcvt4, {title}, depth {layers}"
               + ("" if layers == full.num_layers else
                  f" (cut from {full.num_layers} by --layers)"))
         if layers not in built_models:
-            cfg = dc.replace(full, num_layers=layers)
-            model = build_model(cfg)
-            t0 = time.perf_counter()
-            built_models[layers] = (model, model.init(seed=0, device=DEV), cfg)
-            torch.cuda.synchronize()
-            print(f"  llama2-7b width (d_model {cfg.d_model}, {cfg.num_heads} heads, d_ff "
-                  f"{cfg.d_ff}, vocab {cfg.vocab_size}), depth {layers} of {full.num_layers}: "
-                  f"{cfg.param_count() / 1e9:.2f} B params bf16, "
-                  f"init {time.perf_counter() - t0:.1f} s")
+            built_models[layers] = build(dc.replace(full, num_layers=layers), full.num_layers)
         summaries[key] = fn(*built_models[layers], layers, flush, reports)
+    built_models.clear()                  # free llama2-7b before hymba's peak is read
+    torch.cuda.empty_cache()
 
-    print("[10] summary")
+    hymba = get_config("hymba-1.5b")
+    print(f"[11] serving hymba-1.5b, gear_kcvt4, monolithic prefill, dense layout, depth "
+          f"{hymba.num_layers}")
+    summaries["hybrid_dense"] = serving_hybrid(*build(hymba, hymba.num_layers),
+                                               hymba.num_layers, flush, reports)
+
+    print("[12] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    dec = reports["gear_decode"]
-    dec["launches"] = sum(dec["launches_by_path"].values())
+    for name in ("gear_decode", "flash_prefill"):
+        reports[name]["launches"] = sum(reports[name]["launches_by_path"].values())
     kernels = []
     for rep in reports.values():
         row = {("max_abs_err" if k == "err" else k): rep[k] for k in keys}

@@ -484,27 +484,38 @@ def streaming_prefill_layer_cache(cfg: CacheConfig, cache: GEARLayerCache, q: to
 # Slot protocol + numeric guard
 
 
-def splice_slot(full: GEARLayerCache, one: GEARLayerCache, slot: int) -> GEARLayerCache:
-    """Write batch-1 cache ``one`` into batch row ``slot`` of ``full`` (in place)."""
-    for name, dst in full.tensors().items():
-        dst[slot].copy_(getattr(one, name)[0])
+def _parts(layer) -> tuple:
+    """A layer cache's objects: the GEAR cache alone, or a hybrid layer's
+    (GEAR cache, SSM state) pair.  Each has ``tensors()``."""
+    return layer if isinstance(layer, tuple) else (layer,)
+
+
+def splice_slot(full, one, slot: int):
+    """Write batch-1 layer cache ``one`` into batch row ``slot`` of ``full``
+    (in place; a hybrid pair's SSM state too)."""
+    for dst_part, src_part in zip(_parts(full), _parts(one)):
+        for name, dst in dst_part.tensors().items():
+            dst[slot].copy_(getattr(src_part, name)[0])
     return full
 
 
-def reset_slot(cache: GEARLayerCache, slot: int) -> GEARLayerCache:
+def reset_slot(cache, slot: int):
     """Return batch row ``slot`` to the empty state: every leaf zeroed (what
-    the reference's splice of a fresh zero cache writes), in place."""
-    for t in cache.tensors().values():
-        t[slot].zero_()
+    the reference's splice of a fresh zero cache writes; a hybrid's conv
+    window and recurrent state included), in place."""
+    for part in _parts(cache):
+        for t in part.tensors().values():
+            t[slot].zero_()
     return cache
 
 
 def tree_finite(caches) -> torch.Tensor:
     """Scalar bool tensor: every floating leaf of ``caches`` (one layer cache
-    or a list of them) is finite.  Integer leaves cannot hold NaN/Inf."""
-    layers = caches if isinstance(caches, (list, tuple)) else [caches]
-    oks = [torch.isfinite(t).all() for c in layers for t in c.tensors().values()
-           if t.is_floating_point()]
+    or a list of them; hybrid pairs included) is finite.  Integer leaves
+    cannot hold NaN/Inf."""
+    layers = caches if isinstance(caches, list) else [caches]
+    oks = [torch.isfinite(t).all() for c in layers for part in _parts(c)
+           for t in part.tensors().values() if t.is_floating_point()]
     if not oks:
         return torch.tensor(True)
     return torch.stack(oks).all()

@@ -17,7 +17,7 @@ from repro_torch.core import quant as q_lib
 
 __all__ = ["gear_decode_ref", "gear_decode_paged_ref", "gather_paged_operands",
            "gear_hist_block_ref", "flash_prefill_ref", "flash_block_ref",
-           "gear_compress_ref"]
+           "gear_compress_ref", "linear_scan_ref"]
 
 NEG_INF = -1e30
 
@@ -262,3 +262,61 @@ def gear_compress_ref(x, *, bits: int, scheme: str, group: int | None = None, n_
     deq = q_lib.dequantize(dataclasses.replace(qt, scale=scale_r, zero=zero_r))
     resid = x.to(torch.float32) - deq - dense
     return qt.packed, qt.scale, qt.zero, sp_val, sp_idx, resid
+
+
+# ---------------------------------------------------------------------------
+# linear_scan_chunked
+
+SCAN_CLAMP = 30.0
+
+
+def linear_scan_ref(r, k, v, log_w, u=None, *, chunk: int, mode: str = "inclusive",
+                    state0=None):
+    """Chunked linear recurrence S_t = diag(w_t) S_{t-1} + k_t v_t^T, the math
+    of the reference's ``models.linear_scan.chunked_scan`` with the leading
+    dims flattened, in f32.
+
+    r, k [BH, S, Dk]; v [BH, S, Dv]; log_w broadcastable to r (``[BH, S, 1]``:
+    one decay per head); u [BH, Dk] (``mode="bonus"``); state0 [BH, Dk, Dv]
+    or None.  ``inclusive``: y_t = r_t^T S_t; ``bonus``: y_t = r_t^T (S_{t-1}
+    + diag(u) k_t v_t^T).  Within a chunk the factored form clamps the query
+    factor at e^-30 and the key factor at e^+30, as the reference does, so
+    a chunk whose cumulative decay passes e^-30 does not compute the exact
+    recurrence.  Returns (y [BH, S, Dv] in v's dtype, state [BH, Dk, Dv] f32).
+    """
+    BH, S, Dk = r.shape
+    Dv = v.shape[-1]
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"S={S} not divisible by chunk={chunk}")
+    if mode not in ("inclusive", "bonus"):
+        raise ValueError(f"mode must be inclusive/bonus, got {mode!r}")
+    C, W = S // chunk, chunk
+    f32 = torch.float32
+    rc = r.to(f32).reshape(BH, C, W, Dk)
+    kc = k.to(f32).reshape(BH, C, W, Dk)
+    vc = v.to(f32).reshape(BH, C, W, Dv)
+    lw = torch.broadcast_to(log_w.to(f32), (BH, S, Dk)).reshape(BH, C, W, Dk)
+    state = (torch.zeros((BH, Dk, Dv), dtype=f32, device=r.device) if state0 is None
+             else state0.to(f32).clone())
+
+    cum = torch.cumsum(lw, dim=2)                         # inclusive prod_{u<=t} w_u
+    q_cum = cum if mode == "inclusive" else cum - lw
+    tri = torch.tril(torch.ones((W, W), dtype=f32, device=r.device),
+                     0 if mode == "inclusive" else -1)
+    q_fac = rc * torch.exp(torch.clamp(q_cum, min=-SCAN_CLAMP))
+    k_fac = kc * torch.exp(torch.clamp(-cum, max=SCAN_CLAMP))
+    att = torch.einsum("xcwk,xcyk->xcwy", q_fac, k_fac) * tri
+    y = torch.einsum("xcwy,xcyv->xcwv", att, vc)
+    if mode == "bonus":
+        bonus = torch.einsum("xcwk,xk,xcwk->xcw", rc, u.to(f32), kc)
+        y = y + bonus[..., None] * vc
+
+    decay_last = torch.exp(torch.clamp(cum[:, :, -1, :], min=-SCAN_CLAMP))          # [BH, C, Dk]
+    k_state = kc * torch.exp(torch.clamp(cum[:, :, -1:, :] - cum, min=-SCAN_CLAMP))
+    state_inc = torch.einsum("xcwk,xcwv->xckv", k_state, vc)
+    y_cross = []
+    for c in range(C):
+        y_cross.append(torch.einsum("xwk,xkv->xwv", q_fac[:, c], state))
+        state = state * decay_last[:, c, :, None] + state_inc[:, c]
+    y = y + torch.stack(y_cross, dim=1)
+    return y.reshape(BH, S, Dv).to(v.dtype), state

@@ -6,6 +6,9 @@ numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a
 each pattern position's layers over repeats (``blocks[p][...][r]``); layer
 ``r * len(pattern) + p`` of the port is that slice.  Matrices become
 ``dtype`` (bf16: what the reference casts them to at use), norm scales f32.
+A hybrid block's ``ssm`` subtree comes across the same way: its matrices in
+bf16, ``conv_w`` and the per-head ``a_log`` / ``dt_bias`` / ``d_skip`` in
+f32 (see :mod:`repro_torch.models.transformer`).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ __all__ = ["params_from_reference"]
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _MLP = ("w_gate", "w_up", "w_down")
+_SSM = ("w_in", "conv_w", "w_bcdt", "w_out", "a_log", "dt_bias", "d_skip")
 
 
 def params_from_reference(np_tree: dict, cfg: ModelConfig, device=None,
@@ -47,4 +51,7 @@ def params_from_reference(np_tree: dict, cfg: ModelConfig, device=None,
             put(getattr(blk, name), stacked["attn"][name][r])
         for name in _MLP:
             put(getattr(blk, name), stacked["mlp"][name][r])
+        if "ssm" in stacked:
+            for name in _SSM:
+                put(getattr(blk, name), stacked["ssm"][name][r])
     return model

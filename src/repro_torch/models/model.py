@@ -1,5 +1,6 @@
 """Public model facade: prefill / decode / caches (port of
-``repro.models.model.Model``'s serving half)."""
+``repro.models.model.Model``'s serving half).  A hybrid model's per-layer
+cache is the pair (GEAR cache, SSM state); the facade passes it through."""
 
 from __future__ import annotations
 

@@ -1,13 +1,17 @@
 """Decoder stack: weights, monolithic or streaming prefill and one decode
 step over dense or paged caches (port of ``repro.models.transformer`` for
-dense global-attention models).
+global-attention RMSNorm/SwiGLU text decoders: dense llama2 and the hybrid
+hymba, whose blocks run Mamba-2 SSM heads beside attention).
 
 Where the reference stacks per-layer parameters and caches over repeats and
 drives them with ``lax.scan``, the port holds one :class:`Block` and one
-layer cache per layer and loops in Python.  Activations run in bf16
-(``COMPUTE_DTYPE``, as the reference); weight matrices are stored in bf16,
-which is what the reference computes with after its cast at use, and norm
-scales stay f32.
+layer cache per layer and loops in Python.  A hybrid layer's cache is the
+pair ``(GEARLayerCache, SSMState)``, as the reference's.  Activations run in
+bf16 (``COMPUTE_DTYPE``, as the reference); weight matrices are stored in
+bf16, which is what the reference computes with after its cast at use, and
+norm scales and the SSM's per-head vectors stay f32.  The SSM's ``conv_w``
+stays f32 too: the reference's prefill casts it to bf16 at use, its decode
+uses it in f32.
 """
 
 from __future__ import annotations
@@ -20,25 +24,50 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cache as cache_lib
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import resolve_device, rmsnorm, rope_tables
 from repro_torch.models.mlp import mlp_apply
 
-__all__ = ["COMPUTE_DTYPE", "Block", "Transformer", "check_supported", "cache_cfg_for",
-           "init_caches", "embed_tokens", "logits_from_hidden", "forward_prefill",
-           "decode_tokens"]
+__all__ = ["COMPUTE_DTYPE", "Block", "Transformer", "check_supported", "check_serving",
+           "is_hybrid", "cache_cfg_for", "init_caches", "embed_tokens",
+           "logits_from_hidden", "forward_prefill", "decode_tokens"]
 
 COMPUTE_DTYPE = torch.bfloat16
 
 
+
+def is_hybrid(cfg: ModelConfig) -> bool:
+    """Blocks run SSM heads in parallel with attention (hymba)."""
+    return cfg.ssm and cfg.hybrid_parallel
+
+
+def check_serving(cfg: ModelConfig, layout: str = "dense",
+                  prefill_mode: str = "monolithic") -> None:
+    """Raise for a cache layout or prefill mode this model cannot take: a
+    hybrid serves dense and monolithic only (the paged reason is the
+    reference's own)."""
+    if not is_hybrid(cfg):
+        return
+    if layout == "paged":
+        raise NotImplementedError("hybrid SSM recurrent state is not chunk-decomposable; "
+                                  "serve it with layout='dense'")
+    if prefill_mode == "streaming":
+        raise NotImplementedError("streaming prefill of a hybrid SSM model is not ported yet "
+                                  "(ROADMAP queue item 10: hybrid streaming prefill)")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense text decoders with global RMSNorm/SwiGLU
-    attention blocks (llama2); other families raise."""
-    if (cfg.family != "dense" or cfg.moe or cfg.ssm or cfg.rwkv or cfg.modality != "text"
+    """The port serves text decoders with global RMSNorm/SwiGLU attention
+    blocks: dense (llama2) or hybrid with parallel SSM heads (hymba); other
+    families raise."""
+    family_ok = ((cfg.family == "dense" and not cfg.ssm)
+                 or (cfg.family == "hybrid" and is_hybrid(cfg)))
+    if (not family_ok or cfg.moe or cfg.rwkv or cfg.modality != "text"
             or cfg.layer_pattern != ("global",) or cfg.norm != "rmsnorm"
             or cfg.mlp_kind != "swiglu" or cfg.qk_norm):
         raise NotImplementedError(
-            f"{cfg.name}: only dense global-attention RMSNorm/SwiGLU text decoders are "
-            "ported (other families: ROADMAP queue item 10)")
+            f"{cfg.name}: only dense or hybrid (parallel SSM) global-attention RMSNorm/SwiGLU "
+            "text decoders are ported (other families: ROADMAP queue item 10)")
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
@@ -59,10 +88,22 @@ class Block(nn.Module):
         self.ln2 = _param(torch.zeros(d, dtype=torch.float32, device=device))
         self.wq, self.wk, self.wv, self.wo = mat(d, qd), mat(d, kvd), mat(d, kvd), mat(qd, d)
         self.w_gate, self.w_up, self.w_down = mat(d, ff), mat(d, ff), mat(ff, d)
+        if is_hybrid(cfg):
+            H, dinner = cfg.num_heads, cfg.q_dim
+
+            def vec(fill):
+                return _param(torch.full((H,), fill, dtype=torch.float32, device=device))
+
+            self.w_in, self.w_out = mat(d, 2 * dinner), mat(dinner, d)
+            self.w_bcdt = mat(dinner, H * (2 * cfg.ssm_state + 1))
+            self.conv_w = _param(torch.zeros(cfg.ssm_conv, dinner, dtype=torch.float32,
+                                              device=device))
+            # the reference's init (ssm.ssm_params): exp(a_log) = 1, softplus(-1) decay
+            self.a_log, self.dt_bias, self.d_skip = vec(0.0), vec(-1.0), vec(1.0)
 
 
 class Transformer(nn.Module):
-    """All weights of a dense decoder; build with :meth:`random` or
+    """All weights of a decoder; build with :meth:`random` or
     :func:`repro_torch.models.convert.params_from_reference`."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=COMPUTE_DTYPE):
@@ -85,7 +126,9 @@ class Transformer(nn.Module):
     def random(cls, cfg: ModelConfig, seed: int = 0, device=None) -> "Transformer":
         """Random weights from a seeded ``torch.Generator`` on the target
         device: normal draws scaled by ``fan_in ** -0.5`` as the reference's
-        init (untruncated); norm scales zero, i.e. unit gain."""
+        init (untruncated); norm scales zero, i.e. unit gain; the SSM's
+        per-head vectors at the reference's constants (``a_log`` 0,
+        ``dt_bias`` -1, ``d_skip`` 1, set by :class:`Block`)."""
         model = cls(cfg, device)
         gen = torch.Generator(device=model.device).manual_seed(seed)
         with torch.no_grad():
@@ -108,14 +151,21 @@ def init_caches(cfg: ModelConfig, policy: CompressionPolicy, batch: int, capacit
     :class:`~repro_torch.core.cache.GEARLayerCache`, or for ``layout="paged"``
     a :class:`~repro_torch.core.cache.PagedGEARLayerCache` whose pool holds
     ``pool_pages`` pages (page 0 reserved).  Every layer's pool is addressed
-    by one engine-owned block table."""
+    by one engine-owned block table.  A hybrid layer's cache is the pair
+    (GEAR cache, zero :class:`~repro_torch.models.ssm.SSMState`); hybrids
+    are dense-only."""
     if policy.is_fp16:
         raise NotImplementedError("fp16 caches are not ported yet (ROADMAP queue item 10)")
     if layout not in ("dense", "paged"):
         raise ValueError(f"layout must be dense/paged, got {layout!r}")
+    check_serving(cfg, layout=layout)
     ccfg = cache_cfg_for(cfg, policy, batch, capacity)
     if layout == "paged":
         return [cache_lib.init_paged_layer_cache(ccfg, pool_pages, dtype, device)
+                for _ in range(cfg.num_layers)]
+    if is_hybrid(cfg):
+        return [(cache_lib.init_layer_cache(ccfg, dtype, device),
+                 ssm_lib.init_ssm_state(cfg, batch, dtype, device))
                 for _ in range(cfg.num_layers)]
     return [cache_lib.init_layer_cache(ccfg, dtype, device) for _ in range(cfg.num_layers)]
 
@@ -149,6 +199,8 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
     if padded_tail and prefill_mode != "streaming":
         raise ValueError("padded_tail requires prefill_mode='streaming'")
     cfg = model.cfg
+    check_serving(cfg, prefill_mode=prefill_mode)
+    hybrid = is_hybrid(cfg)
     x = embed_tokens(model, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -167,6 +219,10 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
             h, (k, v) = attn_lib.attention_prefill(cfg, blk, xin, rope)
             cache = cache_lib.prefill_layer_cache(
                 ccfg, cache_lib.init_layer_cache(ccfg, torch.bfloat16, x.device), k, v)
+        if hybrid:
+            h2, ssm_state = ssm_lib.ssm_apply(cfg, blk, xin)
+            h = (h + h2) * 0.5
+            cache = (cache, ssm_state)
         x = x + h
         x = x + mlp_apply(blk, rmsnorm(x, blk.ln2))
         caches.append(cache)
@@ -188,13 +244,21 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).reshape(-1).expand(B)
     rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)      # [B, 1, Dh/2]
+    hybrid = is_hybrid(cfg)
     if lengths is None:
-        lengths = caches[0].length.cpu().numpy()
+        lengths = (caches[0][0] if hybrid else caches[0]).length.cpu().numpy()
     lengths = np.asarray(lengths)
     ccfg = cache_cfg_for(cfg, policy, B, capacity)
     for blk, cache in zip(model.blocks, caches):
-        x = x + attn_lib.attention_decode(cfg, blk, rmsnorm(x, blk.ln1), rope, cache, ccfg,
-                                          lengths, block_tables)
+        gear, st = cache if hybrid else (cache, None)
+        xin = rmsnorm(x, blk.ln1)
+        h = attn_lib.attention_decode(cfg, blk, xin, rope, gear, ccfg, lengths, block_tables)
+        if hybrid:
+            h2, new = ssm_lib.ssm_decode(cfg, blk, xin, st)
+            st.conv.copy_(new.conv)
+            st.state.copy_(new.state)
+            h = (h + h2) * 0.5
+        x = x + h
         x = x + mlp_apply(blk, rmsnorm(x, blk.ln2))
     x = rmsnorm(x, model.final_norm)
     return logits_from_hidden(model, x)

@@ -13,6 +13,10 @@ and no telemetry.  ``prefill_mode`` is "monolithic" or "streaming";
   (:mod:`repro_torch.serving.pagedpool`): a request reserves the pages of
   its own lifetime at admission, before any device work, and the block
   table goes to the device once per admission or release.
+* A hybrid model (hymba: SSM heads beside attention) serves monolithic
+  prefill on the dense layout only, unbucketed, as in the reference: its
+  per-layer cache is the pair (GEAR cache, SSM state), which the slot
+  protocol and the numeric guard cover.
 
 The cache tree is a list of per-layer caches that the engine updates in
 place: ``decode``, ``prefill_slot`` and ``reset_slot`` return the same tree
@@ -32,7 +36,7 @@ from repro_torch.core.policy import CompressionPolicy
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import cache_cfg_for
+from repro_torch.models.transformer import cache_cfg_for, check_serving
 from repro_torch.serving.pagedpool import PagePool, pages_needed
 from repro_torch.serving.views import DenseCacheView, PagedCacheView
 
@@ -98,8 +102,10 @@ class Engine:
             raise NotImplementedError(
                 f"policy {ecfg.policy} needs the portable attend path "
                 "(ROADMAP queue item 3)")
+        check_serving(self.cfg, ecfg.layout, ecfg.prefill_mode)    # before any device work
         # bucketing rides the streaming padded-tail path, so every layer must
-        # take it (one geometry for all layers in the ported models)
+        # take it (one geometry for all layers in the ported models); a
+        # hybrid never buckets (the reference's prefix_cache_unsupported_reason)
         self._can_bucket = (ecfg.prefill_mode == "streaming"
                             and attn_lib.streaming_prefill_supported(self.cfg, self._ccfg))
         self.pool = None
@@ -140,9 +146,9 @@ class Engine:
             host=host, device=torch.from_numpy(host).to(self.device))
 
     def _guard_one(self, one: list) -> list:
-        """Numeric guard on one request's batch-1 cache before it is spliced
-        into the shared tree: raises :class:`NumericFault` on NaN/Inf, with
-        the shared tree untouched."""
+        """Numeric guard on one request's batch-1 cache (a hybrid's SSM
+        state included) before it is spliced into the shared tree: raises
+        :class:`NumericFault` on NaN/Inf, with the shared tree untouched."""
         if self.ecfg.numeric_guard and not bool(cache_lib.tree_finite(one)):
             raise cache_lib.NumericFault(
                 "prefill produced NaN/Inf in a compressed chunk; shared cache state untouched")

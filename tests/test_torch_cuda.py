@@ -15,7 +15,12 @@ on the bf16 output (the kernel rounds P to bf16 before P·V);
 ``flash_prefill_block`` 1e-4 on the normalized output and score max (f32
 both sides); ``gear_compress`` within the reference's own kernel budget
 (stats, outlier values and indices exact, codes off by at most 1 on under
-0.1% of entries, the residual off by at most one scale step).
+0.1% of entries, the residual off by at most one scale step);
+``linear_scan_chunked`` 2e-3 x max(1, max |y_plain|) on y and likewise on
+the final state (the reference's own kernel tolerance, scaled because the
+factored form's clamp lets y grow).  Hymba's shapes are held too:
+``gear_decode`` at G = 5, head_dim 64 and ``flash_prefill`` at kv_repeat 5,
+head_dim 64.
 """
 
 import pytest
@@ -28,10 +33,12 @@ from repro_torch.core import packing  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import gear_compress as gc  # noqa: E402
 from repro_torch.kernels import gear_decode as gd  # noqa: E402
+from repro_torch.kernels import linear_scan_kernel as lsk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import (flash_block_ref, flash_prefill_ref,  # noqa: E402
                                      gather_paged_operands, gear_compress_ref,
-                                     gear_decode_paged_ref, gear_decode_ref)
+                                     gear_decode_paged_ref, gear_decode_ref, linear_scan_ref)
+from repro_torch.models import linear_scan as ls  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -209,3 +216,80 @@ def test_gear_compress_kernel_matches_plain(dev, scheme, group, n_out, bits):
     diff = (packing.unpack(pk, bits, 128) - packing.unpack(pr, bits, 128)).abs()
     assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
     assert float((rk - rr).abs().max()) <= float(sk.max()) + 1e-6
+
+
+@pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
+def test_gear_decode_kernel_at_hymba_shape(dev, polname):
+    """hymba-1.5b's decode: 5 KV heads with G = 5 query rows each, head_dim
+    64, capacity 1152, ragged extents."""
+    cfg, arrays, extra, g = decode_fixture(dev, polname, B=4, H=5, Dh=64, S=1152)
+    n_comp = torch.tensor([0, 64, 576, 1152], dtype=torch.int32,
+                          device=dev).repeat_interleave(5)
+    q = torch.randn(20, 5, 64, generator=g, device=dev)
+    kw = dict(bits=cfg.policy.bits, chunk=64, scale_factor=64 ** -0.5, **extra)
+    acc_k, m_k, l_k = gd.gear_decode(q, *arrays, n_comp, **kw)
+    acc_p, m_p, l_p = gear_decode_ref(q, *arrays, n_comp, **kw)
+    live = n_comp > 0
+    torch.testing.assert_close((acc_k / l_k[..., None])[live], (acc_p / l_p[..., None])[live],
+                               rtol=0, atol=1e-3)
+    torch.testing.assert_close(m_k[live], m_p[live], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("S", [1000, 333])
+def test_flash_prefill_kernel_at_hymba_shape(dev, S):
+    """hymba-1.5b's prefill attention: 25 query heads over 5 KV heads
+    (kv_repeat 5), head_dim 64."""
+    g = torch.Generator(device=dev).manual_seed(S)
+    q = torch.randn(25, S, 64, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(5, S, 64, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(5, S, 64, generator=g, device=dev).to(torch.bfloat16)
+    torch.testing.assert_close(fp.flash_prefill(q, k, v, kv_repeat=5).float(),
+                               flash_prefill_ref(q, k, v, kv_repeat=5).float(),
+                               rtol=0, atol=3e-2)
+
+
+def scan_case(dev, BH, S, Dk, Dv, lw_cols, seed, decay=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.randn(BH, S, Dk, generator=g, device=dev)
+    k = torch.randn(BH, S, Dk, generator=g, device=dev)
+    v = torch.randn(BH, S, Dv, generator=g, device=dev)
+    if decay is None:
+        lw = -torch.nn.functional.softplus(torch.randn(BH, S, lw_cols, generator=g, device=dev))
+    else:
+        lw = torch.full((BH, S, lw_cols), decay, device=dev)
+    u = torch.randn(BH, Dk, generator=g, device=dev) * 0.5
+    return r, k, v, lw, u
+
+
+@pytest.mark.parametrize("mode", ["inclusive", "bonus"])
+@pytest.mark.parametrize("S,chunk", [(256, 64), (200, 200), (859, 859), (96, 32)])
+@pytest.mark.parametrize("Dk,Dv,lw_cols", [(16, 64, 1), (16, 40, 16), (64, 64, 64)])
+def test_linear_scan_kernel_matches_plain(dev, mode, S, chunk, Dk, Dv, lw_cols):
+    """Both modes; aligned chunks carrying the state, chunk = S (one chunk
+    of up to 859 tokens, tiled in 64-row tiles with a ragged last tile);
+    log_w broadcast or per Dk; Dv = 40 is not a multiple of the 16-column
+    tile.  The reference's init decay (-0.313 per token) drives the
+    clamped regime."""
+    r, k, v, lw, u = scan_case(dev, 6, S, Dk, Dv, lw_cols, S + Dv,
+                               decay=-0.313 if lw_cols == 1 else None)
+    before = lsk.linear_scan_chunked.launches
+    y_k, st_k = lsk.linear_scan_chunked(r, k, v, lw, u, chunk=chunk, mode=mode)
+    assert lsk.linear_scan_chunked.launches == before + 1
+    y_p, st_p = linear_scan_ref(r, k, v, lw, u, chunk=chunk, mode=mode)
+    tol = 2e-3 * max(1.0, float(y_p.abs().max()))
+    torch.testing.assert_close(y_k, y_p, rtol=0, atol=tol)
+    torch.testing.assert_close(st_k, st_p, rtol=0, atol=2e-3 * max(1.0, float(st_p.abs().max())))
+
+
+def test_linear_scan_wrappers_reject_what_the_kernel_does_not_take(dev):
+    r, k, v, lw, u = scan_case(dev, 2, 128, 16, 32, 1, 0)
+    with pytest.raises(ValueError, match="does not divide"):
+        lsk.linear_scan_chunked(r, k, v, lw, chunk=100)
+    with pytest.raises(ValueError, match="f32"):
+        lsk.linear_scan_chunked(r.to(torch.bfloat16), k, v, lw, chunk=64)
+    with pytest.raises(ValueError, match="Dk"):
+        big = torch.zeros(2, 128, 80, device=dev)
+        lsk.linear_scan_chunked(big, big, v, lw, chunk=64)
+    with pytest.raises(NotImplementedError, match="RWKV6"):
+        ls.chunked_scan(r[None], k[None], v[None], lw[None],
+                        state0=torch.zeros(1, 2, 16, 32, device=dev))

@@ -31,8 +31,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    hymba's SSM heads (25 rows, Dk 16, Dv 64, one decay per head) at an
    aligned S = 1024 in chunks of 64, at the live S = chunk = 859, per-Dk
    decay at S = chunk = 200, and the ``bonus`` mode at RWKV6-3b's head
-   shape (40 rows, Dk = Dv = 64, chunk 64); each case timed beside its bound;
-9. serving, path 1: llama2-7b at full width (``--layers`` of its 32 layers)
+   shape (Dk = Dv = 64, per-Dk decay): 40 rows in chunks of 64, the live
+   prefill's S = chunk = 859, and the decode step's S = chunk = 1 over 160
+   rows (4 slots x 40 heads) from a non-zero initial state; each case timed
+   beside its bound;
+9. ``quant_pack`` through its entry point ``repro_torch.kernels.quantize_chunk``
+   on the 448 [64, 128] tiles of phase 5, at 2, 4 and 8 bits, f32 and bf16
+   input: launches counted, packed codes, scale and zero bit for bit equal
+   to the plain version, timed beside its byte bound;
+10. serving, path 1: llama2-7b at full width (``--layers`` of its 32 layers)
    with random bf16 weights from a seeded generator, gear_kcvt4,
    ``Engine(batch=4, capacity=1152)`` (monolithic prefill, dense layout) and
    ``Scheduler.run_continuous`` over 8 requests; the launch counters must
@@ -40,7 +47,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    layer-0 cache of one decode step is held against the plain version;
    then ``torch.profiler`` windows over one prefill and 8 decode steps say
    where the time goes (tables under ``build/profile/``);
-10. serving, path 2: the same requests through llama2-7b at all its 32
+11. serving, path 2: the same requests through llama2-7b at all its 32
     layers with ``prefill_mode="streaming", layout="paged"`` and a pool of
     two thirds of the dense-equivalent pages, so that a decode step runs
     while a request waits for pages (``--layers`` does not cut it); the
@@ -49,7 +56,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
     kernel's live layer-0 call is held against its plain version and timed,
     and profiler windows cover one streaming prefill and 8 paged decode
     steps;
-11. serving, path 3: hymba-1.5b (GEAR attention beside Mamba-2 SSM heads)
+12. serving, path 3: hymba-1.5b (GEAR attention beside Mamba-2 SSM heads)
     at its 32 layers and published widths, random bf16 weights with the
     reference's SSM constants, the same 8 requests (ids from its vocab),
     monolithic prefill on the dense layout; the counters must show 32
@@ -58,7 +65,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
     chunk = 859) and decode step are held against their plain versions and
     timed, and profiler windows cover one unaligned prefill and 8 decode
     steps;
-12. summary: one ``{"kernels": [...]}`` JSON line, the card's name and power
+13. serving, path 4: rwkv6-3b (attention-free RWKV6, no KV cache) at its 32
+    layers and published widths, random bf16 weights with the reference's
+    constants, the same 8 requests (ids from its vocab), monolithic prefill
+    on the dense layout; the counters must show exactly 32
+    ``linear_scan_chunked`` launches per prefill and 32 per decode step (the
+    step scans one token from each layer's state) and no attention kernel;
+    the live layer-0 prefill scan (S = chunk = 859) and decode scan (S = 1,
+    from the slots' states) are held against their plain versions and
+    timed, and profiler windows cover one unaligned prefill and 8 decode
+    steps;
+14. summary: one ``{"kernels": [...]}`` JSON line, the card's name and power
     limit, and the final ``{"ok": true, "device": {...}}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.  Without a CUDA
@@ -70,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses as dc
+import gc
 import json
 import pathlib
 import subprocess
@@ -485,11 +503,13 @@ def paged_case(policy_name: str, report: dict) -> None:
 
 
 SCAN_CASES = [
-    # (mode, BH, S, Dk, Dv, log_w columns, chunk)
-    ("inclusive", 25, 1024, 16, 64, 1, 64),     # hymba heads, aligned: state over 16 chunks
-    ("inclusive", 25, 859, 16, 64, 1, 859),     # the live shape: chunk = S
-    ("inclusive", 4, 200, 16, 64, 16, 200),     # per-Dk decay, chunk = S
-    ("bonus", 40, 1024, 64, 64, 64, 64),        # RWKV6-3b's head shape, u nonzero
+    # (mode, BH, S, Dk, Dv, log_w columns, chunk, initial state)
+    ("inclusive", 25, 1024, 16, 64, 1, 64, False),   # hymba heads, aligned: 16 chunks
+    ("inclusive", 25, 859, 16, 64, 1, 859, False),   # hymba's live shape: chunk = S
+    ("inclusive", 4, 200, 16, 64, 16, 200, False),   # per-Dk decay, chunk = S
+    ("bonus", 40, 1024, 64, 64, 64, 64, False),      # RWKV6-3b's heads, u nonzero
+    ("bonus", 40, 859, 64, 64, 64, 859, False),      # RWKV6-3b's live prefill: chunk = S
+    ("bonus", 160, 1, 64, 64, 64, 1, True),          # RWKV6-3b's decode step, 4 slots
 ]
 
 
@@ -507,16 +527,17 @@ def scan_inputs(mode, BH, S, Dk, Dv, lw_cols, seed: int):
     return r, k, v, lw, u
 
 
-def scan_bytes_flops(r, k, v, lw, u, chunk: int, mode: str):
+def scan_bytes_flops(r, k, v, lw, u, chunk: int, mode: str, state0=None):
     """Least bytes and f32 operations of one ``linear_scan_chunked`` call:
-    r, k, v, log w (and u) read once, y and the final state written once.
-    Per chunk of W tokens: 2 (Dk + Dv) operations per visible (query, key)
-    pair of the causal intra product (W (W + 1) / 2 pairs, or W (W - 1) / 2
-    for ``bonus``) and 2 Dk Dv per token for the state update; per token, the
-    cumsum and 3 exponentials per log w column and 3 Dk factor products, and
-    the bonus term.  The state starts at zero, so the cross-chunk read
-    (2 Dk Dv per token) and the state's decay (Dk Dv) count only for the
-    chunks after the first."""
+    r, k, v, log w (and u, and the initial state) read once, y and the final
+    state written once.  Per chunk of W tokens: 2 (Dk + Dv) operations per
+    visible (query, key) pair of the causal intra product (W (W + 1) / 2
+    pairs, or W (W - 1) / 2 for ``bonus``) and 2 Dk Dv per token for the
+    state update; per token, the cumsum and 3 exponentials per log w column
+    and 3 Dk factor products, and the bonus term.  From a zero state the
+    cross-chunk read (2 Dk Dv per token) and the state's decay (Dk Dv) do
+    work only in the chunks after the first; from an initial state, in
+    every chunk."""
     BH, S, Dk = r.shape
     Dv, L = v.shape[-1], lw.shape[-1]
     W = chunk
@@ -526,8 +547,9 @@ def scan_bytes_flops(r, k, v, lw, u, chunk: int, mode: str):
     if mode == "bonus":
         per_chunk += W * (3 * Dk + 2 * Dv)
     cross = W * 2 * Dk * Dv + Dk * Dv
-    flops = BH * (n * per_chunk + (n - 1) * cross)
+    flops = BH * (n * per_chunk + (n if state0 is not None else n - 1) * cross)
     inputs = r.numel() + k.numel() + v.numel() + lw.numel() + (0 if u is None else u.numel())
+    inputs += 0 if state0 is None else state0.numel()
     nbytes = 4 * (inputs + BH * S * Dv + BH * Dk * Dv)
     return nbytes, flops
 
@@ -561,7 +583,7 @@ def scan_check(fn, args: tuple, kw: dict, label: str, flush, report: dict, iters
           and row_y <= 1.0 and row_s <= 1.0)
     ms = time_ms(lambda: fn(*args, **kw), iters, flush)
     plain_ms = time_ms(lambda: linear_scan_ref(*args, **kw), 3, flush)
-    nbytes, flops = scan_bytes_flops(*args, kw["chunk"], kw["mode"])
+    nbytes, flops = scan_bytes_flops(*args, kw["chunk"], kw["mode"], kw.get("state0"))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
     print(f"  {label}: y max_abs_err={err_y:.3e} (tol 2e-3 x {scale_y:.3g}; median |y| "
@@ -580,11 +602,62 @@ def scan_check(fn, args: tuple, kw: dict, label: str, flush, report: dict, iters
 def scan_case(case, flush, report: dict) -> None:
     from repro_torch.kernels import linear_scan_kernel as lsk
 
-    mode, BH, S, Dk, Dv, lw_cols, chunk = case
+    mode, BH, S, Dk, Dv, lw_cols, chunk, with_state = case
     r, k, v, lw, u = scan_inputs(mode, BH, S, Dk, Dv, lw_cols, S + Dk)
-    scan_check(lsk.linear_scan_chunked, (r, k, v, lw, u), dict(chunk=chunk, mode=mode),
+    kw = dict(chunk=chunk, mode=mode)
+    if with_state:
+        kw["state0"] = torch.randn(BH, Dk, Dv, generator=torch.Generator(device=DEV).manual_seed(S),
+                                   device=DEV)
+    scan_check(lsk.linear_scan_chunked, (r, k, v, lw, u), kw,
                f"linear_scan_chunked {mode} BH={BH} S={S} Dk={Dk} Dv={Dv} log_w[..,{lw_cols}] "
-               f"chunk={chunk}", flush, report)
+               f"chunk={chunk}" + (" from a non-zero state0" if with_state else ""), flush, report)
+
+
+# ---------------------------------------------------------------------------
+# quant_pack
+
+
+def quant_pack_phase(flush, report: dict) -> None:
+    """``quant_pack`` driven through ``repro_torch.kernels.quantize_chunk``
+    (its launch counter set to 0 just before and read just after), then held
+    bit for bit against its plain version and timed at 4 bits, f32 and bf16
+    input, beside its byte bound (x read once, codes and stats written once;
+    ~8 f32 operations per element)."""
+    from repro_torch import kernels as port_kernels
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels.ref import quant_pack_ref
+
+    x32 = torch.randn(448, 64, 128, generator=torch.Generator(device=DEV).manual_seed(5),
+                      device=DEV)
+    inputs = {"f32": x32, "bf16": x32.to(torch.bfloat16)}
+    cases = [(bits, dt) for bits in (2, 4, 8) for dt in inputs]
+    qp.quant_pack.launches = 0
+    outs = {case: port_kernels.quantize_chunk(inputs[case[1]], case[0]) for case in cases}
+    torch.cuda.synchronize()
+    launches = qp.quant_pack.launches
+    if launches != len(cases):
+        fail(f"quant_pack launches {launches} != {len(cases)} quantize_chunk calls")
+    for (bits, dt), got in outs.items():
+        want = quant_pack_ref(inputs[dt], bits)
+        exact = [torch.equal(a, b) for a, b in zip(got, want)]
+        print(f"  quant_pack {dt} {bits} bits, {tuple(x32.shape)}: packed / scale / zero equal "
+              f"to the plain version bit for bit = {exact}")
+        if not all(exact):
+            fail(f"quant_pack {dt} {bits} bits differs from its plain version")
+    report.update(err=0.0, launches=launches, library_ms=None)
+    for dt, x in inputs.items():
+        ms = time_ms(lambda: port_kernels.quantize_chunk(x, 4), 50, flush)
+        plain = time_ms(lambda: quant_pack_ref(x, 4), 5, flush)
+        N, n, d = x.shape
+        nbytes = x.numel() * x.element_size() + N * n * d // 8 * 4 + 2 * N * d * 4
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 8 * x.numel() / F32_FLOPS * 1e3
+        bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        suffix = "" if dt == "f32" else "_bf16"
+        report.update({"ms" + suffix: ms, "plain_ms" + suffix: plain, "bound_ms" + suffix: bound,
+                       "bound_by" + suffix: by})
+        print(f"  quant_pack {dt} 4 bits: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB); library: none (no PyTorch call "
+              f"quantizes and packs)")
 
 
 # ---------------------------------------------------------------------------
@@ -628,10 +701,12 @@ def kernel_fns() -> dict:
     from repro_torch.kernels import gear_decode as gd
     from repro_torch.kernels import linear_scan_kernel as lsk
 
+    from repro_torch.kernels import quant_pack as qp
+
     return {"gear_decode": gd.gear_decode, "flash_prefill": fp.flash_prefill,
             "gear_compress": gc.gear_compress, "flash_prefill_block": fp.flash_prefill_block,
             "gear_decode_paged": gd.gear_decode_paged,
-            "linear_scan_chunked": lsk.linear_scan_chunked}
+            "linear_scan_chunked": lsk.linear_scan_chunked, "quant_pack": qp.quant_pack}
 
 
 def drive(eng, cfg, prompts: list, captures: list) -> dict:
@@ -881,7 +956,7 @@ def serving_hybrid(model, params, cfg, layers: int, flush, reports: dict) -> dic
         c.real, tuple(c.args), c.kwargs, "linear_scan_chunked live layer-0 scan", flush, rep,
         iters=50)
     rep["library_ms"] = None
-    rep["launches"] = launches["linear_scan_chunked"]
+    rep["launches_by_path"] = {"hybrid_dense": launches["linear_scan_chunked"]}
 
     c = caps["gear_decode"]
     rep = reports["gear_decode"]
@@ -895,6 +970,55 @@ def serving_hybrid(model, params, cfg, layers: int, flush, reports: dict) -> dic
     reports["flash_prefill"]["launches_by_path"]["hybrid_dense"] = launches["flash_prefill"]
     summary["layers"] = layers
     profile(eng, cfg, HERE / "build" / "profile", "hybrid_dense", prompt_len=659)
+    return summary
+
+
+def serving_rwkv(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 4: rwkv6-3b, monolithic prefill, dense layout; every layer of
+    every prefill and decode step is one ``linear_scan_chunked`` launch."""
+    from repro_torch.core.policy import named_policy
+    from repro_torch.models import linear_scan as ls_mod
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = named_policy("gear_kcvt4")                  # touches no RWKV layer
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=CAP_SERVE, policy=pol),
+                 device=DEV)
+    # request 0's layer-0 prefill scan (S = chunk = 859); layer 0 of decode
+    # step 40, after the first B_SERVE prefills and before any request ends
+    caps = {"prefill": Capture(ls_mod, "linear_scan_chunked", 0),
+            "decode": Capture(ls_mod, "linear_scan_chunked", (B_SERVE + 40) * layers)}
+    summary = drive(eng, cfg, requests(cfg), list(caps.values()))
+    launches, steps = summary["launches"], summary["decode_steps"]
+    want = (N_REQUESTS + steps) * layers
+    if launches["linear_scan_chunked"] != want:
+        fail(f"linear_scan_chunked launches {launches['linear_scan_chunked']} != (8 prefills + "
+             f"{steps} steps) x {layers} on the rwkv path")
+    others = {k: n for k, n in launches.items() if k != "linear_scan_chunked" and n}
+    if others:
+        fail(f"kernels other than linear_scan_chunked launched on the rwkv path: {others}")
+    if eng.attend_path != "xla":
+        fail(f"rwkv engine reports attend path {eng.attend_path!r}, not 'xla'")
+    print(f"  {layers} linear_scan_chunked launches per prefill and per decode step "
+          f"({launches['linear_scan_chunked']} = (8 + {steps}) x {layers}); attend path "
+          f"{eng.attend_path}")
+    rep = reports["linear_scan_chunked"]
+    for phase, c in caps.items():
+        r, k, v, lw, u = c.args
+        s0 = c.kwargs.get("state0")
+        print(f"  live rwkv {phase} scan: r {tuple(r.shape)}, log_w {tuple(lw.shape)}, chunk "
+              f"{c.kwargs['chunk']}, mode {c.kwargs['mode']}, state0 "
+              f"{None if s0 is None else tuple(s0.shape)} (max |state0| "
+              f"{0.0 if s0 is None else float(s0.abs().max()):.3g})")
+        if (phase == "decode") != (s0 is not None and r.shape[1] == 1):
+            fail(f"the captured rwkv {phase} scan is not the expected call")
+        timed = scan_check(c.real, tuple(c.args), c.kwargs,
+                           f"linear_scan_chunked live rwkv layer-0 {phase} scan", flush, rep,
+                           iters=50)
+        rep.update({f"{key}_rwkv_{phase}": val for key, val in
+                    zip(("ms", "plain_ms", "bound_ms", "bound_by"), timed)})
+    rep["launches_by_path"]["rwkv_dense"] = launches["linear_scan_chunked"]
+    summary["layers"] = layers
+    profile(eng, cfg, HERE / "build" / "profile", "rwkv_dense", prompt_len=659)
     return summary
 
 
@@ -952,7 +1076,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="model depth of serving path 1, monolithic + dense (of 32); "
-                         "path 2 always runs every layer")
+                         "paths 2-4 always run every layer")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1001,6 +1125,9 @@ def main() -> int:
         "linear_scan_chunked": {"name": "linear_scan_chunked", "route": "cuda",
                                 "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
                                 "replaces": "src/repro/kernels/linear_scan_kernel.py:77"},
+        "quant_pack": {"name": "quant_pack", "route": "cuda",
+                       "source": "src/repro_torch/kernels/csrc/quant_pack.cu",
+                       "replaces": "src/repro/kernels/quant_pack.py:42"},
     }
     print("[3] gear_decode vs plain")
     for pol in ("gear_kcvt4", "gear_kivi2"):
@@ -1023,6 +1150,8 @@ def main() -> int:
     print("[8] linear_scan_chunked vs plain")
     for case in SCAN_CASES:
         scan_case(case, flush, reports["linear_scan_chunked"])
+    print("[9] quant_pack through kernels.quantize_chunk vs plain")
+    quant_pack_phase(flush, reports["quant_pack"])
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
@@ -1042,8 +1171,8 @@ def main() -> int:
     full = get_config("llama2-7b")
     built_models, summaries = {}, {}
     for phase, key, layers, fn, title in (
-            (9, "monolithic_dense", args.layers, serving, "monolithic prefill, dense layout"),
-            (10, "streaming_paged", full.num_layers, serving_paged,
+            (10, "monolithic_dense", args.layers, serving, "monolithic prefill, dense layout"),
+            (11, "streaming_paged", full.num_layers, serving_paged,
              "streaming prefill, paged pool")):
         print(f"[{phase}] serving llama2-7b, gear_kcvt4, {title}, depth {layers}"
               + ("" if layers == full.num_layers else
@@ -1055,15 +1184,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     hymba = get_config("hymba-1.5b")
-    print(f"[11] serving hymba-1.5b, gear_kcvt4, monolithic prefill, dense layout, depth "
+    print(f"[12] serving hymba-1.5b, gear_kcvt4, monolithic prefill, dense layout, depth "
           f"{hymba.num_layers}")
     summaries["hybrid_dense"] = serving_hybrid(*build(hymba, hymba.num_layers),
                                                hymba.num_layers, flush, reports)
+    gc.collect()                          # free hymba before rwkv6-3b's peak is read
+    torch.cuda.empty_cache()
 
-    print("[12] summary")
+    rwkv6 = get_config("rwkv6-3b")
+    print(f"[13] serving rwkv6-3b, monolithic prefill, dense layout (no KV cache), depth "
+          f"{rwkv6.num_layers}; {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before")
+    summaries["rwkv_dense"] = serving_rwkv(*build(rwkv6, rwkv6.num_layers), rwkv6.num_layers,
+                                           flush, reports)
+
+    print("[14] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    for name in ("gear_decode", "flash_prefill"):
+    for name in ("gear_decode", "flash_prefill", "linear_scan_chunked"):
         reports[name]["launches"] = sum(reports[name]["launches_by_path"].values())
     kernels = []
     for rep in reports.values():

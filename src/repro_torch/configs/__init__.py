@@ -1,8 +1,8 @@
 """Config registry: ``get_config("llama2-7b")`` and reduced smoke variants.
 
-Only the architectures the port serves are registered (llama2-7b and the
-hybrid hymba-1.5b); the reference's other families arrive with ROADMAP
-queue item 10.
+Only the architectures the port serves are registered (llama2-7b, the
+hybrid hymba-1.5b and the attention-free rwkv6-3b); the reference's other
+families arrive with ROADMAP queue item 10.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from repro_torch.configs.base import ModelConfig
 _MODULES = {
     "llama2-7b": "llama2_7b",
     "hymba-1.5b": "hymba_1p5b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 

@@ -485,14 +485,16 @@ def streaming_prefill_layer_cache(cfg: CacheConfig, cache: GEARLayerCache, q: to
 
 
 def _parts(layer) -> tuple:
-    """A layer cache's objects: the GEAR cache alone, or a hybrid layer's
-    (GEAR cache, SSM state) pair.  Each has ``tensors()``."""
+    """A layer cache's objects: the GEAR cache alone, a hybrid layer's (GEAR
+    cache, SSM state) pair, or an RWKV6 layer's recurrent state alone.  Each
+    has ``tensors()``."""
     return layer if isinstance(layer, tuple) else (layer,)
 
 
 def splice_slot(full, one, slot: int):
     """Write batch-1 layer cache ``one`` into batch row ``slot`` of ``full``
-    (in place; a hybrid pair's SSM state too)."""
+    (in place; a hybrid pair's SSM state too, and an RWKV6 state's token
+    shifts and recurrent state)."""
     for dst_part, src_part in zip(_parts(full), _parts(one)):
         for name, dst in dst_part.tensors().items():
             dst[slot].copy_(getattr(src_part, name)[0])
@@ -502,7 +504,7 @@ def splice_slot(full, one, slot: int):
 def reset_slot(cache, slot: int):
     """Return batch row ``slot`` to the empty state: every leaf zeroed (what
     the reference's splice of a fresh zero cache writes; a hybrid's conv
-    window and recurrent state included), in place."""
+    window and recurrent state, and an RWKV6 state, included), in place."""
     for part in _parts(cache):
         for t in part.tensors().values():
             t[slot].zero_()
@@ -511,8 +513,8 @@ def reset_slot(cache, slot: int):
 
 def tree_finite(caches) -> torch.Tensor:
     """Scalar bool tensor: every floating leaf of ``caches`` (one layer cache
-    or a list of them; hybrid pairs included) is finite.  Integer leaves
-    cannot hold NaN/Inf."""
+    or a list of them; hybrid pairs and RWKV6 states included) is finite.
+    Integer leaves cannot hold NaN/Inf."""
     layers = caches if isinstance(caches, list) else [caches]
     oks = [torch.isfinite(t).all() for c in layers for part in _parts(c)
            for t in part.tensors().values() if t.is_floating_point()]

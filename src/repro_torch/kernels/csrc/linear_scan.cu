@@ -19,6 +19,9 @@
 // The clamps make a chunk whose cumulative decay passes e^-30 compute
 // something other than the recurrence; the port follows the reference there
 // (expf, not __expf, and never the "exact" exp(cum_t - cum_tau)).
+// The state starts at zero, or at an initial state state0 [BH, Dk, Dv] (the
+// reference's chunked_scan takes one; its TPU kernel does not): RWKV6's
+// decode step scans one token from the slot's recurrent state.
 //
 // What bounds it on the H100: at chunk = 64 bytes (each token's r, k, v,
 // log w read and y written once; ~2 (Dk + Dv) * 64 operations per token
@@ -77,6 +80,7 @@ __global__ void __launch_bounds__(THREADS) linear_scan_kernel(
     const float* __restrict__ v,    // [BH, S, Dv]
     const float* __restrict__ lw,   // [BH, S, LC], LC = 1 (broadcast over Dk) or Dk
     const float* __restrict__ u,    // [BH, Dk] (bonus) or null
+    const float* __restrict__ state0,  // [BH, Dk, Dv] or null (zero state)
     float* __restrict__ y,          // [BH, S, Dv]
     float* __restrict__ state_out,  // [BH, Dk, Dv]
     int S, int Dk, int Dv, int LC, int W, int bonus) {
@@ -106,7 +110,11 @@ __global__ void __launch_bounds__(THREADS) linear_scan_kernel(
   float* yg = y + (long)x * S * Dv;
   const int n_tiles = (W + TILE - 1) / TILE;
 
-  for (int i = tid; i < Dk * DVT; i += THREADS) st[i] = 0.f;
+  for (int i = tid; i < Dk * DVT; i += THREADS) {
+    const int d = i / DVT, jj = i % DVT;
+    st[i] = state0 != nullptr && j0 + jj < Dv ? state0[(long)x * Dk * Dv + (long)d * Dv + j0 + jj]
+                                              : 0.f;
+  }
 
   // loads tile rows [t0, t0 + rows) of k and v: kf gets k * exp(scale(cum))
   auto load_keys = [&](int t0, int rows, bool for_state) {
@@ -255,8 +263,9 @@ __global__ void __launch_bounds__(THREADS) linear_scan_kernel(
 }  // namespace
 
 extern "C" int linear_scan_launch(const void* r, const void* k, const void* v, const void* lw,
-                                  const void* u, void* y, void* state, int BH, int S, int Dk,
-                                  int Dv, int LC, int W, int bonus, void* stream) {
+                                  const void* u, const void* state0, void* y, void* state,
+                                  int BH, int S, int Dk, int Dv, int LC, int W, int bonus,
+                                  void* stream) {
   if (Dk < 1 || Dk > 64 || (LC != 1 && LC != Dk) || W < 1 || S % W) return (int)cudaErrorInvalidValue;
   const size_t floats = 2 * (size_t)TILE * (Dk + 1) + (size_t)TILE * AT + (size_t)TILE * DVT +
                         (size_t)Dk * DVT + 2 * (size_t)TILE * LC + 2 * (size_t)LC + TILE;
@@ -268,6 +277,6 @@ extern "C" int linear_scan_launch(const void* r, const void* k, const void* v, c
   const dim3 grid(BH, (Dv + DVT - 1) / DVT);
   linear_scan_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)r, (const float*)k, (const float*)v, (const float*)lw, (const float*)u,
-      (float*)y, (float*)state, S, Dk, Dv, LC, W, bonus);
+      (const float*)state0, (float*)y, (float*)state, S, Dk, Dv, LC, W, bonus);
   return (int)cudaGetLastError();
 }

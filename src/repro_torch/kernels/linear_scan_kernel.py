@@ -5,7 +5,9 @@ Port of ``repro.kernels.linear_scan_kernel.linear_scan_chunked`` (contract
 of ``ref.linear_scan_ref``, i.e. the reference's ``chunked_scan`` with the
 leading dims flattened).  A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.  Any chunk that divides S is legal,
-chunk = S included: the kernel tiles a chunk in 64-row tiles itself.
+chunk = S included: the kernel tiles a chunk in 64-row tiles itself.  The
+scan starts from a zero state or from ``state0`` (RWKV6's decode step), as
+the reference's ``chunked_scan`` does; its TPU kernel starts from zero only.
 """
 
 from __future__ import annotations
@@ -29,15 +31,17 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("linear_scan").linear_scan_launch
-    fn.argtypes = [_P] * 7 + [_I] * 7 + [_P]
+    fn.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     fn.restype = ctypes.c_int
     return fn
 
 
-def linear_scan_chunked(r, k, v, log_w, u=None, *, chunk: int = 64, mode: str = "inclusive"):
+def linear_scan_chunked(r, k, v, log_w, u=None, *, chunk: int = 64, mode: str = "inclusive",
+                        state0=None):
     """r, k [BH, S, Dk]; v [BH, S, Dv]; log_w [BH, S, Dk] or [BH, S, 1] (one
-    decay per row, broadcast over Dk); u [BH, Dk] for ``mode="bonus"``.
-    Returns (y [BH, S, Dv] in v's dtype, state [BH, Dk, Dv] f32)."""
+    decay per row, broadcast over Dk); u [BH, Dk] for ``mode="bonus"``;
+    state0 [BH, Dk, Dv] f32 or None (a zero state).  Returns (y [BH, S, Dv]
+    in v's dtype, state [BH, Dk, Dv] f32)."""
     if mode not in ("inclusive", "bonus"):
         raise ValueError(f"linear_scan_chunked: mode must be inclusive/bonus, got {mode!r}")
     BH, S, Dk = r.shape
@@ -46,7 +50,7 @@ def linear_scan_chunked(r, k, v, log_w, u=None, *, chunk: int = 64, mode: str = 
     if mode == "bonus" and u is None:
         raise ValueError("linear_scan_chunked: mode='bonus' needs u")
     if r.device.type == "cpu":
-        return linear_scan_ref(r, k, v, log_w, u, chunk=chunk, mode=mode)
+        return linear_scan_ref(r, k, v, log_w, u, chunk=chunk, mode=mode, state0=state0)
     if r.device.type != "cuda":
         raise ValueError(f"linear_scan_chunked: no kernel for device {r.device}")
     Dv = v.shape[-1]
@@ -55,6 +59,8 @@ def linear_scan_chunked(r, k, v, log_w, u=None, *, chunk: int = 64, mode: str = 
              "log_w": (log_w, (BH, S, lw_cols))}
     if mode == "bonus":
         wants["u"] = (u, (BH, Dk))
+    if state0 is not None:
+        wants["state0"] = (state0, (BH, Dk, Dv))
     for name, (x, shape) in wants.items():
         if x.device != r.device or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"linear_scan_chunked: {name} must be a contiguous f32 tensor on "
@@ -69,7 +75,9 @@ def linear_scan_chunked(r, k, v, log_w, u=None, *, chunk: int = 64, mode: str = 
     y = torch.empty_like(v)
     state = torch.empty((BH, Dk, Dv), dtype=torch.float32, device=r.device)
     code = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-                       None if u is None else u.data_ptr(), y.data_ptr(), state.data_ptr(),
+                       None if u is None else u.data_ptr(),
+                       None if state0 is None else state0.data_ptr(),
+                       y.data_ptr(), state.data_ptr(),
                        BH, S, Dk, Dv, lw_cols, chunk, int(mode == "bonus"),
                        torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(code, "linear_scan_chunked")

@@ -8,7 +8,8 @@ versions for CPU tensors), and the FP16 streaming buffer is merged with one
 softmax rescale.  ``gear_attend_block`` is the streaming prefill's attention
 of in-flight blocks (compressed history + the block itself).
 ``flash_attention`` is full-sequence causal attention through
-``flash_prefill``.
+``flash_prefill``.  ``quantize_chunk`` is the fused per-column quantize +
+pack of a chunk batch through ``quant_pack``.
 """
 
 from __future__ import annotations
@@ -20,9 +21,10 @@ from repro_torch.core.cache import (CacheConfig, GEARLayerCache, PagedGEARLayerC
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_block
 from repro_torch.kernels.gear_decode import gear_decode, gear_decode_paged
+from repro_torch.kernels.quant_pack import quant_pack
 
 __all__ = ["gear_attend", "gear_attend_paged", "gear_attend_block",
-           "flash_attention"]
+           "flash_attention", "quantize_chunk"]
 
 # -1e30, never -inf: the merge relies on exp(-1e30 - m) == 0 without NaN.
 NEG_INF = -1e30
@@ -196,3 +198,9 @@ def flash_attention(q, k, v, *, window: int = 0, prefix_len: int = 0,
     """q [BHq, S, Dh], k/v [BHq / kv_repeat, S, Dh] causal attention."""
     return flash_prefill(q, k, v, window=window, prefix_len=prefix_len,
                          softcap=softcap, kv_repeat=kv_repeat)
+
+
+def quantize_chunk(x: torch.Tensor, bits: int):
+    """Fused per-column quantize + pack of a chunk batch x [N, n, d] (f32 or
+    bf16): (packed [N, n, d * bits / 32] int32, scale [N, d], zero [N, d])."""
+    return quant_pack(x, bits)

@@ -17,7 +17,7 @@ from repro_torch.core import quant as q_lib
 
 __all__ = ["gear_decode_ref", "gear_decode_paged_ref", "gather_paged_operands",
            "gear_hist_block_ref", "flash_prefill_ref", "flash_block_ref",
-           "gear_compress_ref", "linear_scan_ref"]
+           "gear_compress_ref", "linear_scan_ref", "quant_pack_ref"]
 
 NEG_INF = -1e30
 
@@ -25,6 +25,19 @@ NEG_INF = -1e30
 def _dequant(packed, scale_full, zero_full, bits, d):
     codes = packing.unpack(packed, bits, d).to(torch.float32)
     return codes * scale_full + zero_full
+
+
+def quant_pack_ref(x, bits: int):
+    """Per-column asymmetric quantize + pack of x [N, n, d] (f32 or bf16),
+    each column's group the tile's n rows: (packed int32 [N, n, d*bits/32],
+    scale [N, d] f32, zero [N, d] f32).  This is the cache's own quantizer
+    (:func:`repro_torch.core.quant.quantize`, ``per_channel``, f32 stats):
+    the scale multiplies by ``f32(1 / (2**bits - 1))`` as the reference's
+    jitted programs and its Pallas kernel do, so it equals them bit for bit
+    (the eager ``repro.kernels.ref.quant_pack_ref`` divides instead; ROADMAP
+    §3)."""
+    qt = q_lib.quantize(x, bits, "per_channel")
+    return qt.packed, qt.scale[:, 0], qt.zero[:, 0]
 
 
 def gear_decode_ref(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, n_comp, *,

@@ -1,11 +1,12 @@
-"""Shared model components: device choice, RMSNorm, RoPE (port of
-``repro.models.common``)."""
+"""Shared model components: device choice, RMSNorm, LayerNorm, SiLU, RoPE
+(port of ``repro.models.common``)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "rmsnorm", "rope_freqs", "rope_tables", "rotate", "apply_rope"]
+__all__ = ["resolve_device", "rmsnorm", "layernorm", "silu", "rope_freqs", "rope_tables",
+           "rotate", "apply_rope"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -27,6 +28,23 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
     return out.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm ``scale * (x - mean) / sqrt(var + eps) + bias`` in f32,
+    returned in x's dtype."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * scale.to(torch.float32) + bias.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` in x's dtype, as ``jax.nn.silu`` (in bf16 the
+    sigmoid is rounded before the product, unlike ``F.silu``)."""
+    return x * torch.sigmoid(x)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -8,7 +8,11 @@ each pattern position's layers over repeats (``blocks[p][...][r]``); layer
 ``dtype`` (bf16: what the reference casts them to at use), norm scales f32.
 A hybrid block's ``ssm`` subtree comes across the same way: its matrices in
 bf16, ``conv_w`` and the per-head ``a_log`` / ``dt_bias`` / ``d_skip`` in
-f32 (see :mod:`repro_torch.models.transformer`).
+f32 (see :mod:`repro_torch.models.transformer`).  An RWKV6 block's ``tm`` /
+``cm`` subtrees land in its :class:`~repro_torch.models.rwkv.TimeMix` /
+:class:`~repro_torch.models.rwkv.ChannelMix` by name (matrices, the 3-D
+``mix_lora_b`` included, in bf16; mixes, ``w0``, ``u`` and the GroupNorm in
+f32), and its LayerNorms' ``scale`` and ``bias`` in f32.
 """
 
 from __future__ import annotations
@@ -45,6 +49,14 @@ def params_from_reference(np_tree: dict, cfg: ModelConfig, device=None,
     for i, blk in enumerate(model.blocks):
         stacked = np_tree["blocks"][i % unit]
         r = i // unit
+        if cfg.rwkv:
+            for n in (1, 2):
+                put(getattr(blk, f"ln{n}_scale"), stacked[f"ln{n}"]["scale"][r])
+                put(getattr(blk, f"ln{n}_bias"), stacked[f"ln{n}"]["bias"][r])
+            for sub in ("tm", "cm"):
+                for name, p in getattr(blk, sub).named_parameters():
+                    put(p, stacked[sub][name][r])
+            continue
         put(blk.ln1, stacked["ln1"]["scale"][r])
         put(blk.ln2, stacked["ln2"]["scale"][r])
         for name in _ATTN:

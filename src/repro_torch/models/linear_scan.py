@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
 from repro_torch.kernels.linear_scan_kernel import linear_scan_chunked
 
 __all__ = ["chunked_scan", "decode_step", "sequential_scan_ref"]
@@ -28,8 +27,9 @@ __all__ = ["chunked_scan", "decode_step", "sequential_scan_ref"]
 def chunked_scan(r, k, v, log_w, chunk: int = 64, u=None, state0=None,
                  mode: str = "inclusive"):
     """r, k [B, H, S, Dk]; v [B, H, S, Dv]; log_w [B, H, S, Dk] (≤ 0) or
-    broadcastable (hymba: [B, H, S, 1]); u [H, Dk] (``mode="bonus"``).
-    Returns (y [B, H, S, Dv] in v's dtype, final state [B, H, Dk, Dv] f32)."""
+    broadcastable (hymba: [B, H, S, 1]); u [H, Dk] (``mode="bonus"``);
+    state0 [B, H, Dk, Dv] or None (a zero state).  Returns (y [B, H, S, Dv]
+    in v's dtype, final state [B, H, Dk, Dv] f32)."""
     B, H, S, Dk = r.shape
     Dv = v.shape[-1]
     BH = B * H
@@ -38,16 +38,8 @@ def chunked_scan(r, k, v, log_w, chunk: int = 64, u=None, state0=None,
     flat = [x.reshape(BH, S, x.shape[-1]).to(f32).contiguous() for x in (r, k, v, lw)]
     uf = (None if u is None
           else torch.broadcast_to(u.to(f32), (B, H, Dk)).reshape(BH, Dk).contiguous())
-    if state0 is not None:
-        if r.device.type != "cpu":
-            raise NotImplementedError(
-                "chunked_scan with state0 on the card: the linear_scan_chunked kernel starts "
-                "from a zero state (an initial state comes with the RWKV6 slice, ROADMAP "
-                "queue item 10)")
-        y, state = ref.linear_scan_ref(*flat, uf, chunk=chunk, mode=mode,
-                                       state0=state0.reshape(BH, Dk, Dv))
-    else:
-        y, state = linear_scan_chunked(*flat, uf, chunk=chunk, mode=mode)
+    s0 = None if state0 is None else state0.reshape(BH, Dk, Dv).to(f32).contiguous()
+    y, state = linear_scan_chunked(*flat, uf, chunk=chunk, mode=mode, state0=s0)
     return y.reshape(B, H, S, Dv).to(v.dtype), state.reshape(B, H, Dk, Dv)
 
 

@@ -1,6 +1,8 @@
 """Public model facade: prefill / decode / caches (port of
 ``repro.models.model.Model``'s serving half).  A hybrid model's per-layer
-cache is the pair (GEAR cache, SSM state); the facade passes it through."""
+cache is the pair (GEAR cache, SSM state), an RWKV6 model's its
+:class:`~repro_torch.models.rwkv.RWKVState` (the compression policy touches
+none of its layers); the facade passes them through."""
 
 from __future__ import annotations
 

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import linear_scan
+from repro_torch.models.common import silu
 
 __all__ = ["SSMState", "ssm_apply", "ssm_decode", "init_ssm_state"]
 
@@ -40,12 +41,6 @@ class SSMState:
 def _dims(cfg: ModelConfig):
     H, dh = cfg.num_heads, cfg.head_dim
     return H, dh, H * dh, cfg.ssm_state
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``x * sigmoid(x)`` in x's dtype, as ``jax.nn.silu`` (in bf16 the
-    sigmoid is rounded before the product, unlike ``F.silu``)."""
-    return x * torch.sigmoid(x)
 
 
 def _conv_train(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -78,7 +73,7 @@ def ssm_apply(cfg: ModelConfig, layer, x: torch.Tensor, chunk: int = 64):
     H, dh, dinner, ds = _dims(cfg)
     B, S, _ = x.shape
     xi, z = (x @ layer.w_in).chunk(2, dim=-1)
-    xc = _silu(_conv_train(xi, layer.conv_w.to(x.dtype)))
+    xc = silu(_conv_train(xi, layer.conv_w.to(x.dtype)))
     b, c, dt, log_w = _bcdt(cfg, layer, xc)
 
     v = xc.reshape(B, S, H, dh).transpose(1, 2).to(torch.float32)      # [B, H, S, dh]
@@ -89,7 +84,7 @@ def ssm_apply(cfg: ModelConfig, layer, x: torch.Tensor, chunk: int = 64):
     y, state = linear_scan.chunked_scan(r, kk, v, lw, chunk=eff_chunk, mode="inclusive")
     y = y + layer.d_skip[None, :, None, None] * v
     y = y.transpose(1, 2).reshape(B, S, dinner).to(x.dtype)
-    y = y * _silu(z)
+    y = y * silu(z)
     out = y @ layer.w_out
     tail = xi[:, max(0, S - (cfg.ssm_conv - 1)):, :]
     if tail.shape[1] < cfg.ssm_conv - 1:
@@ -111,13 +106,13 @@ def ssm_decode(cfg: ModelConfig, layer, x_t: torch.Tensor, st: SSMState):
     B = x_t.shape[0]
     xi, z = (x_t[:, 0] @ layer.w_in).chunk(2, dim=-1)                 # [B, dinner]
     window = torch.cat([st.conv, xi[:, None, :]], dim=1)                # [B, cw, dinner]
-    xc = _silu(torch.einsum("bcd,cd->bd", window.to(torch.float32),
+    xc = silu(torch.einsum("bcd,cd->bd", window.to(torch.float32),
                             layer.conv_w.to(torch.float32))).to(x_t.dtype)
     b, c, dt, log_w = _bcdt(cfg, layer, xc)
     v = xc.reshape(B, H, dh).to(torch.float32)
     y, state = linear_scan.decode_step(c, b * dt[..., None], v, log_w[..., None], st.state,
                                        mode="inclusive")
     y = y + layer.d_skip[None, :, None] * v
-    y = (y.reshape(B, dinner) * _silu(z.to(torch.float32))).to(x_t.dtype)
+    y = (y.reshape(B, dinner) * silu(z.to(torch.float32))).to(x_t.dtype)
     out = (y @ layer.w_out)[:, None, :]
     return out, SSMState(conv=window[:, 1:, :], state=state)

@@ -1,12 +1,14 @@
 """Decoder stack: weights, monolithic or streaming prefill and one decode
 step over dense or paged caches (port of ``repro.models.transformer`` for
 global-attention RMSNorm/SwiGLU text decoders: dense llama2 and the hybrid
-hymba, whose blocks run Mamba-2 SSM heads beside attention).
+hymba, whose blocks run Mamba-2 SSM heads beside attention; and for the
+attention-free RWKV6, whose blocks are time mix + channel mix).
 
 Where the reference stacks per-layer parameters and caches over repeats and
 drives them with ``lax.scan``, the port holds one :class:`Block` and one
 layer cache per layer and loops in Python.  A hybrid layer's cache is the
-pair ``(GEARLayerCache, SSMState)``, as the reference's.  Activations run in
+pair ``(GEARLayerCache, SSMState)``, as the reference's; an RWKV6 layer's
+is its :class:`~repro_torch.models.rwkv.RWKVState`.  Activations run in
 bf16 (``COMPUTE_DTYPE``, as the reference); weight matrices are stored in
 bf16, which is what the reference computes with after its cast at use, and
 norm scales and the SSM's per-head vectors stay f32.  The SSM's ``conv_w``
@@ -24,16 +26,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cache as cache_lib
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import resolve_device, rmsnorm, rope_tables
+from repro_torch.models.common import layernorm, resolve_device, rmsnorm, rope_tables
 from repro_torch.models.mlp import mlp_apply
 
-__all__ = ["COMPUTE_DTYPE", "Block", "Transformer", "check_supported", "check_serving",
-           "is_hybrid", "cache_cfg_for", "init_caches", "embed_tokens",
+__all__ = ["COMPUTE_DTYPE", "Block", "RWKVBlock", "Transformer", "check_supported",
+           "check_serving", "is_hybrid", "cache_cfg_for", "init_caches", "embed_tokens",
            "logits_from_hidden", "forward_prefill", "decode_tokens"]
 
 COMPUTE_DTYPE = torch.bfloat16
-
 
 
 def is_hybrid(cfg: ModelConfig) -> bool:
@@ -44,8 +46,12 @@ def is_hybrid(cfg: ModelConfig) -> bool:
 def check_serving(cfg: ModelConfig, layout: str = "dense",
                   prefill_mode: str = "monolithic") -> None:
     """Raise for a cache layout or prefill mode this model cannot take: a
-    hybrid serves dense and monolithic only (the paged reason is the
-    reference's own)."""
+    hybrid serves dense and monolithic only, an RWKV6 model dense only (the
+    paged reasons are the reference's own; an RWKV6 model's streaming
+    prefill is its monolithic one, unbucketed, as in the reference)."""
+    if cfg.rwkv and layout == "paged":
+        raise ValueError("paged layout: no GEAR-compressible attention layer in "
+                         f"pattern {cfg.layer_pattern!r}")
     if not is_hybrid(cfg):
         return
     if layout == "paged":
@@ -58,16 +64,18 @@ def check_serving(cfg: ModelConfig, layout: str = "dense",
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves text decoders with global RMSNorm/SwiGLU attention
-    blocks: dense (llama2) or hybrid with parallel SSM heads (hymba); other
-    families raise."""
-    family_ok = ((cfg.family == "dense" and not cfg.ssm)
-                 or (cfg.family == "hybrid" and is_hybrid(cfg)))
-    if (not family_ok or cfg.moe or cfg.rwkv or cfg.modality != "text"
-            or cfg.layer_pattern != ("global",) or cfg.norm != "rmsnorm"
-            or cfg.mlp_kind != "swiglu" or cfg.qk_norm):
+    blocks, dense (llama2) or hybrid with parallel SSM heads (hymba), and
+    attention-free RWKV6 stacks; other families raise."""
+    attn_ok = (((cfg.family == "dense" and not cfg.ssm)
+                or (cfg.family == "hybrid" and is_hybrid(cfg)))
+               and not cfg.rwkv and cfg.layer_pattern == ("global",)
+               and cfg.mlp_kind == "swiglu" and not cfg.qk_norm)
+    rwkv_ok = cfg.family == "ssm" and cfg.rwkv and cfg.mlp_kind == "rwkv_cm"
+    if (not (attn_ok or rwkv_ok) or cfg.moe or cfg.modality != "text"
+            or cfg.norm != "rmsnorm"):
         raise NotImplementedError(
             f"{cfg.name}: only dense or hybrid (parallel SSM) global-attention RMSNorm/SwiGLU "
-            "text decoders are ported (other families: ROADMAP queue item 10)")
+            "text decoders and RWKV6 are ported (other families: ROADMAP queue item 10)")
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
@@ -102,6 +110,30 @@ class Block(nn.Module):
             self.a_log, self.dt_bias, self.d_skip = vec(0.0), vec(-1.0), vec(1.0)
 
 
+class RWKVBlock(nn.Module):
+    """One RWKV6 layer's weights: LayerNorms ``ln1`` / ``ln2`` (scale 1,
+    bias 0 in f32, applied by :meth:`ln1` / :meth:`ln2`) and the time-mix /
+    channel-mix weights."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype=COMPUTE_DTYPE):
+        super().__init__()
+        d = cfg.d_model
+
+        def vec(fill):
+            return _param(torch.full((d,), fill, dtype=torch.float32, device=device))
+
+        self.ln1_scale, self.ln1_bias = vec(1.0), vec(0.0)
+        self.ln2_scale, self.ln2_bias = vec(1.0), vec(0.0)
+        self.tm = rwkv_lib.TimeMix(cfg, device, dtype)
+        self.cm = rwkv_lib.ChannelMix(cfg, device, dtype)
+
+    def ln1(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(x, self.ln1_scale, self.ln1_bias)
+
+    def ln2(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(x, self.ln2_scale, self.ln2_bias)
+
+
 class Transformer(nn.Module):
     """All weights of a decoder; build with :meth:`random` or
     :func:`repro_torch.models.convert.params_from_reference`."""
@@ -116,7 +148,8 @@ class Transformer(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else _param(torch.zeros(d, v, dtype=dtype, device=device)))
         self.final_norm = _param(torch.zeros(d, dtype=torch.float32, device=device))
-        self.blocks = nn.ModuleList(Block(cfg, device, dtype) for _ in range(cfg.num_layers))
+        block = RWKVBlock if cfg.rwkv else Block
+        self.blocks = nn.ModuleList(block(cfg, device, dtype) for _ in range(cfg.num_layers))
 
     @property
     def device(self) -> torch.device:
@@ -126,15 +159,20 @@ class Transformer(nn.Module):
     def random(cls, cfg: ModelConfig, seed: int = 0, device=None) -> "Transformer":
         """Random weights from a seeded ``torch.Generator`` on the target
         device: normal draws scaled by ``fan_in ** -0.5`` as the reference's
-        init (untruncated); norm scales zero, i.e. unit gain; the SSM's
-        per-head vectors at the reference's constants (``a_log`` 0,
-        ``dt_bias`` -1, ``d_skip`` 1, set by :class:`Block`)."""
+        init (untruncated; ``fan_in`` is the input dim, the LoRA rank 32 for
+        RWKV6's ``mix_lora_b [5, 32, d]``); norm scales zero, i.e. unit gain.
+        Everything else keeps the reference's constants, set by the modules:
+        the SSM's per-head vectors (``a_log`` 0, ``dt_bias`` -1, ``d_skip``
+        1), RWKV6's mixes (0.5), ``w0`` (-2), ``u`` (0) and its norms' scale
+        1 and bias 0."""
         model = cls(cfg, device)
         gen = torch.Generator(device=model.device).manual_seed(seed)
+        fixed = {f"{prefix}.{name}" for prefix, mod in model.named_modules()
+                 for name in getattr(mod, "FIXED", ())}
         with torch.no_grad():
             for name, p in model.named_parameters():
-                if p.dim() == 2:
-                    fan_in = p.shape[1] if name == "embed" else p.shape[0]
+                if p.dim() >= 2 and name not in fixed:
+                    fan_in = p.shape[1] if name == "embed" else p.shape[-2 if p.dim() == 3 else 0]
                     p.normal_(0.0, fan_in ** -0.5, generator=gen)
         return model
 
@@ -153,11 +191,17 @@ def init_caches(cfg: ModelConfig, policy: CompressionPolicy, batch: int, capacit
     ``pool_pages`` pages (page 0 reserved).  Every layer's pool is addressed
     by one engine-owned block table.  A hybrid layer's cache is the pair
     (GEAR cache, zero :class:`~repro_torch.models.ssm.SSMState`); hybrids
-    are dense-only."""
-    if policy.is_fp16:
-        raise NotImplementedError("fp16 caches are not ported yet (ROADMAP queue item 10)")
+    are dense-only.  An RWKV6 layer's is a zero
+    :class:`~repro_torch.models.rwkv.RWKVState` whatever the policy (it
+    touches no RWKV layer); RWKV6 is dense-only too."""
     if layout not in ("dense", "paged"):
         raise ValueError(f"layout must be dense/paged, got {layout!r}")
+    if cfg.rwkv:
+        check_serving(cfg, layout=layout)
+        return [rwkv_lib.init_rwkv_state(cfg, batch, dtype, device)
+                for _ in range(cfg.num_layers)]
+    if policy.is_fp16:
+        raise NotImplementedError("fp16 caches are not ported yet (ROADMAP queue item 10)")
     check_serving(cfg, layout=layout)
     ccfg = cache_cfg_for(cfg, policy, batch, capacity)
     if layout == "paged":
@@ -193,15 +237,29 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
     caches.  ``padded_tail`` / ``true_len`` (streaming only) are the
     length-bucketing hooks: ``tokens`` is right-padded to a chunk multiple,
     the padded block stays out of compression, lengths and the returned
-    logits come from position ``true_len - 1``."""
+    logits come from position ``true_len - 1``.  An RWKV6 model runs its
+    blocks over the whole prompt in either mode (no compression, no
+    bucketing: a padded tail would enter its recurrent state)."""
     if prefill_mode not in ("monolithic", "streaming"):
         raise ValueError(f"prefill_mode must be monolithic/streaming, got {prefill_mode!r}")
     if padded_tail and prefill_mode != "streaming":
         raise ValueError("padded_tail requires prefill_mode='streaming'")
     cfg = model.cfg
     check_serving(cfg, prefill_mode=prefill_mode)
-    hybrid = is_hybrid(cfg)
     x = embed_tokens(model, tokens)
+    if cfg.rwkv:
+        if padded_tail:
+            raise ValueError("suffix/bucketed prefill cannot resume an RWKV state")
+        caches = []
+        for blk in model.blocks:
+            h, (shift_tm, wkv) = rwkv_lib.time_mix_apply(cfg, blk, blk.ln1(x))
+            x = x + h
+            h, shift_cm = rwkv_lib.channel_mix_apply(cfg, blk, blk.ln2(x))
+            x = x + h
+            caches.append(rwkv_lib.RWKVState(shift_tm=shift_tm.to(torch.bfloat16),
+                                             shift_cm=shift_cm.to(torch.bfloat16), wkv=wkv))
+        return logits_from_hidden(model, rmsnorm(x, model.final_norm)[:, -1:, :]), caches
+    hybrid = is_hybrid(cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -238,9 +296,20 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
     positions; ``lengths`` the host copy of the caches' per-slot lengths
     (read from the first layer cache, one device sync per step, when not
     given); ``block_tables`` addresses every layer's pool for paged caches.
-    Updates ``caches`` in place; returns logits [B, 1, V]."""
+    Updates ``caches`` in place; returns logits [B, 1, V].  An RWKV6 model
+    reads neither ``pos`` nor lengths: each layer advances its
+    :class:`~repro_torch.models.rwkv.RWKVState` by one token."""
     cfg = model.cfg
     x = embed_tokens(model, tokens)
+    if cfg.rwkv:
+        for blk, st in zip(model.blocks, caches):
+            h, new = rwkv_lib.time_mix_decode(cfg, blk, blk.ln1(x), st)
+            x = x + h
+            h, new = rwkv_lib.channel_mix_decode(cfg, blk, blk.ln2(x), new)
+            x = x + h
+            for name, t in new.tensors().items():
+                getattr(st, name).copy_(t)
+        return logits_from_hidden(model, rmsnorm(x, model.final_norm))
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).reshape(-1).expand(B)
     rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)      # [B, 1, Dh/2]

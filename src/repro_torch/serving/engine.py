@@ -17,6 +17,10 @@ and no telemetry.  ``prefill_mode`` is "monolithic" or "streaming";
   prefill on the dense layout only, unbucketed, as in the reference: its
   per-layer cache is the pair (GEAR cache, SSM state), which the slot
   protocol and the numeric guard cover.
+* An RWKV6 model has no KV cache: its per-layer cache is the recurrent
+  state, the policy touches no layer, prefill is unbucketed in either mode,
+  the layout is dense only, and ``attend_path`` reports "xla", as the
+  reference's does when no layer has a GEAR attention cache.
 
 The cache tree is a list of per-layer caches that the engine updates in
 place: ``decode``, ``prefill_slot`` and ``reset_slot`` return the same tree
@@ -97,16 +101,18 @@ class Engine:
         self.cfg = model.cfg
         self.ecfg = ecfg
         self.params = params
-        self._ccfg = cache_cfg_for(self.cfg, ecfg.policy, ecfg.batch, self._cap())
-        if not cache_lib.streaming_supported(self._ccfg):    # the gear_decode layout
-            raise NotImplementedError(
+        # the GEAR attention layers' cache config; None when there are none
+        self._ccfg = (None if self.cfg.rwkv else
+                      cache_cfg_for(self.cfg, ecfg.policy, ecfg.batch, self._cap()))
+        if self._ccfg is not None and not cache_lib.streaming_supported(self._ccfg):
+            raise NotImplementedError(                       # the gear_decode layout
                 f"policy {ecfg.policy} needs the portable attend path "
                 "(ROADMAP queue item 3)")
         check_serving(self.cfg, ecfg.layout, ecfg.prefill_mode)    # before any device work
         # bucketing rides the streaming padded-tail path, so every layer must
         # take it (one geometry for all layers in the ported models); a
         # hybrid never buckets (the reference's prefix_cache_unsupported_reason)
-        self._can_bucket = (ecfg.prefill_mode == "streaming"
+        self._can_bucket = (ecfg.prefill_mode == "streaming" and self._ccfg is not None
                             and attn_lib.streaming_prefill_supported(self.cfg, self._ccfg))
         self.pool = None
         self.block_tables = None
@@ -119,7 +125,10 @@ class Engine:
 
     @property
     def attend_path(self) -> str:
-        return "fused"
+        """Decode-attend path of this engine's attention layers: "fused" (the
+        ``gear_decode`` kernels), or "xla" when no layer has a GEAR attention
+        cache (RWKV6), as the reference reports."""
+        return "xla" if self._ccfg is None else "fused"
 
     # -- paged layout -----------------------------------------------------
     def _init_paged(self) -> None:

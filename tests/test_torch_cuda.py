@@ -18,9 +18,11 @@ both sides); ``gear_compress`` within the reference's own kernel budget
 0.1% of entries, the residual off by at most one scale step);
 ``linear_scan_chunked`` 2e-3 x max(1, max |y_plain|) on y and likewise on
 the final state (the reference's own kernel tolerance, scaled because the
-factored form's clamp lets y grow).  Hymba's shapes are held too:
-``gear_decode`` at G = 5, head_dim 64 and ``flash_prefill`` at kv_repeat 5,
-head_dim 64.
+factored form's clamp lets y grow), also from an initial state
+(``state0``: RWKV6's decode step at S = chunk = 1, and chunk = S);
+``quant_pack`` (through ``kernels.quantize_chunk``) bit for bit in packed
+codes, scale and zero.  Hymba's shapes are held too: ``gear_decode`` at
+G = 5, head_dim 64 and ``flash_prefill`` at kv_repeat 5, head_dim 64.
 """
 
 import pytest
@@ -35,9 +37,11 @@ from repro_torch.kernels import gear_compress as gc  # noqa: E402
 from repro_torch.kernels import gear_decode as gd  # noqa: E402
 from repro_torch.kernels import linear_scan_kernel as lsk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import quant_pack as qp  # noqa: E402
 from repro_torch.kernels.ref import (flash_block_ref, flash_prefill_ref,  # noqa: E402
                                      gather_paged_operands, gear_compress_ref,
-                                     gear_decode_paged_ref, gear_decode_ref, linear_scan_ref)
+                                     gear_decode_paged_ref, gear_decode_ref, linear_scan_ref,
+                                     quant_pack_ref)
 from repro_torch.models import linear_scan as ls  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -290,6 +294,73 @@ def test_linear_scan_wrappers_reject_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="Dk"):
         big = torch.zeros(2, 128, 80, device=dev)
         lsk.linear_scan_chunked(big, big, v, lw, chunk=64)
-    with pytest.raises(NotImplementedError, match="RWKV6"):
-        ls.chunked_scan(r[None], k[None], v[None], lw[None],
-                        state0=torch.zeros(1, 2, 16, 32, device=dev))
+    with pytest.raises(ValueError, match="state0 has shape"):
+        lsk.linear_scan_chunked(r, k, v, lw, chunk=64, state0=torch.zeros(2, 16, 31, device=dev))
+    with pytest.raises(ValueError, match="state0 must be"):
+        lsk.linear_scan_chunked(r, k, v, lw, chunk=64,
+                                state0=torch.zeros(2, 16, 32, device=dev, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("mode", ["inclusive", "bonus"])
+@pytest.mark.parametrize("S,chunk", [(1, 1), (859, 859), (128, 64)],
+                         ids=["decode-S1", "chunk=S-859", "aligned-64"])
+def test_linear_scan_kernel_with_state0_matches_plain(dev, mode, S, chunk):
+    """From a non-zero initial state at RWKV6's head shape (Dk = Dv = 64,
+    per-Dk decay): the decode step's S = chunk = 1 over 4 slots x 40 heads,
+    an unaligned prompt's chunk = S, and aligned chunks carrying the state;
+    through ``chunked_scan`` too, which hands the state to the kernel."""
+    BH = 160 if S == 1 else 40
+    r, k, v, lw, u = scan_case(dev, BH, S, 64, 64, 64, S + 7)
+    st0 = torch.randn(BH, 64, 64, generator=torch.Generator(device=dev).manual_seed(S),
+                      device=dev)
+    before = lsk.linear_scan_chunked.launches
+    y_k, st_k = lsk.linear_scan_chunked(r, k, v, lw, u, chunk=chunk, mode=mode, state0=st0)
+    assert lsk.linear_scan_chunked.launches == before + 1
+    y_p, st_p = linear_scan_ref(r, k, v, lw, u, chunk=chunk, mode=mode, state0=st0)
+    torch.testing.assert_close(y_k, y_p, rtol=0, atol=2e-3 * max(1.0, float(y_p.abs().max())))
+    torch.testing.assert_close(st_k, st_p, rtol=0,
+                               atol=2e-3 * max(1.0, float(st_p.abs().max())))
+    H = 40
+    y_m, st_m = ls.chunked_scan(r.reshape(-1, H, S, 64), k.reshape(-1, H, S, 64),
+                                v.reshape(-1, H, S, 64), lw.reshape(-1, H, S, 64), chunk=chunk,
+                                u=u[:H], state0=st0.reshape(-1, H, 64, 64), mode=mode)
+    assert lsk.linear_scan_chunked.launches == before + 2
+    u_rows = u[:H].repeat(BH // H, 1)
+    y_p2, st_p2 = linear_scan_ref(r, k, v, lw, u_rows, chunk=chunk, mode=mode, state0=st0)
+    torch.testing.assert_close(y_m.reshape(BH, S, 64), y_p2, rtol=0,
+                               atol=2e-3 * max(1.0, float(y_p2.abs().max())))
+    torch.testing.assert_close(st_m.reshape(BH, 64, 64), st_p2, rtol=0,
+                               atol=2e-3 * max(1.0, float(st_p2.abs().max())))
+
+
+QP_SHAPES = [(448, 64, 128), (2, 16, 64), (1, 64, 256), (8, 32, 32), (3, 7, 48)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("shape", QP_SHAPES, ids=["x".join(map(str, s)) for s in QP_SHAPES])
+def test_quant_pack_kernel_matches_plain_bit_for_bit(dev, shape, bits, dtype):
+    """Through ``kernels.quantize_chunk``: the phase-5 tiles, the reference's
+    sweep shapes, and a width (48) that leaves a partial 32-column slab over
+    7 rows; a constant column takes the 1e-8 scale floor."""
+    from repro_torch.kernels import quantize_chunk
+
+    g = torch.Generator(device=dev).manual_seed(bits + shape[0])
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    x[0, :, 3] = 1.5
+    before = qp.quant_pack.launches
+    got = quantize_chunk(x, bits)
+    assert qp.quant_pack.launches == before + 1
+    for a, b in zip(got, quant_pack_ref(x, bits)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert float(got[1][0, 3]) == pytest.approx(1e-8)
+
+
+def test_quant_pack_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.randn(2, 16, 64, device=dev)
+    with pytest.raises(ValueError, match="bits"):
+        qp.quant_pack(x, 3)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        qp.quant_pack(x[..., :40], 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        qp.quant_pack(x.transpose(1, 2), 4)

@@ -409,11 +409,17 @@ def test_hybrid_paged_and_streaming_raise(pair, options):
 
 
 def test_scan_state0_on_a_card_raises():
-    """An initial state has no kernel (the TPU kernel starts from zero too);
-    on a CUDA tensor ``chunked_scan`` raises rather than run the plain
-    version.  Checked without a card through a meta-device tensor."""
+    """An initial state goes to the kernel like every other operand: off the
+    CPU, ``chunked_scan(..., state0=...)`` reaches the ``linear_scan_chunked``
+    wrapper, which launches the kernel on a CUDA tensor and raises for a
+    device without one; nothing runs the plain version there.  Checked
+    without a card through meta-device tensors."""
     r = torch.zeros(1, 2, 64, 16, device="meta")
-    with pytest.raises(NotImplementedError, match="RWKV6"):
-        ls.chunked_scan(r, r, r, r[..., :1], state0=torch.zeros(1, 2, 16, 16, device="meta"))
+    st0 = torch.zeros(1, 2, 16, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ls.chunked_scan(r, r, r, r[..., :1], state0=st0)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ls.chunked_scan(r, r, r, r, u=torch.zeros(2, 16, device="meta"), state0=st0,
+                        mode="bonus")
     with pytest.raises(ValueError, match="no kernel for device"):
         linear_scan_chunked(r[0], r[0], r[0], r[0, ..., :1], chunk=64)

@@ -14,7 +14,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    channel / token whose outlier index is stored twice; again at hymba's
    shape (5 kv heads with G = 5 query rows each, head_dim 64); then at the
    streaming history scorer's shape (G * T = 64 query rows per row of a
-   batch-1 cache, one shared extent);
+   batch-1 cache, one shared extent: the kernel's tensor-core regime); then
+   ``gear_decode_history`` over request 0's 14 in-flight blocks in one
+   launch (its layer-0 history work), against its plain version and, bit
+   for bit, the 14 per-block calls, timed (``ms_history_per_layer_synthetic``);
 4. ``flash_prefill`` against its plain version (S = 1024, a ragged S = 1000,
    kv_repeat = 4, window + softcap, a bidirectional prefix, and hymba's
    25 query heads over 5 kv heads at head_dim 64), with
@@ -44,16 +47,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``Engine(batch=4, capacity=1152)`` (monolithic prefill, dense layout) and
    ``Scheduler.run_continuous`` over 8 requests; the launch counters must
    show ``gear_decode`` and ``flash_prefill`` on the path, and the live
-   layer-0 cache of one decode step is held against the plain version;
-   then ``torch.profiler`` windows over one prefill and 8 decode steps say
+   layer-0 cache of one decode step is held against the plain version, and
+   the timer's own check runs on it (CUDA events beside the profiler's
+   kernel time); then ``torch.profiler`` windows over one prefill and 8 decode steps say
    where the time goes (tables under ``build/profile/``);
 11. serving, path 2: the same requests through llama2-7b at all its 32
     layers with ``prefill_mode="streaming", layout="paged"`` and a pool of
     two thirds of the dense-equivalent pages, so that a decode step runs
     while a request waits for pages (``--layers`` does not cut it); the
     counters must show ``gear_compress``, ``flash_prefill_block``,
-    ``gear_decode`` (history) and ``gear_decode_paged`` on the path, each
-    kernel's live layer-0 call is held against its plain version and timed,
+    ``gear_decode`` (exactly one history launch per prefill and layer,
+    ``gear_decode_history``) and ``gear_decode_paged`` on the path, each
+    kernel's live layer-0 call is held against its plain version and timed
+    (request 0's layer-0 history call as ``ms_history_per_layer``),
     and profiler windows cover one streaming prefill and 8 paged decode
     steps;
 12. serving, path 3: hymba-1.5b (GEAR attention beside Mamba-2 SSM heads)
@@ -77,6 +83,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
     steps;
 14. summary: one ``{"kernels": [...]}`` JSON line, the card's name and power
     limit, and the final ``{"ok": true, "device": {...}}`` line.
+
+Kernel times come from ``time_ms``: CUDA events around one launch with a
+cold L2, behind a device-side wait that keeps the host's enqueue time out
+of the window (device time only).
 
 It imports nothing of JAX and nothing of the JAX package.  Without a CUDA
 device, or without the repository beside it, it exits non-zero and prints
@@ -115,6 +125,8 @@ BLOCK_TOL = 1e-4       # flash_prefill_block normalized output and score max (f3
 CODE_FLIP_BUDGET = 1e-3
 
 B_SERVE, CAP_SERVE, N_REQUESTS, NEW_TOKENS = 4, 1152, 8, 96
+# raw prompt lengths of the 8 requests (numpy seed 0), as requests() draws them
+PROMPT_LENGTHS = [int(n) for n in np.random.RandomState(0).randint(300, 901, size=N_REQUESTS)]
 
 
 def fail(msg: str) -> None:
@@ -129,14 +141,46 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+WAIT_MS = 0.5          # least device-side wait ahead of each timed launch
+_cycles_per_ms = None
+
+
+def device_wait(ms: float) -> None:
+    """Hold the current stream busy for ~``ms`` on the device
+    (``torch.cuda._sleep``, calibrated once against CUDA events)."""
+    global _cycles_per_ms
+    if _cycles_per_ms is None:
+        n = 1 << 20
+        torch.cuda._sleep(n)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(n)
+        end.record()
+        torch.cuda.synchronize()
+        _cycles_per_ms = n / start.elapsed_time(end)
+    torch.cuda._sleep(int(ms * _cycles_per_ms))
+
+
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     """Mean device time of ``fn`` with a cold L2: each launch is timed on
-    its own between CUDA events, after a write of a buffer larger than L2."""
+    its own between CUDA events, after a write of a buffer larger than L2.
+    A device-side wait after that write, sized to outlast the host's enqueue
+    of the start event, ``fn`` and the end event (twice ``fn``'s measured
+    host time, at least ``WAIT_MS``), keeps the stream busy until all three
+    are queued, so the window holds device time only and no host time of
+    the wrapper."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    wait = max(WAIT_MS, 2.0 * host_ms)
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        device_wait(wait)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -147,12 +191,50 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return total / iters
 
 
+def profiled_ms(fn, iters: int, flush: torch.Tensor):
+    """Kernel time of ``fn`` per call from a ``torch.profiler`` window of
+    ``iters`` cold-L2 calls (the flush's fill kernels left out): (ms,
+    {kernel name: launches})."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "Fill" not in e.key]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    return total / iters, {e.key[:60]: e.count for e in kernels}
+
+
+def timer_check(fn, label: str, flush: torch.Tensor, report: dict) -> None:
+    """The timer's own check, once per run: ``time_ms`` of one short call
+    beside the kernel time a profiler window reports for it."""
+    ev = time_ms(fn, 50, flush)
+    prof, names = profiled_ms(fn, 50, flush)
+    print(f"  timer check, {label}: CUDA events {ev:.4f} ms, profiler kernel time "
+          f"{prof:.4f} ms per call ({names})")
+    report["timer_check"] = {"what": label, "events_ms": ev, "profiler_ms": prof}
+
+
 # ---------------------------------------------------------------------------
 # gear_decode
 
 
 TOKEN_ROWS = ("k_packed", "v_packed", "v_scale", "v_zero", "k_a", "v_a", "v_sp_val", "v_sp_idx")
 CHUNK_ROWS = ("k_scale", "k_zero", "k_b", "v_b", "k_sp_val", "k_sp_idx")
+
+
+def chunk_bytes(operands: dict, chunk: int) -> int:
+    """Bytes of one (row, chunk)'s compressed fields."""
+    per_chunk = sum(operands[n][0, :chunk].numel() * operands[n].element_size()
+                    for n in TOKEN_ROWS if operands.get(n) is not None)
+    return per_chunk + sum(operands[n][0, 0].numel() * operands[n].element_size()
+                           for n in CHUNK_ROWS if operands.get(n) is not None)
 
 
 def decode_bytes_flops(operands: dict, n_comp: torch.Tensor, chunk: int):
@@ -162,11 +244,8 @@ def decode_bytes_flops(operands: dict, n_comp: torch.Tensor, chunk: int):
     q = operands["q"]
     BH, G, Dh = q.shape
     live = int(((n_comp.long() + chunk - 1) // chunk).clamp(min=0).sum())
-    per_chunk = sum(operands[n][0, :chunk].numel() * operands[n].element_size()
-                    for n in TOKEN_ROWS if operands.get(n) is not None)
-    per_chunk += sum(operands[n][0, 0].numel() * operands[n].element_size()
-                     for n in CHUNK_ROWS if operands.get(n) is not None)
-    nbytes = live * per_chunk + q.numel() * 4 + n_comp.numel() * 4 + BH * G * (Dh + 2) * 4
+    nbytes = (live * chunk_bytes(operands, chunk) + q.numel() * 4 + n_comp.numel() * 4
+              + BH * G * (Dh + 2) * 4)
     r = operands["k_a"].shape[-1] if operands.get("k_a") is not None else 0
     flops = live * (4 * chunk * Dh + G * (4 * chunk * Dh + 4 * Dh * r + 4 * chunk * r))
     return nbytes, flops
@@ -290,13 +369,15 @@ def flash_case(case, flush, report: dict, suffix) -> None:
 
 def history_case(flush, report: dict) -> None:
     """``gear_decode`` as the streaming prefill's history scorer: a batch-1
-    cache of llama2-7b's 32 kv heads, G * T = 64 query rows per row, one
-    extent n_comp = c * 64 shared by all rows (blocks past it exit)."""
+    cache of llama2-7b's 32 kv heads, G * T = 64 query rows per row (the
+    tensor-core regime), one extent n_comp = c * 64 shared by all rows; then
+    ``gear_decode_history`` over request 0's 14 in-flight blocks in one
+    launch, against its plain version and the per-block calls, timed."""
     from repro_torch.core import cache as cache_lib
     from repro_torch.core.policy import named_policy
     from repro_torch.kernels import gear_decode as gd
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import gear_decode_ref
+    from repro_torch.kernels.ref import gear_decode_history_ref, gear_decode_ref
 
     H, Dh = 32, 128
     pol = named_policy("gear_kcvt4")
@@ -321,6 +402,59 @@ def history_case(flush, report: dict) -> None:
         if not err <= DECODE_TOL:
             fail(f"gear_decode at 64 query rows disagrees with its plain version: {err}")
         report["err"] = max(report.get("err", 0.0), err)
+
+    # request 0's layer-0 history work in one launch: its 859 tokens bucket
+    # to 14 blocks of 64 query rows; block i sees the i * 64 tokens before it
+    n_blocks = -(-PROMPT_LENGTHS[0] // cfg.chunk)
+    extents = [i * cfg.chunk for i in range(n_blocks)]
+    qb = torch.randn(H, n_blocks, 64, Dh, generator=gen, device=DEV)
+    gd.gear_decode.launches = 0
+    acc_k, m_k, l_k = gd.gear_decode_history(qb, *arrays, extents, **kw)
+    launches = gd.gear_decode.launches
+    acc_p, m_p, l_p = gear_decode_history_ref(qb, *arrays, extents, **kw)
+    per_block = [gd.gear_decode(qb[:, i].contiguous(), *arrays, e, **kw)
+                 for i, e in enumerate(extents)]
+    torch.cuda.synchronize()
+    live = slice(1, None)                                     # block 0 has no history
+    err = max(float((acc_k / l_k[..., None] - acc_p / l_p[..., None])[:, live].abs().max()),
+              float((m_k - m_p)[:, live].abs().max()))
+    bitwise = all(torch.equal(a[:, i], b) for i, one in enumerate(per_block)
+                  for a, b in zip((acc_k, m_k, l_k), one))
+    ms = time_ms(lambda: gd.gear_decode_history(qb, *arrays, extents, **kw), 20, flush)
+    plain = time_ms(lambda: gear_decode_history_ref(qb, *arrays, extents, **kw), 3, flush)
+    nbytes, flops = history_bytes_flops(qb, dict(zip(DECODE_NAMES[1:7], arrays)) | lr | sp,
+                                        extents, cfg.chunk)
+    print(f"  gear_decode_history, request 0's layer-0 shape ({n_blocks} blocks x 64 query rows, "
+          f"extents 0..{extents[-1]}): {launches} launch, max_abs_err={err:.3e} (tol "
+          f"{DECODE_TOL}), equal to {n_blocks} per-block gear_decode calls bit for bit = "
+          f"{bitwise} | kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3:.4f} ms")
+    if launches != 1 or not err <= DECODE_TOL or not bitwise:
+        fail("gear_decode_history disagrees with its plain version or its per-block calls")
+    report["err"] = max(report.get("err", 0.0), err)
+    report["ms_history_per_layer_synthetic"] = ms
+
+
+def history_bytes_flops(q, operands: dict, extents, chunk: int):
+    """Least bytes and operations of one ``gear_decode_history`` call: q
+    read and (acc, m, l) written once, each row's chunks up to the largest
+    extent read once; 4 Dh (+ low-rank) operations per (query row, live
+    token) of every block.  The operations are counted at the bf16
+    tensor-core rate, the rate of the products the kernel runs."""
+    BH, NB, R, Dh = q.shape
+    ext = [int(e) for e in extents]
+    live = -(-max(ext) // chunk)
+    r = operands["k_a"].shape[-1] if operands.get("k_a") is not None else 0
+    nbytes = BH * live * chunk_bytes(operands, chunk) + q.numel() * 4 + BH * NB * R * (Dh + 2) * 4
+    tokens = sum(-(-e // chunk) * chunk for e in ext)
+    flops = BH * R * tokens * (4 * Dh + 4 * r) + BH * R * sum(-(-e // chunk) for e in ext) * 4 * Dh * r
+    return nbytes, flops
+
+
+def history_call_bytes_flops(args, kwargs):
+    operands = dict(zip(DECODE_NAMES[1:7], args[1:7])) | {
+        k: v for k, v in kwargs.items() if isinstance(v, torch.Tensor)}
+    return history_bytes_flops(args[0], operands, args[7], kwargs["chunk"])
 
 
 # ---------------------------------------------------------------------------
@@ -761,9 +895,10 @@ def drive(eng, cfg, prompts: list, captures: list) -> dict:
 
 
 def live_check(cap: Capture, plain, label: str, flush, report: dict, bytes_flops,
-               rows_of=None, tol: float = DECODE_TOL) -> tuple:
+               rows_of=None, tol: float = DECODE_TOL, ops_rate: float = F32_FLOPS) -> tuple:
     """Kernel vs plain version on one captured live call's operands, then
-    the kernel's and the plain version's times and the call's bound."""
+    the kernel's and the plain version's times and the call's bound (its
+    operations at ``ops_rate``)."""
     args, kwargs = cap.args, cap.kwargs
     acc_k, m_k, l_k = cap.real(*args, **kwargs)
     acc_p, m_p, l_p = plain(*args, **kwargs)
@@ -778,7 +913,7 @@ def live_check(cap: Capture, plain, label: str, flush, report: dict, bytes_flops
     ms = time_ms(lambda: cap.real(*args, **kwargs), 50, flush)
     plain_ms = time_ms(lambda: plain(*args, **kwargs), 5, flush)
     nbytes, flops = bytes_flops(args, kwargs)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ops_rate * 1e3
     bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes >= t_ops else "operations"
     print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
@@ -826,6 +961,8 @@ def serving(model, params, cfg, layers: int, flush, reports: dict) -> dict:
         cap, gear_decode_ref, "gear_decode live decode step", flush, rep,
         decode_call_bytes_flops, rows_of=lambda a: a[7] > 0)
     rep["library_ms"] = None
+    timer_check(lambda: cap.real(*cap.args, **cap.kwargs), "gear_decode live decode step", flush,
+                rep)
     reports["gear_decode"]["launches_by_path"] = {"monolithic_dense": launches["gear_decode"]}
     reports["flash_prefill"]["launches_by_path"] = {"monolithic_dense": launches["flash_prefill"]}
     summary["layers"] = layers
@@ -838,8 +975,8 @@ def serving_paged(model, params, cfg, layers: int, flush, reports: dict) -> dict
     from repro_torch.core import cache as cache_lib
     from repro_torch.core.policy import named_policy
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import (flash_block_ref, gear_compress_ref, gear_decode_paged_ref,
-                                         gear_decode_ref)
+    from repro_torch.kernels.ref import (flash_block_ref, gear_compress_ref,
+                                         gear_decode_history_ref, gear_decode_paged_ref)
     from repro_torch.serving.engine import Engine, EngineConfig
 
     pol = named_policy("gear_kcvt4")
@@ -856,7 +993,8 @@ def serving_paged(model, params, cfg, layers: int, flush, reports: dict) -> dict
     caps = {"gear_compress": Capture(cache_lib, "gear_compress", 0),    # request 0, layer 0, K
             "flash_prefill_block": Capture(ops, "flash_prefill_block", 0),
             # request 0, layer 0: the history call of its last block (largest extent)
-            "gear_decode": Capture(ops, "gear_decode", (int(lengths[0]) - 1) // pol.buffer_size),
+            # request 0, layer 0: every in-flight block's history in one launch
+            "gear_decode": Capture(ops, "gear_decode_history", 0),
             "gear_decode_paged": Capture(ops, "gear_decode_paged", 40 * layers)}
     summary = drive(eng, cfg, prompts, list(caps.values()))
     launches, steps = summary["launches"], summary["decode_steps"]
@@ -866,6 +1004,9 @@ def serving_paged(model, params, cfg, layers: int, flush, reports: dict) -> dict
                         ("gear_decode_paged", steps * layers)):
         if launches[name] < least:
             fail(f"{name} launches {launches[name]} < {least} on the streaming + paged path")
+    if launches["gear_decode"] != N_REQUESTS * layers:
+        fail(f"gear_decode launches {launches['gear_decode']} != 8 prefills x {layers}: the "
+             f"history of a layer's in-flight blocks is one launch")
     if summary["waited_for_pages"] < 1:
         fail("no decode step ran while a request waited for pages; the pool is not under pressure")
     print(f"  {summary['waited_for_pages']} requests waited for pages, over "
@@ -897,10 +1038,15 @@ def serving_paged(model, params, cfg, layers: int, flush, reports: dict) -> dict
 
     c = caps["gear_decode"]
     rep = reports["gear_decode"]
-    print(f"  live history call: q {tuple(c.args[0].shape)}, n_comp {c.args[7]}")
+    BH, NB, R, _ = c.args[0].shape
+    print(f"  live history call (request 0, layer 0): q {tuple(c.args[0].shape)}, extents "
+          f"{list(c.args[7])}")
     rep["ms_history"], rep["plain_ms_history"], rep["bound_ms_history"], _ = live_check(
-        c, gear_decode_ref, "gear_decode live history scorer (64 query rows)", flush, rep,
-        decode_call_bytes_flops)
+        c, gear_decode_history_ref, f"gear_decode_history live layer-0 history ({NB} blocks x "
+        f"{R} query rows, one launch)", flush, rep, history_call_bytes_flops,
+        rows_of=lambda a: (torch.as_tensor(list(a[7]), device=DEV) > 0)[None, :, None].expand(
+            BH, NB, R), ops_rate=BF16_FLOPS)
+    rep["ms_history_per_layer"] = rep["ms_history"]
 
     c = caps["gear_decode_paged"]
     rep = reports["gear_decode_paged"]
@@ -1120,7 +1266,7 @@ def main() -> int:
                                 "source": "src/repro_torch/kernels/csrc/flash_prefill_block.cu",
                                 "replaces": "src/repro/kernels/flash_prefill.py:145"},
         "gear_decode_paged": {"name": "gear_decode_paged", "route": "cuda",
-                              "source": "src/repro_torch/kernels/csrc/gear_decode.cu",
+                              "source": "src/repro_torch/kernels/csrc/gear_decode_paged.cu",
                               "replaces": "src/repro/kernels/gear_decode.py:219"},
         "linear_scan_chunked": {"name": "linear_scan_chunked", "route": "cuda",
                                 "source": "src/repro_torch/kernels/csrc/linear_scan.cu",

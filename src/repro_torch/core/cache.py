@@ -408,8 +408,9 @@ def streaming_prefill_pipeline(cfg: CacheConfig, cache: GEARLayerCache, n: int, 
     is compressed in one fused event (:func:`_compress_chunks_fused`: one
     ``gear_compress`` launch for K, one for V), and the attention input, so
     each chunk's queries attend the compressed history before it plus the
-    chunk itself in one ``ops.gear_attend_block`` call.  The leftover tokens
-    attend the same way and land in the FP16 buffer.  The cache equals
+    chunk itself.  The leftover tokens form one more, zero-padded block that
+    attends the same way and lands in the FP16 buffer; every block goes
+    through one ``ops.gear_attend_block`` call.  The cache equals
     :func:`prefill_layer_cache`'s bit for bit; the attention output sees
     the history compressed, as decode does.
 
@@ -438,33 +439,36 @@ def streaming_prefill_pipeline(cfg: CacheConfig, cache: GEARLayerCache, n: int, 
     n_real = n if true_n is None else int(true_n)
     if n_real > cfg.capacity:
         raise ValueError(f"prefill of {n_real} tokens exceeds capacity {cfg.capacity}")
-    outs = []
-    if C_new:
-        dev = cache.length.device
-        kt = torch.empty((B, H, C_new, nb, Dh), dtype=f32, device=dev)
-        vt = torch.empty_like(kt)
-        qt = torch.empty((B, H, C_new, G, nb, Dh), dtype=f32, device=dev)
-        for c in range(C_new):
-            q_c, k_c, v_c = project(c * nb, (c + 1) * nb)
-            kt[:, :, c] = k_c                  # exact widening, as the reference's astype
-            vt[:, :, c] = v_c
-            qt[:, :, c] = q_c.reshape(B, H, G, nb, Dh)
-        comp = _compress_chunks_fused(cfg, kt, vt, cfg.policy.rank)
-        _store_chunks(cfg, cache, comp, slice(None), C_new, 0)
-        out = ops.gear_attend_block(cfg, cache, qt, kt, vt, [c * nb for c in range(C_new)], nb,
-                                    scale)
-        # [B, H, C', G, nb, Dh] -> [B, Hq, n_full, Dh]
-        outs.append(out.permute(0, 1, 3, 2, 4, 5).reshape(B, q_heads, n_full, Dh).to(q_c.dtype))
-    if rem:
+    n_blk = C_new + (1 if rem else 0)
+    dev = cache.length.device
+    kt = torch.empty((B, H, n_blk, nb, Dh), dtype=f32, device=dev)
+    vt = torch.empty_like(kt)
+    qt = torch.empty((B, H, n_blk, G, nb, Dh), dtype=f32, device=dev)
+    for c in range(C_new):
+        q_c, k_c, v_c = project(c * nb, (c + 1) * nb)
+        kt[:, :, c] = k_c                      # exact widening, as the reference's astype
+        vt[:, :, c] = v_c
+        qt[:, :, c] = q_c.reshape(B, H, G, nb, Dh)
+    if rem:                                    # the tail block, zero past its tokens
         q_c, k_t, v_t = project(n_full, n)
-        out = ops.gear_attend_block(cfg, cache, q_c.to(f32).reshape(B, H, 1, G, rem, Dh),
-                                    k_t.to(f32)[:, :, None], v_t.to(f32)[:, :, None], [n_full],
-                                    rem, scale)
-        outs.append(out[:, :, 0].reshape(B, q_heads, rem, Dh).to(q_c.dtype))
+        for tile, x in ((kt, k_t), (vt, v_t)):
+            tile[:, :, C_new, :rem] = x
+            tile[:, :, C_new, rem:] = 0.0
+        qt[:, :, C_new, :, :rem] = q_c.reshape(B, H, G, rem, Dh)
+        qt[:, :, C_new, :, rem:] = 0.0
+    if C_new:
+        comp = _compress_chunks_fused(cfg, kt[:, :, :C_new], vt[:, :, :C_new], cfg.policy.rank)
+        _store_chunks(cfg, cache, comp, slice(None), C_new, 0)
+    # every block, the tail too, in one ops.gear_attend_block call
+    out = ops.gear_attend_block(cfg, cache, qt, kt, vt, [c * nb for c in range(n_blk)],
+                                [nb] * C_new + ([rem] if rem else []), scale)
+    # [B, H, NB, G, nb, Dh] -> [B, Hq, NB * nb, Dh], cut to n
+    out = out.permute(0, 1, 3, 2, 4, 5).reshape(B, q_heads, n_blk * nb, Dh)[:, :, :n]
+    if rem:
         cache.buf_k[:, :, :rem] = k_t.to(cache.buf_k.dtype)
         cache.buf_v[:, :, :rem] = v_t.to(cache.buf_v.dtype)
     cache.length.fill_(n_real)
-    return cache, outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    return cache, out.to(q_c.dtype)
 
 
 def streaming_prefill_layer_cache(cfg: CacheConfig, cache: GEARLayerCache, q: torch.Tensor,

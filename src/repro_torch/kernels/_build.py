@@ -1,13 +1,14 @@
 """Build the CUDA kernels at first use and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own:
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+(a ``csrc/*.cuh`` header may hold bodies that several sources share):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 into the git-ignored ``kernels/build/`` directory.  The output name carries a
-hash of the source and flags, so an edited source is never served a stale
-library.  :func:`build_all` starts one ``nvcc`` per source, all at once.
+hash of the source, the headers and the flags, so an edited source is never
+served a stale library.  :func:`build_all` starts one ``nvcc`` per source, all at once.
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises on
 a non-zero code.
 """
@@ -48,6 +49,7 @@ def nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))   # shared bodies
     tag = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}-{tag}.so"
 

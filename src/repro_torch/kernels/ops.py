@@ -20,7 +20,8 @@ from repro_torch.core.cache import (CacheConfig, GEARLayerCache, PagedGEARLayerC
                                     chunk_prefix_view, streaming_supported)
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_block
-from repro_torch.kernels.gear_decode import gear_decode, gear_decode_paged
+from repro_torch.kernels.gear_decode import (device_extents, gear_decode, gear_decode_history,
+                                              gear_decode_paged)
 from repro_torch.kernels.quant_pack import quant_pack
 
 __all__ = ["gear_attend", "gear_attend_paged", "gear_attend_block",
@@ -131,7 +132,7 @@ def _attend_decode(cfg: CacheConfig, cache, q: torch.Tensor, scale: float, block
 
 
 def gear_attend_block(cfg: CacheConfig, cache: GEARLayerCache, q: torch.Tensor,
-                      k: torch.Tensor, v: torch.Tensor, n_comp: list, blk_len: int,
+                      k: torch.Tensor, v: torch.Tensor, n_comp: list, blk_len,
                       scale: float) -> torch.Tensor:
     """Streaming-prefill attention of a stack of in-flight blocks: each
     block's queries attend the compressed history before it plus the block
@@ -140,44 +141,50 @@ def gear_attend_block(cfg: CacheConfig, cache: GEARLayerCache, q: torch.Tensor,
     q [B, H, NB, G, T, Dh] f32 (query head h * G + g); k, v [B, H, NB, T, Dh]
     f32 (the blocks' uncompressed K/V); ``n_comp[i]`` is block i's
     compressed extent (tokens in chunks closed before it) and ``blk_len``
-    the valid tokens of every block.  The history of block i is one
-    ``gear_decode`` launch with the block's G*T query rows per (batch,
-    kv-head) row over the whole cache (chunk blocks past the extent exit);
-    the blocks themselves are one ``flash_prefill_block`` launch over rows
-    (b, h, block, g), which read K/V row (b, h, block) through ``kv_repeat``.
-    CPU tensors take the plain versions, the history through
-    ``gear_hist_block_ref`` (the reference's CPU history scorer) over the
-    chunk prefix the extent covers.  Returns [B, H, NB, G, T, Dh] f32.
+    the valid tokens of every block (an int), or of each block (a sequence
+    of NB ints).  On the card the history of every block is one
+    ``gear_decode_history`` launch (the ``gear_decode`` kernel's tensor-core
+    regime, G*T query rows per (batch, kv-head) row and block); the blocks
+    themselves are one ``flash_prefill_block`` launch over rows (b, h,
+    block, g), which read K/V row (b, h, block) through ``kv_repeat``.  CPU
+    tensors take the plain versions, the history through
+    ``gear_hist_block_ref`` (the reference's CPU history scorer) per block
+    over the chunk prefix its extent covers.  Returns [B, H, NB, G, T, Dh]
+    f32.
     """
     pol = cfg.policy
     B, H, NB, G, T, Dh = q.shape
     BH = B * H
     nb = cfg.chunk
     kw = dict(bits=pol.bits, chunk=nb, scale_factor=scale)
-    on_cpu = q.device.type == "cpu"
-    if not on_cpu:
-        arrays, lr, sp = _gear_operands(cfg, cache, BH)
 
     # --- compressed history: one unnormalized (acc, m, l) per block --------
-    hist = []
-    for i in range(NB):
-        q_rows = q[:, :, i].reshape(BH, G * T, Dh)
-        if on_cpu:
+    if q.device.type == "cpu":
+        hist = []
+        for i in range(NB):
             view = chunk_prefix_view(cfg, cache, max(-(-n_comp[i] // nb), 1))
             v_arrays, v_lr, v_sp = _gear_operands(cfg, view, BH)
-            hist.append(ref.gear_hist_block_ref(q_rows, *v_arrays, n_comp[i], **kw, **v_lr,
-                                                **v_sp))
-        else:
-            hist.append(gear_decode(q_rows.contiguous(), *arrays, n_comp[i], **kw, **lr, **sp))
-    acc_h = torch.stack([h[0] for h in hist], dim=1).reshape(B, H, NB, G, T, Dh)
-    m_h = torch.stack([h[1] for h in hist], dim=1).reshape(B, H, NB, G, T)
-    l_h = torch.stack([h[2] for h in hist], dim=1).reshape(B, H, NB, G, T)
+            hist.append(ref.gear_hist_block_ref(q[:, :, i].reshape(BH, G * T, Dh), *v_arrays,
+                                                n_comp[i], **kw, **v_lr, **v_sp))
+        acc_h, m_h, l_h = (torch.stack([h[j] for h in hist], dim=1) for j in range(3))
+    else:
+        arrays, lr, sp = _gear_operands(cfg, cache, BH)
+        acc_h, m_h, l_h = gear_decode_history(q.reshape(BH, NB, G * T, Dh).contiguous(),
+                                              *arrays, n_comp, **kw, **lr, **sp)
+    acc_h = acc_h.reshape(B, H, NB, G, T, Dh)
+    m_h = m_h.reshape(B, H, NB, G, T)
+    l_h = l_h.reshape(B, H, NB, G, T)
 
     # --- in-flight blocks, causal -------------------------------------------
     q_blk = q.reshape(BH * NB * G, T, Dh).contiguous()
     k_blk = k.reshape(BH * NB, T, Dh).contiguous()
     v_blk = v.reshape(BH * NB, T, Dh).contiguous()
-    kv_len = torch.full((BH * NB * G,), blk_len, dtype=torch.int32, device=q.device)
+    if isinstance(blk_len, int):
+        kv_len = torch.full((BH * NB * G,), blk_len, dtype=torch.int32, device=q.device)
+    else:
+        lens = (torch.tensor(blk_len, dtype=torch.int32) if q.device.type == "cpu"
+                else device_extents(tuple(int(n) for n in blk_len), q.device))
+        kv_len = lens.view(1, NB, 1).expand(BH, NB, G).reshape(-1)
     acc_b, m_b, l_b = flash_prefill_block(q_blk, k_blk, v_blk, kv_len, scale=scale,
                                           kv_repeat=G)
     acc_b = acc_b.reshape(B, H, NB, G, T, Dh)

@@ -16,7 +16,7 @@ from repro_torch.core import packing
 from repro_torch.core import quant as q_lib
 
 __all__ = ["gear_decode_ref", "gear_decode_paged_ref", "gather_paged_operands",
-           "gear_hist_block_ref", "flash_prefill_ref", "flash_block_ref",
+           "gear_decode_history_ref", "gear_hist_block_ref", "flash_prefill_ref", "flash_block_ref",
            "gear_compress_ref", "linear_scan_ref", "quant_pack_ref"]
 
 NEG_INF = -1e30
@@ -164,6 +164,18 @@ def gear_decode_paged_ref(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zer
                                  "v_zero")]
     return gear_decode_ref(q, *arrays, n_comp, bits=bits, chunk=chunk,
                            scale_factor=scale_factor, **g)
+
+
+def gear_decode_history_ref(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, extents,
+                            *, bits: int, chunk: int, scale_factor: float, **factors):
+    """Plain version of ``gear_decode_history``: :func:`gear_decode_ref` of
+    each in-flight block in turn.  q [BH, NB, R, Dh]; ``extents[i]`` block
+    ``i``'s compressed extent.  Returns (acc [BH, NB, R, Dh], m [BH, NB, R],
+    l [BH, NB, R])."""
+    outs = [gear_decode_ref(q[:, i], k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, e,
+                            bits=bits, chunk=chunk, scale_factor=scale_factor, **factors)
+            for i, e in enumerate(extents)]
+    return tuple(torch.stack([o[j] for o in outs], dim=1) for j in range(3))
 
 
 def gear_hist_block_ref(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, n_comp, *,

@@ -23,6 +23,15 @@ factored form's clamp lets y grow), also from an initial state
 ``quant_pack`` (through ``kernels.quantize_chunk``) bit for bit in packed
 codes, scale and zero.  Hymba's shapes are held too: ``gear_decode`` at
 G = 5, head_dim 64 and ``flash_prefill`` at kv_repeat 5, head_dim 64.
+
+The redesigned kernels, with the same tolerances: ``flash_prefill`` (TMA +
+wgmma) at S in {1, 63, 64, 65, 127, 129, 1000}, head_dim 64 and 128, under
+every mask; ``gear_decode`` in both regimes (G = 1 and 5 on CUDA cores with
+one or several chunks per block, G = 64 on tensor cores) over 18 chunks
+with an empty row and duplicated outlier indices; ``gear_decode_history``
+against its plain version and, bit for bit, one ``gear_decode`` call per
+block; ``gear_decode_paged`` bit for bit against the dense body in both
+regimes.
 """
 
 import pytest
@@ -364,3 +373,137 @@ def test_quant_pack_wrapper_rejects_what_the_kernel_does_not_take(dev):
         qp.quant_pack(x[..., :40], 2)
     with pytest.raises(ValueError, match="contiguous"):
         qp.quant_pack(x.transpose(1, 2), 4)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned flash_prefill (TMA ring + wgmma) and gear_decode (byte-lean
+# decode regime, tensor-core history regime)
+
+FLASH_MASKS = {"causal": dict(), "window_softcap": dict(window=48, softcap=30.0),
+               "prefix": dict(prefix_len=40), "kv_repeat": dict(kv_repeat=2)}
+
+
+@pytest.mark.parametrize("mask", list(FLASH_MASKS))
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129, 1000])
+def test_flash_prefill_kernel_ragged_lengths(dev, S, Dh, mask):
+    """Every sequence length class around the 64-token tiles (TMA zero-fills
+    the ragged tail of the 3-D map), both head dims (one or two 128-byte
+    swizzled boxes per tile row), every mask."""
+    kw = FLASH_MASKS[mask]
+    rep = kw.get("kv_repeat", 1)
+    g = torch.Generator(device=dev).manual_seed(S * Dh)
+    q = torch.randn(4, S, Dh, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(4 // rep, S, Dh, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(4 // rep, S, Dh, generator=g, device=dev).to(torch.bfloat16)
+    before = fp.flash_prefill.launches
+    got = fp.flash_prefill(q, k, v, **kw)
+    assert fp.flash_prefill.launches == before + 1
+    torch.testing.assert_close(got.float(), flash_prefill_ref(q, k, v, **kw).float(),
+                               rtol=0, atol=3e-2)
+
+
+def dup_fixture(dev, polname, B, H, Dh, S, seed):
+    """A cache whose row 0 holds a constant K channel and a constant V token,
+    so top-k and bottom-k store the same outlier index twice."""
+    cfg = cache.CacheConfig(batch=B, kv_heads=H, head_dim=Dh, capacity=S,
+                            policy=named_policy(polname))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randn(B, H, S, Dh, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, H, S, Dh, generator=g, device=dev).to(torch.bfloat16)
+    k[0, 0, :, 5] = 3.0
+    v[0, 0, 10, :] = 2.0
+    c = cache.prefill_layer_cache(cfg, cache.init_layer_cache(cfg, torch.bfloat16, dev), k, v)
+    half = c.k_sp_idx.shape[-1] // 2
+    assert bool((c.k_sp_idx[..., 0] == c.k_sp_idx[..., half]).any())
+    arrays, lr, sp = ops._gear_operands(cfg, c, B * H)
+    return cfg, arrays, lr | sp, g
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, gd.BLOCKS_PER_SM])
+@pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
+@pytest.mark.parametrize("G,Dh", [(1, 128), (5, 64), (64, 128)])
+def test_gear_decode_regimes_match_plain(dev, polname, G, Dh, blocks_per_sm, monkeypatch):
+    """G = 1 and 5 take the decode regime (split chunks merged by the last
+    block; a small ``BLOCKS_PER_SM`` gives each block several chunks, the
+    next one prefetched), G = 64 the tensor-core regime; C = 18 chunks,
+    ragged extents including 0, duplicated outlier indices."""
+    monkeypatch.setattr(gd, "BLOCKS_PER_SM", blocks_per_sm)
+    B, H, S = 4, 4, 1152
+    cfg, arrays, extra, g = dup_fixture(dev, polname, B, H, Dh, S, seed=G)
+    n_comp = torch.tensor([0, 64, 640, 1152], dtype=torch.int32, device=dev).repeat_interleave(H)
+    q = torch.randn(B * H, G, Dh, generator=g, device=dev)
+    kw = dict(bits=cfg.policy.bits, chunk=64, scale_factor=Dh ** -0.5, **extra)
+    for _ in range(2):                     # the second launch finds the tickets cleared
+        acc_k, m_k, l_k = gd.gear_decode(q, *arrays, n_comp, **kw)
+    acc_p, m_p, l_p = gear_decode_ref(q, *arrays, n_comp, **kw)
+    live = n_comp > 0
+    torch.testing.assert_close((acc_k / l_k[..., None])[live], (acc_p / l_p[..., None])[live],
+                               rtol=0, atol=1e-3)
+    torch.testing.assert_close(m_k[live], m_p[live], rtol=0, atol=1e-3)
+    assert (acc_k[~live] == 0).all() and (l_k[~live] == 0).all()
+    assert (m_k[~live] == -1e30).all()
+
+
+@pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
+def test_gear_decode_history_matches_plain_and_per_block_calls(dev, polname):
+    """The batched history entry (one launch for every in-flight block of a
+    layer) against its plain version and against one ``gear_decode`` call
+    per block; it counts one ``gear_decode`` launch."""
+    H, S, NB = 8, 1152, 14
+    cfg, arrays, extra, g = dup_fixture(dev, polname, 1, H, 128, S, seed=11)
+    q = torch.randn(H, NB, 64, 128, generator=g, device=dev)
+    extents = [64 * i for i in range(NB)]
+    kw = dict(bits=cfg.policy.bits, chunk=64, scale_factor=128 ** -0.5, **extra)
+    before = gd.gear_decode.launches
+    acc, m, l = gd.gear_decode_history(q, *arrays, extents, **kw)
+    assert gd.gear_decode.launches == before + 1
+    acc_p, m_p, l_p = gd.gear_decode_history_ref(q, *arrays, extents, **kw)
+    live = torch.tensor(extents, device=dev)[None, :, None].expand(H, NB, 64) > 0
+    torch.testing.assert_close((acc / l[..., None])[live], (acc_p / l_p[..., None])[live],
+                               rtol=0, atol=1e-3)
+    torch.testing.assert_close(m[live], m_p[live], rtol=0, atol=1e-3)
+    for i, e in enumerate(extents):
+        one = gd.gear_decode(q[:, i].contiguous(), *arrays, e, **kw)
+        for a, b in zip((acc[:, i], m[:, i], l[:, i]), one):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
+@pytest.mark.parametrize("G", [1, 5, 64])
+def test_gear_decode_paged_equals_dense_every_regime(dev, polname, G):
+    """Paged ≡ dense bit for bit under both regimes, over a shuffled pool of
+    18-chunk slots (several decode splits per row)."""
+    B, H, S, nb = 2, 4, 1152, 64
+    cfg, arrays, extra, g = dup_fixture(dev, polname, B, H, 128, S, seed=5)
+    C = S // nb
+    names = ("k_packed", "k_scale", "k_zero", "v_packed", "v_scale", "v_zero")
+    dense = dict(zip(names, arrays)) | extra
+    live = [3, 18]
+    n_comp = torch.tensor([64 * live[0] - 10] * H + [S] * H, dtype=torch.int32, device=dev)
+    n_comp = n_comp // nb * nb
+    P = 1 + sum(live)
+    pages = iter((torch.randperm(P - 1, generator=torch.Generator().manual_seed(1)) + 1).tolist())
+    bt = torch.zeros((B, C), dtype=torch.int32)
+    for b in range(B):
+        for c in range(live[b]):
+            bt[b, c] = next(pages)
+    bt = bt.to(dev)
+    pools = {}
+    for name, x in dense.items():
+        rpc = x.shape[1] // C
+        pool = torch.zeros((P * H, rpc) + tuple(x.shape[2:]), dtype=x.dtype, device=dev)
+        for b in range(B):
+            for c in range(live[b]):
+                p = int(bt[b, c])
+                pool[p * H:(p + 1) * H] = x[b * H:(b + 1) * H, c * rpc:(c + 1) * rpc]
+        pools[name] = pool
+    gathered = gather_paged_operands(bt, B * H, pools)
+    q = torch.randn(B * H, G, 128, generator=g, device=dev)
+    kw = dict(bits=cfg.policy.bits, chunk=nb, scale_factor=128 ** -0.5)
+    paged = gd.gear_decode_paged(q, *[pools[n] for n in names], n_comp, bt, **kw,
+                                 **{n: pools[n] for n in extra})
+    flat = gd.gear_decode(q, *[gathered[n] for n in names], n_comp, **kw,
+                          **{n: gathered[n] for n in extra})
+    for a, b in zip(paged, flat):
+        assert torch.equal(a, b)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--layers N]
+    python3 chip_smoke.py [--layers N] [--parent-scan OLD/linear_scan.cu]
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
@@ -36,8 +36,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    decay at S = chunk = 200, and the ``bonus`` mode at RWKV6-3b's head
    shape (Dk = Dv = 64, per-Dk decay): 40 rows in chunks of 64, the live
    prefill's S = chunk = 859, and the decode step's S = chunk = 1 over 160
-   rows (4 slots x 40 heads) from a non-zero initial state; each case timed
-   beside its bound;
+   rows (4 slots x 40 heads) from a non-zero initial state (the step
+   regime; the others run the chunked regime's three launches); each case
+   held globally and per row, two calls bit for bit, timed beside its f32
+   bound and, where products run on the tensor cores, its TF32 bound, with
+   the CUDA kernels one call launches (with ``--parent-scan``, an older
+   ``linear_scan.cu`` is built too and timed in turns p1, c1, c2, p2 here
+   and at the live scans of phases 12-13);
 9. ``quant_pack`` through its entry point ``repro_torch.kernels.quantize_chunk``
    on the 448 [64, 128] tiles of phase 5, at 2, 4 and 8 bits, f32 and bf16
    input: launches counted, packed codes, scale and zero bit for bit equal
@@ -84,9 +89,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 14. summary: one ``{"kernels": [...]}`` JSON line, the card's name and power
     limit, and the final ``{"ok": true, "device": {...}}`` line.
 
-Kernel times come from ``time_ms``: CUDA events around one launch with a
-cold L2, behind a device-side wait that keeps the host's enqueue time out
-of the window (device time only).
+Kernel times come from ``time_ms``: the median over launches of CUDA
+events around one launch with a cold L2, behind a device-side wait that
+keeps the host's enqueue time out of the window (device time only).
 
 It imports nothing of JAX and nothing of the JAX package.  Without a CUDA
 device, or without the repository beside it, it exits non-zero and prints
@@ -113,6 +118,7 @@ SRC = HERE / "src"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor cores
 F32_FLOPS = 67e12                # f32 outside the tensor cores
+TF32_FLOPS = 495e12              # dense TF32 tensor cores
 
 DEV = torch.device("cuda")
 
@@ -163,13 +169,15 @@ def device_wait(ms: float) -> None:
 
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Mean device time of ``fn`` with a cold L2: each launch is timed on
-    its own between CUDA events, after a write of a buffer larger than L2.
-    A device-side wait after that write, sized to outlast the host's enqueue
-    of the start event, ``fn`` and the end event (twice ``fn``'s measured
-    host time, at least ``WAIT_MS``), keeps the stream busy until all three
-    are queued, so the window holds device time only and no host time of
-    the wrapper."""
+    """Device time of ``fn`` with a cold L2: the median of ``iters``
+    launches, each timed on its own between CUDA events after a write of a
+    buffer larger than L2.  A device-side wait after that write, sized to
+    outlast the host's enqueue of the start event, ``fn`` and the end event
+    (twice ``fn``'s measured host time, at least ``WAIT_MS``), keeps the
+    stream busy until all three are queued, so the window holds device time
+    only and no host time of the wrapper.  The median drops the rare launch
+    whose enqueue the host stalled past the wait (such a window can only
+    read long)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -177,7 +185,7 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     wait = max(WAIT_MS, 2.0 * host_ms)
-    total = 0.0
+    times = []
     for _ in range(iters):
         flush.zero_()
         device_wait(wait)
@@ -187,37 +195,40 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
         fn()
         end.record()
         torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
-def profiled_ms(fn, iters: int, flush: torch.Tensor):
-    """Kernel time of ``fn`` per call from a ``torch.profiler`` window of
-    ``iters`` cold-L2 calls (the flush's fill kernels left out): (ms,
-    {kernel name: launches})."""
+def kernel_breakdown(fn, iters: int, flush: torch.Tensor) -> dict:
+    """Device time per call of each CUDA kernel that ``fn`` launches, from a
+    ``torch.profiler`` window of ``iters`` cold-L2 calls (the flush's fill
+    kernels left out): {kernel name: ms}."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and "Fill" not in e.key]
-    total = sum(e.self_device_time_total for e in kernels) / 1e3
-    return total / iters, {e.key[:60]: e.count for e in kernels}
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "Fill" not in e.key:
+            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / iters / 1e3
+    return out
 
 
 def timer_check(fn, label: str, flush: torch.Tensor, report: dict) -> None:
     """The timer's own check, once per run: ``time_ms`` of one short call
     beside the kernel time a profiler window reports for it."""
     ev = time_ms(fn, 50, flush)
-    prof, names = profiled_ms(fn, 50, flush)
+    kernels = kernel_breakdown(fn, 50, flush)
+    prof = sum(kernels.values())
     print(f"  timer check, {label}: CUDA events {ev:.4f} ms, profiler kernel time "
-          f"{prof:.4f} ms per call ({names})")
+          f"{prof:.4f} ms per call ({kernels})")
     report["timer_check"] = {"what": label, "events_ms": ev, "profiler_ms": prof}
 
 
@@ -647,6 +658,64 @@ SCAN_CASES = [
 ]
 
 
+PARENT_SCAN = None     # the parent tree's kernel, set by --parent-scan
+
+
+def start_parent_build(src: pathlib.Path):
+    """Start ``nvcc`` on a parent tree's ``linear_scan.cu`` beside this
+    tree's build; returns (process, library path)."""
+    from repro_torch.kernels import _build
+
+    out = _build.BUILD / "parent" / "liblinear_scan_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build.nvcc(), *_build.FLAGS, "-o", str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
+
+
+def parent_scan(proc, lib_path: pathlib.Path):
+    """The parent's kernel as a function of ``linear_scan_chunked``'s
+    signature (operands as the wrapper checks them; it counts nothing).  A
+    library that exports ``linear_scan_workspace_bytes`` takes a workspace
+    after the state pointer; an older one takes none."""
+    import ctypes
+
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"the parent's linear_scan.cu did not build:\n{log}")
+    lib = ctypes.CDLL(str(lib_path))
+    ws_bytes = getattr(lib, "linear_scan_workspace_bytes", None)
+    launch = lib.linear_scan_launch
+    launch.argtypes = ([ctypes.c_void_p] * (8 if ws_bytes is None else 9) + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+    launch.restype = ctypes.c_int
+    if ws_bytes is not None:
+        ws_bytes.argtypes = [ctypes.c_int] * 5
+        ws_bytes.restype = ctypes.c_longlong
+
+    def call(r, k, v, log_w, u=None, *, chunk, mode, state0=None):
+        BH, S, Dk = r.shape
+        Dv = v.shape[-1]
+        y = torch.empty_like(v)
+        state = torch.empty((BH, Dk, Dv), dtype=torch.float32, device=r.device)
+        ws = []
+        if ws_bytes is not None:
+            n = ws_bytes(BH, S, Dk, Dv, chunk)
+            buf = torch.empty(n, dtype=torch.uint8, device=r.device) if n else None
+            ws = [None if buf is None else buf.data_ptr()]
+        code = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+                      None if u is None else u.data_ptr(),
+                      None if state0 is None else state0.data_ptr(), y.data_ptr(),
+                      state.data_ptr(), *ws, BH, S, Dk, Dv, log_w.shape[-1], chunk,
+                      int(mode == "bonus"), torch.cuda.current_stream().cuda_stream)
+        if code:
+            fail(f"the parent's linear_scan kernel: CUDA error {code}")
+        return y, state
+
+    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    print("  parent linear_scan.cu built; " + " | ".join(regs))
+    return call
+
+
 def scan_inputs(mode, BH, S, Dk, Dv, lw_cols, seed: int):
     """Hymba-like inputs: one decay per head near the reference's init
     (-softplus(x - 1), x ~ N(0, 0.5^2)); RWKV-like: per-Dk log w = -exp(x)."""
@@ -671,7 +740,9 @@ def scan_bytes_flops(r, k, v, lw, u, chunk: int, mode: str, state0=None):
     and 3 Dk factor products, and the bonus term.  From a zero state the
     cross-chunk read (2 Dk Dv per token) and the state's decay (Dk Dv) do
     work only in the chunks after the first; from an initial state, in
-    every chunk."""
+    every chunk.  Returns (bytes, operations, the operations of these that
+    the kernel runs on the tensor cores): at chunk > 1 the intra products,
+    the state increments and the cross terms."""
     BH, S, Dk = r.shape
     Dv, L = v.shape[-1], lw.shape[-1]
     W = chunk
@@ -682,10 +753,14 @@ def scan_bytes_flops(r, k, v, lw, u, chunk: int, mode: str, state0=None):
         per_chunk += W * (3 * Dk + 2 * Dv)
     cross = W * 2 * Dk * Dv + Dk * Dv
     flops = BH * (n * per_chunk + (n if state0 is not None else n - 1) * cross)
+    mma = 0
+    if W > 1:
+        mma = BH * (n * (pairs * 2 * (Dk + Dv) + W * 2 * Dk * Dv)
+                    + (n if state0 is not None else n - 1) * W * 2 * Dk * Dv)
     inputs = r.numel() + k.numel() + v.numel() + lw.numel() + (0 if u is None else u.numel())
     inputs += 0 if state0 is None else state0.numel()
     nbytes = 4 * (inputs + BH * S * Dv + BH * Dk * Dv)
-    return nbytes, flops
+    return nbytes, flops, mma
 
 
 def row_err(got: torch.Tensor, want: torch.Tensor):
@@ -696,17 +771,26 @@ def row_err(got: torch.Tensor, want: torch.Tensor):
     return ratio, float(want.abs().median())
 
 
-def scan_check(fn, args: tuple, kw: dict, label: str, flush, report: dict, iters: int = 20):
+def scan_check(fn, args: tuple, kw: dict, label: str, flush, report: dict, iters: int = 20,
+               list_kernels: bool = False):
     """Kernel vs plain version (y and final state) within 2e-3 x max(1,
     max |plain|), and within 2e-3 x max(1, max |plain| of the row) for every
     row (token of y, Dk row of the state), so a wrong ordinary-sized entry
-    fails even where the clamp has blown a few late rows up.  Then both
-    times and the call's bound.  Returns (ms, plain_ms, bound_ms, bound_by)."""
+    fails even where the clamp has blown a few late rows up; two calls
+    equal bit for bit.  Then the times (with ``--parent-scan``, the parent
+    tree's kernel in turns p1, c1, c2, p2 on the same operands), with
+    ``list_kernels`` the CUDA kernels one call launches and their device
+    times (a profiler window),
+    and the call's bounds: f32 operations at the
+    SIMT rate, and with the tensor-core products at the TF32 rate, three
+    passes each.  Returns (ms, plain_ms, bound_ms, bound_by)."""
     from repro_torch.kernels.ref import linear_scan_ref
 
     y_k, st_k = fn(*args, **kw)
+    y_k2, st_k2 = fn(*args, **kw)
     y_p, st_p = linear_scan_ref(*args, **kw)
     torch.cuda.synchronize()
+    bitwise = torch.equal(y_k, y_k2) and torch.equal(st_k, st_k2)
     scale_y = max(1.0, float(y_p.abs().max()))
     scale_s = max(1.0, float(st_p.abs().max()))
     err_y = float((y_k - y_p).abs().max())
@@ -714,22 +798,41 @@ def scan_check(fn, args: tuple, kw: dict, label: str, flush, report: dict, iters
     row_y, med_y = row_err(y_k, y_p)
     row_s, med_s = row_err(st_k, st_p)
     ok = (err_y <= 2e-3 * scale_y and err_s <= 2e-3 * scale_s
-          and row_y <= 1.0 and row_s <= 1.0)
-    ms = time_ms(lambda: fn(*args, **kw), iters, flush)
+          and row_y <= 1.0 and row_s <= 1.0 and bitwise)
+    timed = {}
+    if PARENT_SCAN is not None:
+        timed["p1"] = time_ms(lambda: PARENT_SCAN(*args, **kw), iters, flush)
+    timed["c1"] = time_ms(lambda: fn(*args, **kw), iters, flush)
+    if PARENT_SCAN is not None:
+        timed["c2"] = time_ms(lambda: fn(*args, **kw), iters, flush)
+        timed["p2"] = time_ms(lambda: PARENT_SCAN(*args, **kw), iters, flush)
+    ms = timed["c1"]
     plain_ms = time_ms(lambda: linear_scan_ref(*args, **kw), 3, flush)
-    nbytes, flops = scan_bytes_flops(*args, kw["chunk"], kw["mode"], kw.get("state0"))
+    names = kernel_breakdown(lambda: fn(*args, **kw), 10, flush) if list_kernels else None
+    nbytes, flops, mma = scan_bytes_flops(*args, kw["chunk"], kw["mode"], kw.get("state0"))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_tc = max(t_bytes, (3 * mma / TF32_FLOPS + (flops - mma) / F32_FLOPS) * 1e3)
+    times = ", ".join(f"{key} {val:.4f} ms" for key, val in timed.items())
     print(f"  {label}: y max_abs_err={err_y:.3e} (tol 2e-3 x {scale_y:.3g}; median |y| "
           f"{med_y:.3g}; worst row at {row_y:.3g} of its limit), state max_abs_err="
           f"{err_s:.3e} (tol 2e-3 x {scale_s:.3g}; median {med_s:.3g}; worst row at "
-          f"{row_s:.3g} of its limit) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+          f"{row_s:.3g} of its limit), two calls bitwise equal: {bitwise}")
+    print(f"    kernel {times}, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at f32 {F32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s)" + (f"; with its {mma / 1e9:.3f} GFLOP of products on the TF32 tensor "
+                         f"cores ({TF32_FLOPS / 1e12:.0f} TFLOP/s, 3 passes) {t_tc:.4f} ms"
+                         if mma else "") + ("; CUDA kernels per call (ms): " + ", ".join(
+                             f"{key} {val:.4f}" for key, val in names.items()) if names else ""))
     if not ok:
         fail(f"{label} disagrees with its plain version")
     report["err"] = max(report.get("err", 0.0), err_y, err_s)
     report["err_over_scale"] = max(report.get("err_over_scale", 0.0), err_y / scale_y,
                                    err_s / scale_s)
+    report.setdefault("cases", []).append(
+        {"what": label, **{f"ms_{key}": val for key, val in timed.items()}, "plain_ms": plain_ms,
+         "bound_ms": bound, "bound_by": by, "bound_ms_tf32x3": t_tc if mma else None}
+        | ({"kernels": names} if names else {}))
     return ms, plain_ms, bound, by
 
 
@@ -744,7 +847,8 @@ def scan_case(case, flush, report: dict) -> None:
                                    device=DEV)
     scan_check(lsk.linear_scan_chunked, (r, k, v, lw, u), kw,
                f"linear_scan_chunked {mode} BH={BH} S={S} Dk={Dk} Dv={Dv} log_w[..,{lw_cols}] "
-               f"chunk={chunk}" + (" from a non-zero state0" if with_state else ""), flush, report)
+               f"chunk={chunk}" + (" from a non-zero state0" if with_state else ""), flush, report,
+               list_kernels=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1219,10 +1323,15 @@ def profile(eng, cfg, out_dir: pathlib.Path, tag: str, prompt_len: int = 640) ->
 
 
 def main() -> int:
+    global PARENT_SCAN
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="model depth of serving path 1, monolithic + dense (of 32); "
                          "paths 2-4 always run every layer")
+    ap.add_argument("--parent-scan", type=pathlib.Path, default=None,
+                    help="a parent tree's csrc/linear_scan.cu: build it too and time it in "
+                         "turns (parent, this tree, this tree, parent) beside every "
+                         "linear_scan_chunked case and live call")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1245,10 +1354,13 @@ def main() -> int:
     print("[2] build")
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
+    parent = None if args.parent_scan is None else start_parent_build(args.parent_scan)
     built = _build.build_all()
     for name, (sec, log) in sorted(built.items()):
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"  {name}: built in {sec:.1f} s; " + " | ".join(regs))
+    if parent is not None:
+        PARENT_SCAN = parent_scan(*parent)
     print(f"  build wall {time.perf_counter() - t0:.1f} s")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)  # > 50 MB L2

@@ -5,9 +5,18 @@ Port of ``repro.kernels.linear_scan_kernel.linear_scan_chunked`` (contract
 of ``ref.linear_scan_ref``, i.e. the reference's ``chunked_scan`` with the
 leading dims flattened).  A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.  Any chunk that divides S is legal,
-chunk = S included: the kernel tiles a chunk in 64-row tiles itself.  The
-scan starts from a zero state or from ``state0`` (RWKV6's decode step), as
-the reference's ``chunked_scan`` does; its TPU kernel starts from zero only.
+chunk = S included.  The scan starts from a zero state or from ``state0``
+(RWKV6's decode step), as the reference's ``chunked_scan`` does; its TPU
+kernel starts from zero only.
+
+Two regimes, chosen by the chunk: chunk = 1 (RWKV6's decode step) is one
+``scan_step`` launch that streams the state once; a longer chunk is three
+CUDA launches into a workspace this wrapper allocates (``scan_factors``:
+the cumsum, the decay factors and each 128-row tile's state increment;
+``scan_states``: the increments summed in tile order, chunk by chunk, into
+the chunk-start states and the final state; ``scan_tiles``: y per 64-row
+query tile, its products on the tensor cores in 3xTF32).  One wrapper call
+counts one on ``.launches`` whatever the regime.
 """
 
 from __future__ import annotations
@@ -30,10 +39,14 @@ _I = ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    fn = _build.load("linear_scan").linear_scan_launch
-    fn.argtypes = [_P] * 8 + [_I] * 7 + [_P]
+    lib = _build.load("linear_scan")
+    fn = lib.linear_scan_launch
+    fn.argtypes = [_P] * 9 + [_I] * 7 + [_P]
     fn.restype = ctypes.c_int
-    return fn
+    ws = lib.linear_scan_workspace_bytes
+    ws.argtypes = [_I] * 5
+    ws.restype = ctypes.c_longlong
+    return fn, ws
 
 
 def linear_scan_chunked(r, k, v, log_w, u=None, *, chunk: int = 64, mode: str = "inclusive",
@@ -72,14 +85,17 @@ def linear_scan_chunked(r, k, v, log_w, u=None, *, chunk: int = 64, mode: str = 
         raise ValueError(f"linear_scan_chunked: log_w's last dim {lw_cols} is neither 1 nor {Dk}")
     if not 1 <= Dk <= MAX_DK or Dv < 1:
         raise ValueError(f"linear_scan_chunked: Dk={Dk}, Dv={Dv} unsupported (Dk <= {MAX_DK})")
+    launch, workspace_bytes = _launcher()
     y = torch.empty_like(v)
     state = torch.empty((BH, Dk, Dv), dtype=torch.float32, device=r.device)
-    code = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-                       None if u is None else u.data_ptr(),
-                       None if state0 is None else state0.data_ptr(),
-                       y.data_ptr(), state.data_ptr(),
-                       BH, S, Dk, Dv, lw_cols, chunk, int(mode == "bonus"),
-                       torch.cuda.current_stream(r.device).cuda_stream)
+    nbytes = workspace_bytes(BH, S, Dk, Dv, chunk)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=r.device) if nbytes else None
+    code = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+                  None if u is None else u.data_ptr(),
+                  None if state0 is None else state0.data_ptr(),
+                  y.data_ptr(), state.data_ptr(), None if ws is None else ws.data_ptr(),
+                  BH, S, Dk, Dv, lw_cols, chunk, int(mode == "bonus"),
+                  torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(code, "linear_scan_chunked")
     linear_scan_chunked.launches += 1
     return y, state

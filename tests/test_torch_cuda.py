@@ -20,7 +20,10 @@ both sides); ``gear_compress`` within the reference's own kernel budget
 the final state (the reference's own kernel tolerance, scaled because the
 factored form's clamp lets y grow), also from an initial state
 (``state0``: RWKV6's decode step at S = chunk = 1, and chunk = S);
-``quant_pack`` (through ``kernels.quantize_chunk``) bit for bit in packed
+``linear_scan_chunked``'s two regimes also per row (2e-3 x max(1, max
+|row|) for every token of y and Dk row of the state): the step (chunk = 1,
+both modes, Dv 40) and chunk = S at S in {1, 63, 65, 129, 1152}, with two
+calls bitwise equal; ``quant_pack`` (through ``kernels.quantize_chunk``) bit for bit in packed
 codes, scale and zero.  Hymba's shapes are held too: ``gear_decode`` at
 G = 5, head_dim 64 and ``flash_prefill`` at kv_repeat 5, head_dim 64.
 
@@ -340,6 +343,62 @@ def test_linear_scan_kernel_with_state0_matches_plain(dev, mode, S, chunk):
                                atol=2e-3 * max(1.0, float(y_p2.abs().max())))
     torch.testing.assert_close(st_m.reshape(BH, 64, 64), st_p2, rtol=0,
                                atol=2e-3 * max(1.0, float(st_p2.abs().max())))
+
+
+def assert_scan_rows_close(got, want):
+    """2e-3 x max(1, max |want|) over the whole output and 2e-3 x max(1,
+    max |want| of the row) for every row of the last dim (a token of y, a
+    Dk row of the state): ``chip_smoke.py``'s ``row_err``."""
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-3 * max(1.0, float(want.abs().max())))
+    limit = 2e-3 * want.abs().amax(-1).clamp_min(1.0)
+    assert float(((got - want).abs().amax(-1) / limit).max()) <= 1.0
+
+
+SCAN_REGIMES = [
+    # (mode, S, chunk, Dk, Dv, log_w columns, initial state)
+    ("inclusive", 1, 1, 64, 64, 64, True),            # the step regime, inclusive
+    ("inclusive", 1, 1, 64, 40, 64, True),            # step at Dv 40 (not a 16-byte group)
+    ("bonus", 1, 1, 64, 40, 64, True),
+    ("bonus", 1, 1, 16, 64, 1, False),
+    ("bonus", 6, 1, 64, 64, 64, True),                # chunks of one token over 6
+] + [(mode, S, S, Dk, 64, lw, st) for mode in ("inclusive", "bonus")
+     for S in (1, 63, 65, 129, 1152)                  # chunk = S: ragged tiles; 1152 = capacity
+     for Dk, lw, st in ((64, 64, mode == "bonus"), (16, 1, mode == "inclusive"))]
+
+
+@pytest.mark.parametrize("case", SCAN_REGIMES, ids=lambda c: "-".join(map(str, c)))
+def test_linear_scan_regimes_match_plain_per_row(dev, case):
+    """Both regimes of the redesigned kernel, globally and per row: the
+    step (chunk = 1, inclusive and bonus, Dv 40, a sequence of one-token
+    chunks) and chunk = S at S in {1, 63, 65, 129, 1152} (ragged last
+    tiles, one and several query tiles) at RWKV6's and hymba's head shapes,
+    from a zero or a non-zero initial state."""
+    mode, S, chunk, Dk, Dv, lw_cols, with_state = case
+    BH = 12
+    r, k, v, lw, u = scan_case(dev, BH, S, Dk, Dv, lw_cols, S + Dk + Dv,
+                               decay=-0.313 if lw_cols == 1 else None)
+    st0 = (torch.randn(BH, Dk, Dv, generator=torch.Generator(device=dev).manual_seed(S),
+                       device=dev) if with_state else None)
+    before = lsk.linear_scan_chunked.launches
+    y_k, st_k = lsk.linear_scan_chunked(r, k, v, lw, u, chunk=chunk, mode=mode, state0=st0)
+    assert lsk.linear_scan_chunked.launches == before + 1
+    y_p, st_p = linear_scan_ref(r, k, v, lw, u, chunk=chunk, mode=mode, state0=st0)
+    assert_scan_rows_close(y_k, y_p)
+    assert_scan_rows_close(st_k, st_p)
+
+
+@pytest.mark.parametrize("S,chunk,with_state", [(1, 1, True), (859, 859, False),
+                                                (859, 859, True), (256, 64, True)],
+                         ids=["step", "chunk=S", "chunk=S-state0", "aligned"])
+def test_linear_scan_two_calls_are_bitwise_equal(dev, S, chunk, with_state):
+    """No float atomics: the state increments are summed in tile order, so
+    two calls on the same inputs give the same bits."""
+    BH = 40
+    r, k, v, lw, u = scan_case(dev, BH, S, 64, 64, 64, S)
+    st0 = torch.randn(BH, 64, 64, device=dev) if with_state else None
+    y1, s1 = lsk.linear_scan_chunked(r, k, v, lw, u, chunk=chunk, mode="bonus", state0=st0)
+    y2, s2 = lsk.linear_scan_chunked(r, k, v, lw, u, chunk=chunk, mode="bonus", state0=st0)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 QP_SHAPES = [(448, 64, 128), (2, 16, 64), (1, 64, 256), (8, 32, 32), (3, 7, 48)]

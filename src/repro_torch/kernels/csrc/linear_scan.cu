@@ -69,6 +69,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
 constexpr float CLAMP = 30.f;
@@ -89,41 +91,13 @@ __host__ __device__ inline int pad8(int n) { return (n + 7) & ~7; }
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // ---------------------------------------------------------------------------
-// PTX helpers
+// PTX helpers (cp_async16, split and mma_tf32 are in mma_tf32.cuh)
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
-                  "r"(valid ? 16 : 0)
-               : "memory");
-}
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
                   "r"(valid ? 4 : 0)
                : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// f32 -> TF32 hi + lo: hi keeps the sign, exponent and top 10 mantissa bits,
-// lo = x - hi is exact in f32 and goes in as it is (the tensor cores read the
-// same top bits of it), so |x - hi - lo_read| <= 2^-20 |x|
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // acc[n] += a B_n, n < count, both split into hi + lo (lo.hi + hi.lo + hi.hi,

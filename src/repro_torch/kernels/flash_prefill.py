@@ -19,10 +19,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_block_ref, flash_prefill_ref
 
-__all__ = ["flash_prefill", "flash_prefill_block", "HEAD_DIMS", "BLOCK_T"]
+__all__ = ["flash_prefill", "flash_prefill_block", "HEAD_DIMS", "BLOCK_HEAD_DIMS", "BLOCK_T"]
 
-HEAD_DIMS = (64, 128)      # template instantiations in the .cu source
-BLOCK_T = 64               # most queries per row-group flash_prefill_block takes
+HEAD_DIMS = (64, 128)            # template instantiations in flash_prefill.cu
+BLOCK_HEAD_DIMS = (64, 128, 256)  # template instantiations in flash_prefill_block.cu
+BLOCK_T = 64                     # most queries per row-group flash_prefill_block takes
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -94,13 +95,17 @@ def flash_prefill_block(q, k, v, kv_len, *, scale: float, softcap: float = 0.0,
     N, T, Dh = q.shape
     if kv_repeat < 1 or N % kv_repeat:
         raise ValueError(f"flash_prefill_block: kv_repeat={kv_repeat} does not divide {N} rows")
-    if T > BLOCK_T or Dh > 256:
-        raise ValueError(f"flash_prefill_block: block [{T}, {Dh}] exceeds [{BLOCK_T}, 256]")
+    if T > BLOCK_T:
+        raise ValueError(f"flash_prefill_block: {T} queries per row exceed {BLOCK_T}")
+    if Dh not in BLOCK_HEAD_DIMS:
+        raise ValueError(f"flash_prefill_block: head_dim {Dh} not built (have {BLOCK_HEAD_DIMS})")
     want = (N // kv_repeat, T, Dh)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"flash_prefill_block: {name} must be a contiguous f32 tensor on "
                              f"{q.device} (got {x.dtype} on {x.device})")
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_prefill_block: {name} is not 16-byte aligned")
     if tuple(k.shape) != want or tuple(v.shape) != want:
         raise ValueError(f"flash_prefill_block: k/v shapes {tuple(k.shape)}/"
                          f"{tuple(v.shape)}, expected {want}")

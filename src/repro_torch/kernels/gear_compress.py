@@ -46,6 +46,8 @@ def gear_compress(x: torch.Tensor, *, bits: int, scheme: str, group: int | None 
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"gear_compress: x must be a contiguous [N, nb, d] f32 tensor "
                          f"(got {x.dtype} {tuple(x.shape)})")
+    if x.data_ptr() % 16:
+        raise ValueError("gear_compress: x is not 16-byte aligned")
     N, nb, d = x.shape
     per_channel = scheme == "per_channel"
     if scheme not in ("per_channel", "per_token", "per_token_group"):

@@ -35,9 +35,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    causal and kv_len mask as an additive bias (its (out, lse) held against
    (acc / l, m + log l) first), a yardstick the port never calls, and
    on one full wave of row groups (3 per SM) and on one row group alone;
-   with ``--parent-kernels``, a parent tree's ``flash_prefill_block.cu``
-   and ``gear_compress.cu`` are built too and timed in turns p1, c1, c2,
-   p2 here, in phase 5 and at phase 11's live calls;
+   with ``--parent-kernels``, a parent tree's ``flash_prefill_block.cu``,
+   ``gear_compress.cu`` and ``quant_pack.cu`` are built too and timed in
+   turns p1, c1, c2, p2 here, in phases 5 and 9 and at phase 11's live
+   calls;
 7. ``gear_decode_paged`` against its plain version, and bit for bit against
    ``gear_decode`` on the gathered operands, over a shuffled pool of the
    main path's shapes whose tables name the zero page past each extent;
@@ -57,7 +58,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
 9. ``quant_pack`` through its entry point ``repro_torch.kernels.quantize_chunk``
    on the 448 [64, 128] tiles of phase 5, at 2, 4 and 8 bits, f32 and bf16
    input: launches counted, packed codes, scale and zero bit for bit equal
-   to the plain version, timed beside its byte bound;
+   to the plain version, also on non-finite input (NaN, +-inf, an all-NaN
+   tile; NaN compared as equal) and across two calls; timed at 448 [64,
+   128] tiles (4 bits f32 and bf16, 2 and 8 bits f32) and 448 [64, 64]
+   (hymba's head_dim) beside its byte bound, the profiler's kernel time, the
+   plain version and ``torch.aminmax`` (a read-side yardstick); with
+   ``--parent-kernels`` the parent's ``quant_pack.cu`` in turns too;
 10. serving, path 1: llama2-7b at full width (``--layers`` of its 32 layers)
    with random bf16 weights from a seeded generator, gear_kcvt4,
    ``Engine(batch=4, capacity=1152)`` (monolithic prefill, dense layout) and
@@ -118,6 +124,7 @@ import dataclasses as dc
 import gc
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -584,6 +591,44 @@ def compress_case(policy_name: str, flush, report: dict) -> None:
         compress_time(x, kw, label, flush, report)
         if policy_name == "gear_kcvt4" and kind == "k":
             compress_probes(x, kw, flush, report)
+        compress_nan_check(kw, label)
+
+
+def compress_nan_check(kw: dict, label: str) -> None:
+    """A K channel (V token) with more NaNs than its outlier count, one with
+    a single NaN, and an all-NaN tile: every output equal to the plain
+    version's, a NaN equal to any NaN, and NaN stats in those tiles.  With
+    ``--parent-kernels`` the parent's kernel is held on the same input and
+    reported, not failed."""
+    from repro_torch.kernels import gear_compress as gc
+    from repro_torch.kernels.ref import gear_compress_ref
+
+    x = torch.randn(448, 64, 128, generator=torch.Generator(device=DEV).manual_seed(4),
+                    device=DEV).to(torch.bfloat16).float()
+    many = torch.arange(2 * kw["n_out"] + 1, device=DEV) * 5
+    if kw["scheme"] == "per_channel":
+        x[0, many, 7] = float("nan")
+        x[1, 30, 9] = float("nan")
+    else:
+        x[0, 7, many] = float("nan")
+        x[1, 30, 100] = float("nan")
+    x[2] = float("nan")
+    want = gear_compress_ref(x, **kw)
+
+    def equal(got) -> dict:
+        return {name: nan_equal(a, w.to(a.dtype)) for name, a, w in
+                zip(COMPRESS_OUTPUTS, got, want) if a is not None and w is not None}
+
+    got = gc.gear_compress(x, **kw)
+    same = equal(got)
+    nan_stats = bool(torch.isnan(got[1][0]).any()) and bool(torch.isnan(got[1][2]).all())
+    print(f"    NaN tiles ({2 * kw['n_out'] + 1} NaNs in one vector, 1 in another, an all-NaN "
+          f"tile): equal to the plain version = {same}, NaN stats = {nan_stats}")
+    if not (all(same.values()) and nan_stats):
+        fail(f"gear_compress {label} on NaN tiles differs from its plain version {same}")
+    parent = PARENT_KERNELS.get("gear_compress")
+    if parent is not None:
+        print(f"    parent's kernel on the NaN tiles: equal = {equal(parent(x, **kw))}")
 
 
 def compress_probes(x, kw, flush, report: dict) -> None:
@@ -827,7 +872,44 @@ PARENT_SCAN = None     # the parent tree's kernel, set by --parent-scan
 PARENT_KERNELS = {}    # kernel name -> the parent tree's version, set by --parent-kernels
 # kernels --parent-kernels builds: (wrapper module, its launcher, the C entry point)
 PARENT_SOURCES = {"flash_prefill_block": ("flash_prefill", "_block_launcher", "flash_block_launch"),
-                  "gear_compress": ("gear_compress", "_launcher", "gear_compress_launch")}
+                  "gear_compress": ("gear_compress", "_launcher", "gear_compress_launch"),
+                  "quant_pack": ("quant_pack", "_launcher", "quant_pack_launch")}
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<template args>`` of a mangled kernel in an anonymous namespace
+    (bool, int, float and bf16 arguments); the mangled name otherwise."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if m is None:
+        return mangled
+    start = m.end()
+    name = mangled[start:start + int(m.group(1))]
+    rest = mangled[start + len(name):]
+    if not rest.startswith("I"):
+        return name
+    args = re.findall(r"Lb([01])E|Li(-?\d+)E|(13__nv_bfloat16)|^I(f)E", rest[:rest.find("Ev") + 1])
+    words = [("true" if b == "1" else "false") if b else i or ("bf16" if h else "float")
+             for b, i, h, f in args]
+    return f"{name}<{', '.join(words)}>"
+
+
+def ptxas_summary(log: str) -> str:
+    """Each entry function's registers and spilled bytes from an ``nvcc
+    -Xptxas -v`` log, as "kernel<args> R regs[, S B spilled]"."""
+    out, fn, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = kernel_name(m.group(1)), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append(f"{fn} {m.group(1)} regs" + (f", {spill} B spilled" if spill else ""))
+            fn = None
+    return "; ".join(out)
 
 
 def start_parent_build(src: pathlib.Path):
@@ -868,8 +950,7 @@ def parent_kernel(name: str, proc, lib_path: pathlib.Path):
             setattr(module, attr, real)
             wrapper.launches = launches
 
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    print(f"  parent {name}.cu built; " + " | ".join(regs))
+    print(f"  parent {name}.cu built; {ptxas_summary(log)}")
     return call
 
 
@@ -912,8 +993,7 @@ def parent_scan(proc, lib_path: pathlib.Path):
             fail(f"the parent's linear_scan kernel: CUDA error {code}")
         return y, state
 
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    print("  parent linear_scan.cu built; " + " | ".join(regs))
+    print(f"  parent linear_scan.cu built; {ptxas_summary(log)}")
     return call
 
 
@@ -1051,12 +1131,53 @@ def scan_case(case, flush, report: dict) -> None:
 # quant_pack
 
 
+QP_CASES = [  # (N, n, d, bits, dtype): phase 5's tiles, the other widths, hymba's head_dim
+    (448, 64, 128, 4, torch.float32), (448, 64, 128, 4, torch.bfloat16),
+    (448, 64, 128, 2, torch.float32), (448, 64, 128, 8, torch.float32),
+    (448, 64, 64, 4, torch.float32)]
+
+
+def nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equal, a NaN equal to any NaN (its payload and sign aside)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0), b.masked_fill(nb, 0))
+
+
+def non_finite(x: torch.Tensor) -> torch.Tensor:
+    """x with a NaN in column 0, +inf in column 1, -inf in column 2 and both
+    in column 4 of tile 0, and a last tile that is all NaN."""
+    x = x.clone()
+    n = x.shape[1]
+    x[0, n // 2, 0] = float("nan")
+    x[0, 0, 1] = float("inf")
+    x[0, n - 1, 2] = -float("inf")
+    x[0, 0, 4], x[0, n - 1, 4] = float("inf"), -float("inf")
+    x[-1] = float("nan")
+    return x
+
+
+def quant_pack_bytes(x: torch.Tensor, bits: int) -> int:
+    """x read once; packed codes and the two f32 stats written once."""
+    N, n, d = x.shape
+    return x.numel() * x.element_size() + N * n * d * bits // 8 + 2 * N * d * 4
+
+
 def quant_pack_phase(flush, report: dict) -> None:
     """``quant_pack`` driven through ``repro_torch.kernels.quantize_chunk``
     (its launch counter set to 0 just before and read just after), then held
-    bit for bit against its plain version and timed at 4 bits, f32 and bf16
-    input, beside its byte bound (x read once, codes and stats written once;
-    ~8 f32 operations per element)."""
+    bit for bit against its plain version, also on non-finite input (NaN,
+    +-inf, an all-NaN tile; NaN compared as equal) and across two calls, and
+    timed at ``QP_CASES`` beside its byte bound (x read once, codes and
+    stats written once; ~8 f32 operations per element), the profiler's
+    kernel time, the plain version and ``torch.aminmax(x, dim=1)``, a
+    read-side yardstick (the port never calls it; no PyTorch call quantizes
+    and packs, so there is no library time).  With ``--parent-kernels``
+    the parent's kernel is timed in turns and held on the same inputs; its
+    mismatch on non-finite input is reported, not failed."""
     from repro_torch import kernels as port_kernels
     from repro_torch.kernels import quant_pack as qp
     from repro_torch.kernels.ref import quant_pack_ref
@@ -1071,27 +1192,71 @@ def quant_pack_phase(flush, report: dict) -> None:
     launches = qp.quant_pack.launches
     if launches != len(cases):
         fail(f"quant_pack launches {launches} != {len(cases)} quantize_chunk calls")
+    parent = PARENT_KERNELS.get("quant_pack")
     for (bits, dt), got in outs.items():
-        want = quant_pack_ref(inputs[dt], bits)
+        x = inputs[dt]
+        want = quant_pack_ref(x, bits)
         exact = [torch.equal(a, b) for a, b in zip(got, want)]
-        print(f"  quant_pack {dt} {bits} bits, {tuple(x32.shape)}: packed / scale / zero equal "
-              f"to the plain version bit for bit = {exact}")
-        if not all(exact):
+        stable = all(torch.equal(a, b) for a, b in zip(got, qp.quant_pack(x, bits)))
+        xn = non_finite(x)
+        got_n, want_n = qp.quant_pack(xn, bits), quant_pack_ref(xn, bits)
+        exact_n = [nan_equal(a, b) for a, b in zip(got_n, want_n)]
+        nan_cols = torch.isnan(xn.float()).any(dim=1)
+        where = (torch.equal(torch.isnan(got_n[1]), nan_cols)
+                 and torch.equal(torch.isnan(got_n[2]), nan_cols))
+        print(f"  quant_pack {dt} {bits} bits, {tuple(x.shape)}: packed / scale / zero equal "
+              f"to the plain version bit for bit = {exact}, two calls equal = {stable}; "
+              f"non-finite input = {exact_n}, NaN stats exactly in the NaN columns = {where}")
+        if not (all(exact) and stable and all(exact_n) and where):
             fail(f"quant_pack {dt} {bits} bits differs from its plain version")
+        if parent is not None:
+            par = [torch.equal(a, b) for a, b in zip(parent(x, bits), want)]
+            par_n = [nan_equal(a, b) for a, b in zip(parent(xn, bits), want_n)]
+            print(f"    parent's kernel: finite input equal = {par}, non-finite input equal = "
+                  f"{par_n}" + ("" if all(par_n) else " (the NaN fault this tree repairs)"))
     report.update(err=0.0, launches=launches, library_ms=None)
-    for dt, x in inputs.items():
-        ms = time_ms(lambda: port_kernels.quantize_chunk(x, 4), 50, flush)
-        plain = time_ms(lambda: quant_pack_ref(x, 4), 5, flush)
-        N, n, d = x.shape
-        nbytes = x.numel() * x.element_size() + N * n * d // 8 * 4 + 2 * N * d * 4
+
+    rows = []
+    for i, (N, n, d, bits, dtype) in enumerate(QP_CASES):
+        x = torch.randn(N, n, d, generator=torch.Generator(device=DEV).manual_seed(6 + i),
+                        device=DEV).to(dtype)
+        label = f"{N} x [{n}, {d}] {'f32' if dtype == torch.float32 else 'bf16'} {bits} bits"
+        tree_fn = lambda: qp.quant_pack(x, bits)                         # noqa: E731
+        parent_fn = None if parent is None else (lambda: parent(x, bits))
+        timed = turns(tree_fn, parent_fn, 50, flush)
+        prof = {"c": sum(kernel_breakdown(tree_fn, 50, flush).values())}
+        if parent_fn is not None:
+            prof["p"] = sum(kernel_breakdown(parent_fn, 50, flush).values())
+        plain = time_ms(lambda: quant_pack_ref(x, bits), 5, flush)
+        aminmax = time_ms(lambda: torch.aminmax(x, dim=1), 50, flush)
+        aminmax_prof = sum(kernel_breakdown(lambda: torch.aminmax(x, dim=1), 50, flush).values())
+        nbytes = quant_pack_bytes(x, bits)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 8 * x.numel() / F32_FLOPS * 1e3
-        bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-        suffix = "" if dt == "f32" else "_bf16"
-        report.update({"ms" + suffix: ms, "plain_ms" + suffix: plain, "bound_ms" + suffix: bound,
-                       "bound_by" + suffix: by})
-        print(f"  quant_pack {dt} 4 bits: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}, {nbytes / 1e6:.2f} MB); library: none (no PyTorch call "
+        row = {"what": label, **{f"ms_{k}": v for k, v in timed.items()},
+               **{f"profiler_ms_{k}": v for k, v in prof.items()}, "plain_ms": plain,
+               "aminmax_ms": aminmax, "aminmax_profiler_ms": aminmax_prof,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "mb": nbytes / 1e6}
+        print(f"  quant_pack {label}: kernel {times_text(timed)}; profiler kernel time "
+              + ", ".join(f"{'this tree' if k == 'c' else 'parent'} {v:.4f} ms"
+                          for k, v in prof.items())
+              + f"; plain {plain:.4f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+              f"{nbytes / 1e6:.2f} MB); torch.aminmax(x, dim=1) {aminmax:.4f} ms, profiler "
+              f"{aminmax_prof:.4f} ms (read-side yardstick, not a library time: no PyTorch call "
               f"quantizes and packs)")
+        rows.append(row)
+    x = torch.randn(448, 64, 128, generator=torch.Generator(device=DEV).manual_seed(6),
+                    device=DEV)
+    copy = torch.empty_like(x)
+    probe = time_ms(lambda: copy.copy_(x), 50, flush)
+    probe_prof = sum(kernel_breakdown(lambda: copy.copy_(x), 50, flush).values())
+    print(f"    probe: a device copy of the f32 tiles ({2 * x.numel() * 4 / 1e6:.2f} MB read and "
+          f"written) {probe:.4f} ms, profiler {probe_prof:.4f} ms")
+    report["cases"] = rows
+    report["copy_probe_ms"], report["copy_probe_profiler_ms"] = probe, probe_prof
+    for suffix, row in (("", rows[0]), ("_bf16", rows[1])):
+        report.update({"ms" + suffix: row["ms_c1"], "plain_ms" + suffix: row["plain_ms"],
+                       "bound_ms" + suffix: row["bound_ms"], "bound_by" + suffix: row["bound_by"]})
 
 
 # ---------------------------------------------------------------------------
@@ -1542,10 +1707,10 @@ def main() -> int:
                          "turns (parent, this tree, this tree, parent) beside every "
                          "linear_scan_chunked case and live call")
     ap.add_argument("--parent-kernels", type=pathlib.Path, default=None,
-                    help="a parent tree's csrc directory: build its flash_prefill_block.cu and "
-                         "gear_compress.cu too and time them in turns (parent, this tree, this "
-                         "tree, parent) beside every case of phases 5 and 6 and at phase 11's "
-                         "live calls")
+                    help="a parent tree's csrc directory: build its flash_prefill_block.cu, "
+                         "gear_compress.cu and quant_pack.cu too and time them in turns "
+                         "(parent, this tree, this tree, parent) beside every case of phases "
+                         "5, 6 and 9 and at phase 11's live calls")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1574,8 +1739,7 @@ def main() -> int:
                 for name in PARENT_SOURCES})
     built = _build.build_all()
     for name, (sec, log) in sorted(built.items()):
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"  {name}: built in {sec:.1f} s; " + " | ".join(regs))
+        print(f"  {name}: built in {sec:.1f} s; {ptxas_summary(log)}")
     if parent is not None:
         PARENT_SCAN = parent_scan(*parent)
     for name, (proc, lib) in parents.items():

@@ -44,11 +44,15 @@ def iterative_topk(x: torch.Tensor, k: int, dim: int = -1):
 
     Returns (values f32, indices int64) with ``dim`` removed and ``k``
     appended last.  Each sweep takes the max, picks the lowest index that
-    holds it, and masks that entry out.
+    holds it, and masks that entry out.  A vector that holds a NaN has a
+    NaN max that equals no entry: each of its sweeps gives (NaN, n) and
+    masks nothing, as the reference's ``iterative_topk`` (the one its
+    Pallas compression kernel runs) does; index n is a sink column.
     """
-    work = x.to(torch.float32).movedim(dim, -1).clone()
+    work = x.to(torch.float32).movedim(dim, -1)
     n = work.shape[-1]
-    iota = torch.arange(n, device=x.device).expand(work.shape)
+    work = torch.cat([work, work.new_full(work.shape[:-1] + (1,), -torch.inf)], dim=-1)
+    iota = torch.arange(n + 1, device=x.device).expand(work.shape)
     vals, idxs = [], []
     for _ in range(k):
         v = work.amax(dim=-1, keepdim=True)
@@ -62,9 +66,10 @@ def iterative_topk(x: torch.Tensor, k: int, dim: int = -1):
 def _scatter_last(shape, idx: torch.Tensor, vals: torch.Tensor, dtype) -> torch.Tensor:
     """Scatter ``vals`` at ``idx`` along the last axis of zeros(shape) (set
     semantics; a duplicated index always carries the same value, the entry
-    itself)."""
-    out = torch.zeros(shape, dtype=dtype, device=vals.device)
-    return out.scatter_(-1, idx.to(torch.int64), vals.to(dtype))
+    itself).  An index equal to the axis' length (a NaN vector's pick) is
+    dropped, as the reference's scatter drops it."""
+    out = torch.zeros(shape[:-1] + (shape[-1] + 1,), dtype=dtype, device=vals.device)
+    return out.scatter_(-1, idx.to(torch.int64), vals.to(dtype))[..., :shape[-1]]
 
 
 def filter_outliers(x: torch.Tensor, s: float, axis: str):

@@ -18,6 +18,10 @@
 // (__fsub_rn, __fmul_rn, __fdiv_rn, __fadd_rn), so nvcc cannot contract a
 // multiply-add into an FMA: codes, stats and the residual follow the plain
 // PyTorch version (kernels/ref.py::gear_compress_ref) bit for bit.
+// NaN follows the reference's Pallas kernel: a vector that holds a NaN
+// picks (NaN, vector length) for each of its outliers and takes nothing
+// out, and the group folds propagate NaN (min.NaN / max.NaN), so every
+// group holding one gets NaN stats, codes 0 and a NaN residual.
 //
 // What bounds it on the H100: bytes.  A [64, 128] tile reads 32 KB and
 // writes 32 KB of residual plus ~5 KB of codes, stats and outliers (30.24 MB
@@ -47,9 +51,11 @@
 #include <cuda_bf16.h>
 #include <limits.h>
 #include <math.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include "mma_tf32.cuh"
+#include "nan_fold.cuh"
 
 namespace {
 
@@ -188,7 +194,9 @@ __global__ void __launch_bounds__(THREADS) gear_compress_kernel(
 
   // ---- 1. outliers (and, per channel, the group stats) ----------------------
   if (PC) {
-    // a thread per channel: a vector of nb tokens
+    // a thread per channel: a vector of nb tokens.  A NaN never enters a
+    // list, so it stays in the remainder and shows in the NaN-propagating
+    // group fold; only then are the outliers written.
     for (int c = tid; c < d; c += THREADS) {
       Best<KCAP> top, bot;
       top.init();
@@ -200,12 +208,38 @@ __global__ void __launch_bounds__(THREADS) gear_compress_kernel(
           top.push(v, t);
           bot.push(-v, t);
         }
+      }
+      // the stats of group gr with this vector's outliers read as 0, or with
+      // none taken out; true if they are NaN
+      auto group_stats = [&](int gr, bool take_out) {
+        float mn = INFINITY, mx = -INFINITY;
+#pragma unroll 8
+        for (int t = gr * group; t < (gr + 1) * group; ++t) {
+          const bool out = take_out && (top.has(t, n_out) || bot.has(t, n_out));
+          const float r = out ? 0.f : xs[t * d + c];
+          mn = min_nan(mn, r);
+          mx = max_nan(mx, r);
+        }
+        const float s = quant_scale(mn, mx, inv);
+        const int si = gr * d + c;
+        s_scale[si] = s;
+        s_zero[si] = mn;
+        scale[(long)n * n_stat + si] = s;
+        zero[(long)n * n_stat + si] = mn;
+        return mn != mn;
+      };
+      bool nan = false;
+      for (int gr = 0; gr < nb / group; ++gr) nan |= group_stats(gr, n_out > 0);
+      if (nan && n_out > 0)                         // a NaN vector: nothing is taken out
+        for (int gr = 0; gr < nb / group; ++gr) group_stats(gr, false);
+      if (n_out > 0) {
         const long o = ((long)n * d + c) * k2;
 #pragma unroll
         for (int j = 0; j < KCAP; ++j) {
-          if (j < n_out) {
-            if (top.i[j] >= nb) top.i[j] = 0;       // only an all-NaN vector picks none
-            if (bot.i[j] >= nb) bot.i[j] = 0;
+          if (j < n_out && nan) {                   // (NaN, nb): nothing taken out
+            sp_val[o + j] = sp_val[o + n_out + j] = CUDART_NAN_F;
+            sp_idx[o + j] = sp_idx[o + n_out + j] = nb;
+          } else if (j < n_out) {
             const int ti = top.i[j], bi = bot.i[j];
             sp_val[o + j] = xs[ti * d + c];
             sp_idx[o + j] = ti;
@@ -215,22 +249,6 @@ __global__ void __launch_bounds__(THREADS) gear_compress_kernel(
             mark(flag, bi * d + c);
           }
         }
-      }
-      for (int gr = 0; gr < nb / group; ++gr) {
-        float mn = INFINITY, mx = -INFINITY;
-#pragma unroll 8
-        for (int t = gr * group; t < (gr + 1) * group; ++t) {
-          const bool out = n_out > 0 && (top.has(t, n_out) || bot.has(t, n_out));
-          const float r = out ? 0.f : xs[t * d + c];
-          mn = fminf(mn, r);
-          mx = fmaxf(mx, r);
-        }
-        const float s = fmaxf(__fmul_rn(__fsub_rn(mx, mn), inv), 1e-8f);
-        const int si = gr * d + c;
-        s_scale[si] = s;
-        s_zero[si] = mn;
-        scale[(long)n * n_stat + si] = s;
-        zero[(long)n * n_stat + si] = mn;
       }
     }
   } else if (n_out > 0 || group == d) {
@@ -242,10 +260,12 @@ __global__ void __launch_bounds__(THREADS) gear_compress_kernel(
       Best<KCAP> top, bot;
       top.init();
       bot.init();
+      int nan = 0;                                     // the token holds a NaN
       if (t < nb && n_out > 0) {
         for (int qd = l8; qd < Q; qd += 8) {
           const float4 v = ld4(xs + t * d + 4 * qd);
           const int c = 4 * qd;
+          nan |= (v.x != v.x) | (v.y != v.y) | (v.z != v.z) | (v.w != v.w);
           top.push(v.x, c);
           bot.push(-v.x, c);
           top.push(v.y, c + 1);
@@ -256,24 +276,29 @@ __global__ void __launch_bounds__(THREADS) gear_compress_kernel(
           bot.push(-v.w, c + 3);
         }
       }
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) nan |= __shfl_xor_sync(FULL, nan, o);
       int sel_t[KCAP], sel_b[KCAP];                    // the token's outliers (every lane)
 #pragma unroll
       for (int j = 0; j < KCAP; ++j) {
         sel_t[j] = sel_b[j] = -1;
         if (j < n_out) {
-          int ti = pick(top), bi = pick(bot);
-          ti = ti < d ? ti : 0;                       // only an all-NaN vector picks none
-          bi = bi < d ? bi : 0;
-          sel_t[j] = ti;
-          sel_b[j] = bi;
-          if (t < nb && l8 == 0) {
-            const long o = ((long)n * nb + t) * k2;
-            sp_val[o + j] = xs[t * d + ti];
-            sp_idx[o + j] = ti;
-            sp_val[o + n_out + j] = xs[t * d + bi];
-            sp_idx[o + n_out + j] = bi;
-            mark(flag, t * d + ti);
-            mark(flag, t * d + bi);
+          const int ti = pick(top), bi = pick(bot);   // every lane, lists in step
+          const long o = ((long)n * nb + t) * k2;
+          if (nan && t < nb && l8 == 0) {             // (NaN, d): nothing taken out
+            sp_val[o + j] = sp_val[o + n_out + j] = CUDART_NAN_F;
+            sp_idx[o + j] = sp_idx[o + n_out + j] = d;
+          } else if (!nan) {
+            sel_t[j] = ti;
+            sel_b[j] = bi;
+            if (t < nb && l8 == 0) {
+              sp_val[o + j] = xs[t * d + ti];
+              sp_idx[o + j] = ti;
+              sp_val[o + n_out + j] = xs[t * d + bi];
+              sp_idx[o + n_out + j] = bi;
+              mark(flag, t * d + ti);
+              mark(flag, t * d + bi);
+            }
           }
         }
       }
@@ -289,18 +314,18 @@ __global__ void __launch_bounds__(THREADS) gear_compress_kernel(
 #pragma unroll
               for (int j = 0; j < KCAP; ++j) out |= sel_t[j] == 4 * qd + e || sel_b[j] == 4 * qd + e;
               const float r = out ? 0.f : va[e];
-              mn = fminf(mn, r);
-              mx = fmaxf(mx, r);
+              mn = min_nan(mn, r);
+              mx = max_nan(mx, r);
             }
           }
         }
 #pragma unroll
         for (int o = 4; o > 0; o >>= 1) {
-          mn = fminf(mn, __shfl_xor_sync(FULL, mn, o));
-          mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+          mn = min_nan(mn, __shfl_xor_sync(FULL, mn, o));
+          mx = max_nan(mx, __shfl_xor_sync(FULL, mx, o));
         }
         if (t < nb && l8 == 0) {
-          const float s = fmaxf(__fmul_rn(__fsub_rn(mx, mn), inv), 1e-8f);
+          const float s = quant_scale(mn, mx, inv);
           s_scale[t] = s;
           s_zero[t] = mn;
           scale[(long)n * n_stat + t] = s;
@@ -321,16 +346,16 @@ __global__ void __launch_bounds__(THREADS) gear_compress_kernel(
       for (int c = c0 + lane; c < c0 + group; c += 32) {
         const int b = t * d + c;
         const float r = (flag[b >> 5] >> (b & 31)) & 1u ? 0.f : xs[b];
-        mn = fminf(mn, r);
-        mx = fmaxf(mx, r);
+        mn = min_nan(mn, r);
+        mx = max_nan(mx, r);
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
-        mn = fminf(mn, __shfl_xor_sync(FULL, mn, o));
-        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+        mn = min_nan(mn, __shfl_xor_sync(FULL, mn, o));
+        mx = max_nan(mx, __shfl_xor_sync(FULL, mx, o));
       }
       if (lane == 0) {
-        const float s = fmaxf(__fmul_rn(__fsub_rn(mx, mn), inv), 1e-8f);
+        const float s = quant_scale(mn, mx, inv);
         s_scale[task] = s;
         s_zero[task] = mn;
         scale[(long)n * n_stat + task] = s;

@@ -3,8 +3,11 @@
 Port of ``repro.kernels.quant_pack.quant_pack`` (contract of
 ``ref.quant_pack_ref``): each ``[n, d]`` tile of ``x`` is quantized per
 column over its n rows (whole-column groups, the KCVT layout) and packed
-into int32 lanes, without integer codes ever reaching memory.  A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel or raises.
+into int32 lanes, without integer codes ever reaching memory.  The kernel
+equals the plain version bit for bit on every input: a column holding a
+NaN gets NaN zero and scale (and codes 0), as the reference's kernel gives,
+so the cache's numeric guard sees it.  A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations

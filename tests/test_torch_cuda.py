@@ -25,8 +25,9 @@ factored form's clamp lets y grow), also from an initial state
 ``linear_scan_chunked``'s two regimes also per row (2e-3 x max(1, max
 |row|) for every token of y and Dk row of the state): the step (chunk = 1,
 both modes, Dv 40) and chunk = S at S in {1, 63, 65, 129, 1152}, with two
-calls bitwise equal; ``quant_pack`` (through ``kernels.quantize_chunk``) bit for bit in packed
-codes, scale and zero.  Hymba's shapes are held too: ``gear_decode`` at
+calls bitwise equal, also on tiles with NaN (a NaN equal to any NaN); ``quant_pack``
+(through ``kernels.quantize_chunk``) bit for bit in packed codes, scale and zero, two calls
+bitwise equal, also on non-finite input (NaN, +-inf, an all-NaN tile).  Hymba's shapes are held too: ``gear_decode`` at
 G = 5, head_dim 64 and ``flash_prefill`` at kv_repeat 5, head_dim 64.
 
 The redesigned kernels, with the same tolerances: ``flash_prefill`` (TMA +
@@ -44,6 +45,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import cache  # noqa: E402
+from repro_torch.core import packing  # noqa: E402
 from repro_torch.core.policy import named_policy  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import gear_compress as gc  # noqa: E402
@@ -288,6 +290,45 @@ def test_gear_compress_kernel_matches_plain(dev, case):
         assert torch.equal(a, w.to(a.dtype)), f"{name} differs from the plain version"
 
 
+@pytest.mark.parametrize("kind", ["k", "v"])
+@pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
+def test_gear_compress_kernel_matches_plain_on_nan(dev, polname, kind):
+    """A K channel (V token) with more NaNs than its outlier count, one with
+    a single NaN, and an all-NaN tile, under both policies at the main
+    path's [64, 128] tiles: every output equals the plain version's, a NaN
+    equal to any NaN.  A vector that holds a NaN picks (NaN, its length) for
+    each outlier and takes nothing out (the reference's Pallas kernel), and
+    its groups get NaN stats.  Before the repair the plain version raised
+    (its scatter took index n) and the kernel dropped NaN, returning finite
+    stats."""
+    from repro_torch.core.outlier import outlier_count
+
+    pol = named_policy(polname)
+    scheme, group = pol.scheme_for(kind)
+    per_channel = scheme == "per_channel"
+    n_out = outlier_count(64 if per_channel else 128, pol.sparsity)
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(4, 64, 128, generator=g, device=dev).to(torch.bfloat16).float()
+    many = torch.arange(2 * n_out + 1, device=dev) * 5
+    if per_channel:
+        x[0, many, 7] = float("nan")
+        x[1, 30, 9] = float("nan")
+    else:
+        x[0, 7, many] = float("nan")
+        x[1, 30, 100] = float("nan")
+    x[2] = float("nan")
+    kw = dict(bits=pol.bits, scheme=scheme, group=group, n_out=n_out, stat_dtype=pol.stat_dtype)
+    got = gc.gear_compress(x, **kw)
+    want = gear_compress_ref(x, **kw)
+    names = ("packed", "scale", "zero", "sp_val", "sp_idx", "resid")
+    for name, a, w in zip(names, got, want):
+        assert nan_equal(a, w.to(a.dtype)), f"{name} differs from the plain version"
+    scale, sp_idx = got[1], got[4]
+    length = 64 if per_channel else 128              # channel 7 (token 7) of tile 0
+    assert torch.isnan(scale[0]).any() and torch.isnan(scale[2]).all()
+    assert bool((sp_idx[0, 7] == length).all()) and bool((sp_idx[3] < length).all())
+
+
 @pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
 def test_gear_decode_kernel_at_hymba_shape(dev, polname):
     """hymba-1.5b's decode: 5 KV heads with G = 5 query rows each, head_dim
@@ -458,13 +499,45 @@ def test_linear_scan_two_calls_are_bitwise_equal(dev, S, chunk, with_state):
 QP_SHAPES = [(448, 64, 128), (2, 16, 64), (1, 64, 256), (8, 32, 32), (3, 7, 48)]
 
 
+def nan_equal(a, b) -> bool:
+    """Bitwise equal, a NaN equal to any NaN (its payload and sign aside)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0), b.masked_fill(nb, 0))
+
+
+def non_finite(x):
+    """x with a NaN in column 0, +inf in column 1, -inf in column 2 and
+    both in column 4 of tile 0, and, when there is more than one tile, a
+    last tile that is all NaN."""
+    x = x.clone()
+    n = x.shape[1]
+    x[0, n // 2, 0] = float("nan")
+    x[0, 0, 1] = float("inf")
+    x[0, n - 1, 2] = -float("inf")
+    x[0, 0, 4], x[0, n - 1, 4] = float("inf"), -float("inf")
+    if x.shape[0] > 1:
+        x[-1] = float("nan")
+    return x
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("shape", QP_SHAPES, ids=["x".join(map(str, s)) for s in QP_SHAPES])
 def test_quant_pack_kernel_matches_plain_bit_for_bit(dev, shape, bits, dtype):
     """Through ``kernels.quantize_chunk``: the phase-5 tiles, the reference's
-    sweep shapes, and a width (48) that leaves a partial 32-column slab over
-    7 rows; a constant column takes the 1e-8 scale floor."""
+    sweep shapes, and a width (48) that is not a power of two over 7 rows; a
+    constant column takes the 1e-8 scale floor.  Two calls are bitwise
+    equal.  Then the non-finite input: NaN in one column, +inf, -inf and
+    both in others, an all-NaN tile; scale and zero are NaN exactly in the
+    NaN columns (as the reference's Pallas kernel gives,
+    ``tests/test_torch_quant_pack_redesign.py``), infinite in the +-inf
+    ones, and every code equals the plain version's.  The kernel before the
+    redesign fails this part: its fminf / fmaxf folds dropped the NaN and
+    returned the other rows' finite stats."""
     from repro_torch.kernels import quantize_chunk
 
     g = torch.Generator(device=dev).manual_seed(bits + shape[0])
@@ -476,6 +549,21 @@ def test_quant_pack_kernel_matches_plain_bit_for_bit(dev, shape, bits, dtype):
     for a, b in zip(got, quant_pack_ref(x, bits)):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert float(got[1][0, 3]) == pytest.approx(1e-8)
+    for a, b in zip(got, quantize_chunk(x, bits)):
+        assert torch.equal(a, b), "two calls differ"
+
+    xn = non_finite(x)
+    got = quantize_chunk(xn, bits)
+    want = quant_pack_ref(xn, bits)
+    for name, a, b in zip(("packed", "scale", "zero"), got, want):
+        assert nan_equal(a, b), f"{name} differs from the plain version on non-finite input"
+    packed, scale, zero = got
+    nan_cols = torch.isnan(xn.float()).any(dim=1)
+    assert torch.equal(torch.isnan(scale), nan_cols) and torch.equal(torch.isnan(zero), nan_cols)
+    assert float(scale[0, 1]) == float("inf") and float(zero[0, 2]) == -float("inf")
+    assert float(scale[0, 4]) == float("inf") and float(zero[0, 4]) == -float("inf")
+    codes = packing.unpack(packed, bits, shape[2])
+    assert int(codes[0, :, 0].abs().sum()) == 0
 
 
 def test_quant_pack_wrapper_rejects_what_the_kernel_does_not_take(dev):

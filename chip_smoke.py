@@ -54,7 +54,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bound and, where products run on the tensor cores, its TF32 bound, with
    the CUDA kernels one call launches (with ``--parent-scan``, an older
    ``linear_scan.cu`` is built too and timed in turns p1, c1, c2, p2 here
-   and at the live scans of phases 12-13);
+   and at the live scans of phases 13 and 15);
 9. ``quant_pack`` through its entry point ``repro_torch.kernels.quantize_chunk``
    on the 448 [64, 128] tiles of phase 5, at 2, 4 and 8 bits, f32 and bf16
    input: launches counted, packed codes, scale and zero bit for bit equal
@@ -86,7 +86,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
     yardstick; request 0's layer-0 history call as ``ms_history_per_layer``),
     and profiler windows cover one streaming prefill and 8 paged decode
     steps;
-12. serving, path 3: hymba-1.5b (GEAR attention beside Mamba-2 SSM heads)
+12. serving, path 5: the prefix trie, on phase 11's llama2-7b (all 32
+    layers) with ``prefill_mode="streaming", layout="paged",
+    prefix_cache=True`` (first, layer 0's row-wise products checked for
+    rows that do not depend on the row count): 8 requests sharing one 512-token system prompt,
+    each with its own user suffix of raw length 40-400 (numpy seed 0), over
+    a pool of 32 allocatable pages, small enough that the trie's retained
+    pages block the queue head on an idle engine; request 1 must hit all 8
+    system-prompt chunks, ``reclaim_pages`` must free pages at least once,
+    the pool check and the engine audit (with the trie's retained pages)
+    must pass, request 1's warm prefill must launch ``gear_compress`` only
+    for its suffix's closed chunks, one history launch and one
+    ``flash_prefill_block`` launch per layer and no ``flash_prefill``, and
+    the same requests on an engine without the trie must give the same
+    greedy tokens, and for request 1 the same prefill logits and pool
+    chunks bit for bit; request 1's layer-0 history call (extents from 512)
+    and ``flash_prefill_block`` call are held against their plain versions
+    and timed, cold and warm prefill times are printed, and a profiler
+    window covers one warm prefill;
+13. serving, path 3: hymba-1.5b (GEAR attention beside Mamba-2 SSM heads)
     at its 32 layers and published widths, random bf16 weights with the
     reference's SSM constants, the same 8 requests (ids from its vocab),
     monolithic prefill on the dense layout; the counters must show 32
@@ -95,7 +113,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
     chunk = 859) and decode step are held against their plain versions and
     timed, and profiler windows cover one unaligned prefill and 8 decode
     steps;
-13. serving, path 4: rwkv6-3b (attention-free RWKV6, no KV cache) at its 32
+14. serving, path 6: the same hymba-1.5b with streaming prefill (unbucketed,
+    as the reference serves a hybrid) on the dense layout, 16 new tokens per
+    request (cut from 96 for time); every prefill must launch 32
+    ``flash_prefill_block``, 32 history, 32 ``linear_scan_chunked`` and 64
+    ``gear_compress`` kernels and no ``flash_prefill``, every decode step 32
+    ``gear_decode``; the live layer-0 K and V ``gear_compress`` calls
+    (head_dim 64 tiles, bit for bit), ``flash_prefill_block`` call
+    (kv_repeat 5, head_dim 64) and history call (5 heads x 64 = 320 query
+    rows) are held against their plain versions and timed, and profiler
+    windows cover one prefill and 8 decode steps;
+15. serving, path 4: rwkv6-3b (attention-free RWKV6, no KV cache) at its 32
     layers and published widths, random bf16 weights with the reference's
     constants, the same 8 requests (ids from its vocab), monolithic prefill
     on the dense layout; the counters must show exactly 32
@@ -105,8 +133,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
     from the slots' states) are held against their plain versions and
     timed, and profiler windows cover one unaligned prefill and 8 decode
     steps;
-14. summary: one ``{"kernels": [...]}`` JSON line, the card's name and power
-    limit, and the final ``{"ok": true, "device": {...}}`` line.
+16. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
+    by path), the card's name and power limit, and the final
+    ``{"ok": true, "device": {...}}`` line.
 
 Kernel times come from ``time_ms``: the median over launches of CUDA
 events around one launch with a cold L2, behind a device-side wait that
@@ -1318,14 +1347,16 @@ def kernel_fns() -> dict:
             "linear_scan_chunked": lsk.linear_scan_chunked, "quant_pack": qp.quant_pack}
 
 
-def drive(eng, cfg, prompts: list, captures: list) -> dict:
+def drive(eng, cfg, prompts: list, captures: list, new_tokens: int = NEW_TOKENS,
+          keep: dict | None = None) -> dict:
     """Serve the 8 requests through ``Scheduler.run_continuous`` with every
-    launch counter set to 0 just before and read just after."""
+    launch counter set to 0 just before and read just after (``keep``, when
+    given, receives the results by rid)."""
     from repro_torch.serving.scheduler import Request, Scheduler
 
     sched = Scheduler(eng)
     for rid, toks in enumerate(prompts):
-        sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=NEW_TOKENS))
+        sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=new_tokens))
     fns = kernel_fns()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -1341,7 +1372,7 @@ def drive(eng, cfg, prompts: list, captures: list) -> dict:
             c.restore()
     stats = sched.last_stats
     peak = torch.cuda.max_memory_allocated()
-    if len(results) != N_REQUESTS or any(str(r.status) != "ok" or len(r.tokens) != NEW_TOKENS
+    if len(results) != N_REQUESTS or any(str(r.status) != "ok" or len(r.tokens) != new_tokens
                                          for r in results):
         fail(f"serving results: {[(r.rid, str(r.status), len(r.tokens)) for r in results]}")
     for r in results:
@@ -1350,6 +1381,8 @@ def drive(eng, cfg, prompts: list, captures: list) -> dict:
     for c in captures:
         if len(c.seen) != len(c.indices):
             fail(f"no live {c.name} call was captured (calls {c.indices} of {c.calls})")
+    if keep is not None:
+        keep["results"] = {r.rid: r for r in results}
     decode_tokens = sum(len(r.tokens) - 1 for r in results)
     summary = {
         "requests": len(results), "prompt_lengths": [len(p) for p in prompts],
@@ -1361,7 +1394,11 @@ def drive(eng, cfg, prompts: list, captures: list) -> dict:
         "page_wait_steps": stats["page_wait_steps"],
     }
     if "pool" in stats:
-        summary["pool"] = stats["pool"]
+        summary["pool"] = stats["pool"].as_dict()
+    if "prefix" in stats:
+        summary["prefix"] = stats["prefix"].as_dict()
+        for key in ("prefix_hit_rate", "prefill_toks_saved", "prefix_evictions"):
+            summary[key] = stats[key]
     print(f"  served {len(results)} requests, {decode_tokens} decode tokens in "
           f"{stats['decode_steps']} steps: decode {summary['decode_tok_per_s']:.1f} tok/s, "
           f"prefill ms/request {summary['prefill_ms_per_request']}, "
@@ -1537,7 +1574,7 @@ def serving_paged(model, params, cfg, layers: int, flush, reports: dict) -> dict
     rep["library_ms"] = None
 
     for name in ("gear_compress", "flash_prefill_block", "gear_decode_paged"):
-        reports[name]["launches"] = launches[name]
+        reports[name]["launches_by_path"] = {"streaming_paged": launches[name]}
     reports["gear_decode"]["launches_by_path"]["streaming_paged"] = launches["gear_decode"]
     summary["layers"] = layers
     profile(eng, cfg, HERE / "build" / "profile", "streaming_paged")
@@ -1646,14 +1683,307 @@ def serving_rwkv(model, params, cfg, layers: int, flush, reports: dict) -> dict:
     return summary
 
 
+PREFIX_SYSTEM = 512          # path 5: tokens of the shared system prompt (8 chunks)
+PREFIX_SUFFIX = (40, 400)    # path 5: raw length range of each request's own suffix
+# path 5's pool: two thirds of the dense-equivalent pages (48 allocatable, as
+# path 2) cannot force a reclaim, because the trie's byte budget (256 MiB,
+# 17 pages of 15.47 MB at full width) leaves 31 pages free on an idle engine
+# and no request needs more than 16.  Shrunk by a third, to 32 allocatable
+# pages, the trie's retained pages block the queue head on an idle engine
+# (the gate below fails unless a reclaim frees pages).
+PREFIX_POOL_PAGES = 33
+HYBRID_STREAM_TOKENS = 16    # path 6's budget per request, cut from 96 for time
+
+
+def prefix_requests(cfg) -> list:
+    """Path 5's traffic: one 512-token system prompt (8 chunks) shared by the
+    8 requests, each followed by its own user suffix of raw length 40-400,
+    all from numpy seed 0 (``bench_prefix.py``'s shared-prefix traffic at
+    the main path's scale)."""
+    rng = np.random.RandomState(0)
+    system = rng.randint(0, cfg.vocab_size, size=PREFIX_SYSTEM)
+    lengths = rng.randint(PREFIX_SUFFIX[0], PREFIX_SUFFIX[1] + 1, size=N_REQUESTS)
+    return [np.concatenate([system, rng.randint(0, cfg.vocab_size, size=n)]).astype(np.int32)
+            for n in lengths]
+
+
+def watch_prefills(eng, keep_index: int) -> dict:
+    """Wrap ``eng.prefill_slot``: per prefill (in admission order), the trie
+    chunks it hit, the kernel launches it made, its device-synchronized ms
+    and its logits; for the ``keep_index``-th prefill also its slot's
+    closed-chunk pool pages of every layer (copied)."""
+    from repro_torch.core.cache import POOLED_FIELDS
+
+    fns = kernel_fns()
+    real = eng.prefill_slot
+    nb = eng.ecfg.policy.buffer_size
+    rec = {"hits": [], "launches": [], "ms": [], "logits": []}
+
+    def wrapped(batch1, caches, slot, admit=True, reserve_tokens=None):
+        index = len(rec["ms"])
+        pc = eng.prefix_cache
+        h0 = pc.stats["hit_chunks"] if pc is not None else 0
+        l0 = {name: fn.launches for name, fn in fns.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = real(batch1, caches, slot, admit=admit, reserve_tokens=reserve_tokens)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["launches"].append({name: fn.launches - l0[name] for name, fn in fns.items()})
+        rec["hits"].append(pc.stats["hit_chunks"] - h0 if pc is not None else 0)
+        rec["logits"].append(logits.clone())
+        if index == keep_index:
+            n_closed = int(np.asarray(batch1["tokens"]).shape[1]) // nb
+            pages = torch.as_tensor(eng.pool.block_tables[slot, :n_closed].astype(np.int64),
+                                    device=DEV)
+            rec["chunks"] = [{f: t[pages].clone() for f, t in lyr.tensors().items()
+                              if f in POOLED_FIELDS} for lyr in caches]
+        return logits, caches
+
+    eng.prefill_slot = wrapped
+    return rec
+
+
+def row_count_check(params) -> dict:
+    """Layer 0's row-wise prefill products (``wo``, ``w_gate``, ``w_up``,
+    ``w_down``; bf16) on the card: the row counts M (64 to the capacity, by
+    64) at which a row of ``x[:, :M] @ W`` is not the same row of the
+    capacity-row product bit for bit, printed; and the gate: through
+    ``common.rowwise`` a suffix's rows equal the cold product's."""
+    from repro_torch.models.common import MIN_GEMM_ROWS, rowwise
+
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    out = {}
+    for name in ("wo", "w_gate", "w_up", "w_down"):
+        w = getattr(params.blocks[0], name)
+        x = torch.randn(1, CAP_SERVE, w.shape[0], generator=gen, device=DEV).to(torch.bfloat16)
+        cold = x @ w
+        out[name] = [m for m in range(64, CAP_SERVE + 1, 64)
+                     if not torch.equal(x[:, :m] @ w, cold[:, :m])]
+        suffixes = ((512, 576), (512, 832), (1088, 1152), (0, 64))
+        bad = [(lo, hi) for lo, hi in suffixes
+               if not torch.equal(rowwise(lambda t: t @ w, x[:, lo:hi]), cold[:, lo:hi])]
+        print(f"  row counts whose {name} {tuple(w.shape)} rows differ from the {CAP_SERVE}-row "
+              f"product's: {out[name]}; rowwise (>= {MIN_GEMM_ROWS} rows) suffixes "
+              f"{suffixes} equal the cold rows: {not bad}")
+        if bad:
+            fail(f"rowwise {name} rows of suffixes {bad} differ from the cold product's")
+    return out
+
+
+def serving_prefix(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 5: the prefix trie on the streaming + paged path (phase 11's
+    llama2-7b), against the same engine without it."""
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gear_decode_history_ref
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = named_policy("gear_kcvt4")
+    nb = pol.buffer_size
+    prompts = prefix_requests(cfg)
+
+    def engine(prefix_cache: bool):
+        return Engine(model, params, EngineConfig(
+            batch=B_SERVE, capacity=CAP_SERVE, policy=pol, prefill_mode="streaming",
+            layout="paged", pool_pages=PREFIX_POOL_PAGES, prefix_cache=prefix_cache), device=DEV)
+
+    rows_differ = row_count_check(params)
+    warm = engine(True)
+    print(f"  raw prompt lengths {[len(p) for p in prompts]} ({PREFIX_SYSTEM}-token system "
+          f"prompt + suffix); pool: {PREFIX_POOL_PAGES - 1} allocatable pages of "
+          f"{warm._page_bytes / 1e6:.3f} MB (path 2: {B_SERVE * (CAP_SERVE // nb) * 2 // 3}); "
+          f"trie budget {warm.ecfg.prefix_cache_bytes / 2**20:.0f} MiB = "
+          f"{warm.ecfg.prefix_cache_bytes // warm._page_bytes} pages")
+    reclaims = []
+    real_reclaim = warm.reclaim_pages
+    warm.reclaim_pages = lambda n: reclaims.append((n, real_reclaim(n))) or reclaims[-1][1]
+    rec = watch_prefills(warm, keep_index=1)
+    # request 1, layer 0: its K compression event and its in-flight and
+    # history calls (request 0 made 2 x 32, 32 and 32 of them before)
+    caps = {"gear_compress": Capture(cache_lib, "gear_compress", 2 * layers),
+            "flash_prefill_block": Capture(ops, "flash_prefill_block", layers),
+            "gear_decode": Capture(ops, "gear_decode_history", layers)}
+    kept = {}
+    summary = drive(warm, cfg, prompts, list(caps.values()), keep=kept)
+    launches, steps = summary["launches"], summary["decode_steps"]
+    print(f"  hits per request (admission order): {rec['hits']}; hit rate "
+          f"{summary['prefix_hit_rate']:.4f}, prefill tokens saved "
+          f"{summary['prefill_toks_saved']}, trie evictions {summary['prefix_evictions']}; "
+          f"reclaims (pages asked, freed) {reclaims}; {summary['waited_for_pages']} requests "
+          f"waited for pages over {summary['page_wait_steps']} decode steps")
+    if rec["hits"][1] != PREFIX_SYSTEM // nb:
+        fail(f"request 1 hit {rec['hits'][1]} chunks, not the system prompt's {PREFIX_SYSTEM // nb}")
+    if not any(freed > 0 for _, freed in reclaims):
+        fail(f"reclaim_pages never freed a page ({reclaims}); the pool is not small enough")
+    warm.pool.check()
+    audit = warm.audit()
+    if not audit["ok"]:
+        fail(f"engine audit: {audit['issues'][:5]}")
+    print(f"  pool check and engine audit pass with {len(warm.prefix_cache.live_handles())} "
+          f"pages retained by the trie; pool {summary['pool']}")
+    n1 = len(prompts[1])
+    suffix_closed = n1 // nb - rec["hits"][1]
+    hit_l = rec["launches"][1]
+    want = {"gear_decode": layers, "flash_prefill_block": layers, "flash_prefill": 0,
+            "gear_compress": 2 * layers if suffix_closed else 0, "gear_decode_paged": 0}
+    got = {name: hit_l[name] for name in want}
+    print(f"  request 1's warm prefill ({n1} tokens, {rec['hits'][1]} chunks hit, "
+          f"{suffix_closed} closed by its suffix) launched {got}")
+    if got != want:
+        fail(f"launches of request 1's warm prefill {got} != {want}")
+    (x, *_), kw = caps["gear_compress"].seen[caps["gear_compress"].index]
+    if kw["scheme"] != "per_channel" or x.shape[0] != cfg.num_kv_heads * suffix_closed:
+        fail(f"request 1's layer-0 K event compressed {x.shape[0]} tiles, not "
+             f"{cfg.num_kv_heads} heads x {suffix_closed} suffix chunks")
+    if launches["gear_decode_paged"] < steps * layers or launches["flash_prefill"]:
+        fail(f"gear_decode_paged launches {launches['gear_decode_paged']} < {steps} steps x "
+             f"{layers}, or flash_prefill launched ({launches['flash_prefill']})")
+
+    c = caps["gear_decode"]
+    rep = reports["gear_decode"]
+    ext = [int(e) for e in c.args[7]]
+    print(f"  live history call (request 1, layer 0): q {tuple(c.args[0].shape)}, extents {ext}")
+    if ext[0] != PREFIX_SYSTEM:
+        fail(f"request 1's first suffix block sees {ext[0]} history tokens, not {PREFIX_SYSTEM}")
+    BH, NB, R, _ = c.args[0].shape
+    rep["ms_history_prefix"], rep["plain_ms_history_prefix"], rep["bound_ms_history_prefix"], _ = (
+        live_check(c, gear_decode_history_ref, f"gear_decode_history live warm layer-0 history "
+                   f"({NB} suffix blocks x {R} query rows over a {ext[0]}-token cached prefix)",
+                   flush, rep, history_call_bytes_flops, ops_rate=BF16_FLOPS))
+    c = caps["flash_prefill_block"]
+    row = block_check(c.real, c.args, c.kwargs, "flash_prefill_block live warm layer-0 blocks "
+                      f"(request 1's {c.args[0].shape[0] // cfg.num_heads} suffix blocks)", flush,
+                      reports["flash_prefill_block"], library=True)
+    reports["flash_prefill_block"].update(
+        ms_prefix=row["ms_c1"], plain_ms_prefix=row["plain_ms"], bound_ms_prefix=row["bound_ms"],
+        library_ms_prefix=row["library_ms"])
+
+    # warm == cold: the same requests without the trie
+    cold = engine(False)
+    rec_c = watch_prefills(cold, keep_index=1)
+    kept_c = {}
+    summary_c = drive(cold, cfg, prompts, [], keep=kept_c)
+    diff = [rid for rid in kept["results"] if not np.array_equal(
+        kept["results"][rid].tokens, kept_c["results"][rid].tokens)]
+    logits_diff = [rid for rid in range(N_REQUESTS)
+                   if not torch.equal(rec["logits"][rid], rec_c["logits"][rid])]
+    same_logits = 1 not in logits_diff
+    same_chunks = all(torch.equal(a[f], b[f]) for a, b in zip(rec["chunks"], rec_c["chunks"])
+                      for f in a)
+    print(f"  warm vs cold engine: greedy tokens differ for rids {diff}, prefill logits for rids "
+          f"{logits_diff}; request 1's prefill logits bitwise equal {same_logits}; its "
+          f"{n1 // nb} closed chunks of all {layers} layers gathered from the pool bitwise "
+          f"equal {same_chunks}")
+    if diff or not same_logits or not same_chunks:
+        fail("the prefix-cache engine differs from the cold engine (ROADMAP §3)")
+    print(f"  prefill ms per request (admission order), warm engine: "
+          f"{[round(t, 1) for t in rec['ms']]} (request 0 cold); cold engine: "
+          f"{[round(t, 1) for t in rec_c['ms']]}")
+    summary.update(prefill_ms_warm_engine=rec["ms"][:N_REQUESTS],
+                   prefill_ms_cold_engine=rec_c["ms"], hits_per_request=rec["hits"][:N_REQUESTS],
+                   reclaims=list(reclaims),
+                   cold_decode_tok_per_s=summary_c["decode_tok_per_s"],
+                   launches_warm_prefill_request1=hit_l, layers=layers,
+                   gemm_rows_differ=rows_differ)
+    for name in ("gear_decode", "flash_prefill_block", "gear_compress", "gear_decode_paged"):
+        reports[name]["launches_by_path"]["prefix_paged"] = launches[name]
+    profile_warm(warm, prompts, HERE / "build" / "profile", "prefix_paged")
+    return summary
+
+
+def serving_hybrid_streaming(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 6: hymba-1.5b with streaming prefill on the dense layout."""
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gear_decode_history_ref
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = named_policy("gear_kcvt4")
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=CAP_SERVE, policy=pol,
+                                             prefill_mode="streaming"), device=DEV)
+    if eng._can_bucket:
+        fail("the hybrid engine buckets its prompts; the reference prefills a hybrid unbucketed")
+    prompts = requests(cfg)
+    # request 0, layer 0: the K (call 0) and the V (call 1) compression event
+    # at head_dim 64, its in-flight blocks and its history call
+    caps = {"gear_compress": Capture(cache_lib, "gear_compress", 0, 1),
+            "flash_prefill_block": Capture(ops, "flash_prefill_block", 0),
+            "gear_decode": Capture(ops, "gear_decode_history", 0)}
+    rec = watch_prefills(eng, keep_index=-1)
+    summary = drive(eng, cfg, prompts, list(caps.values()), new_tokens=HYBRID_STREAM_TOKENS)
+    launches, steps = summary["launches"], summary["decode_steps"]
+    want = {"flash_prefill_block": layers, "gear_decode": layers, "linear_scan_chunked": layers,
+            "flash_prefill": 0, "gear_compress": 2 * layers}
+    for i, got_all in enumerate(rec["launches"]):
+        got = {name: got_all[name] for name in want}
+        if got != want:
+            fail(f"hybrid streaming prefill {i} launched {got} != {want}")
+    if launches["gear_decode"] != (N_REQUESTS + steps) * layers:
+        fail(f"gear_decode launches {launches['gear_decode']} != (8 prefills + {steps} steps) x "
+             f"{layers}: one history launch per prefill layer, one decode launch per step layer")
+    print(f"  per prefill: {want}; per decode step: {layers} gear_decode "
+          f"({launches['gear_decode']} = (8 + {steps}) x {layers})")
+    c = caps["gear_compress"]
+    rep = reports["gear_compress"]
+    for index, kind, scheme in ((0, "K", "per_channel"), (1, "V", "per_token")):
+        (x, *_), kw = c.seen[index]
+        print(f"  live hymba gear_compress {kind} call: {tuple(x.shape)} tiles, {kw}")
+        if kw["scheme"] != scheme or x.shape[-1] != cfg.head_dim:
+            fail(f"hymba gear_compress call {index} is not the {kind} event at head_dim "
+                 f"{cfg.head_dim} ({kw['scheme']}, {tuple(x.shape)})")
+        label = f"live hymba layer-0 {kind} event (head_dim {x.shape[-1]})"
+        compress_check(x, kw, label, rep)
+        row = compress_time(x, kw, label, flush, rep)
+        suffix = "_hymba_k" if kind == "K" else "_hymba_v"
+        rep.update({f"ms{suffix}": row["ms_c1"], f"plain_ms{suffix}": row["plain_ms"],
+                    f"bound_ms{suffix}": row["bound_ms"]})
+    c = caps["flash_prefill_block"]
+    print(f"  live flash_prefill_block call: q {tuple(c.args[0].shape)}, kv_repeat "
+          f"{c.kwargs['kv_repeat']}")
+    row = block_check(c.real, c.args, c.kwargs, "flash_prefill_block live hymba layer-0 blocks "
+                      f"(kv_repeat {c.kwargs['kv_repeat']}, Dh {c.args[0].shape[-1]})", flush,
+                      reports["flash_prefill_block"], library=True)
+    reports["flash_prefill_block"].update(
+        ms_hymba=row["ms_c1"], plain_ms_hymba=row["plain_ms"], bound_ms_hymba=row["bound_ms"],
+        library_ms_hymba=row["library_ms"])
+    c = caps["gear_decode"]
+    BH, NB, R, Dh = c.args[0].shape
+    print(f"  live hymba history call: q {tuple(c.args[0].shape)} ({R} query rows = "
+          f"{cfg.num_heads // cfg.num_kv_heads} heads x 64), extents {list(c.args[7])}")
+    rep = reports["gear_decode"]
+    (rep["ms_history_hymba"], rep["plain_ms_history_hymba"], rep["bound_ms_history_hymba"],
+     _) = live_check(c, gear_decode_history_ref, f"gear_decode_history live hymba layer-0 "
+                     f"history ({NB} blocks x {R} query rows, Dh {Dh})", flush, rep,
+                     history_call_bytes_flops,
+                     rows_of=lambda a: (torch.as_tensor(list(a[7]), device=DEV) > 0)[
+                         None, :, None].expand(BH, NB, R), ops_rate=BF16_FLOPS)
+    for name in ("flash_prefill_block", "gear_decode", "linear_scan_chunked", "gear_compress"):
+        reports[name]["launches_by_path"]["hybrid_streaming"] = launches[name]
+    summary.update(layers=layers, prefill_ms_by_admission=rec["ms"][:N_REQUESTS])
+    profile(eng, cfg, HERE / "build" / "profile", "hybrid_streaming", prompt_len=659)
+    return summary
+
+
+def profile_warm(eng, prompts: list, out_dir: pathlib.Path, tag: str) -> None:
+    """A ``torch.profiler`` window over one warm prefill: a new view (fresh
+    pool and trie), request 0 seeds the trie, and request 1's prefill (its
+    system prompt hit) runs in the window."""
+    view = eng.new_view()
+    view.prefill_slot({"tokens": prompts[0][None]}, 0, reserve_tokens=len(prompts[0]))
+    torch.cuda.synchronize()
+    profile_window(lambda: view.prefill_slot({"tokens": prompts[1][None]}, 1,
+                                             reserve_tokens=len(prompts[1])),
+                   out_dir, tag, "warm_prefill")
+
+
 def profile(eng, cfg, out_dir: pathlib.Path, tag: str, prompt_len: int = 640) -> None:
     """Where the time goes: ``torch.profiler`` over one ``prompt_len``-token
     prefill and over 8 decode steps of 4 live slots (after warm-up).  Prints
     each window's wall time, device-busy share (summed kernel time / wall)
     and top operators by device time; full tables go to ``out_dir``."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
     rng = np.random.RandomState(1)
     view = eng.new_view()
     prompts = [rng.randint(0, cfg.vocab_size, size=prompt_len).astype(np.int32)[None]
@@ -1667,33 +1997,40 @@ def profile(eng, cfg, out_dir: pathlib.Path, tag: str, prompt_len: int = 640) ->
         view.decode({"tokens": tok}, pos)
         pos += 1
     torch.cuda.synchronize()
+    profile_window(lambda: view.prefill_slot({"tokens": prompts[0]}, 0, reserve_tokens=reserve),
+                   out_dir, tag, "prefill")
+    profile_window(lambda: [view.decode({"tokens": tok}, pos + i) for i in range(8)],
+                   out_dir, tag, "decode")
+
+
+def profile_window(fn, out_dir: pathlib.Path, tag: str, name: str) -> None:
+    """One ``torch.profiler`` window over ``fn``: its wall time, device-busy
+    share (summed kernel time / wall), launches and top operators by device
+    and host time; the full table goes to ``out_dir``."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
     out_dir.mkdir(parents=True, exist_ok=True)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    windows = {
-        "prefill": lambda: view.prefill_slot({"tokens": prompts[0]}, 0, reserve_tokens=reserve),
-        "decode": lambda: [view.decode({"tokens": tok}, pos + i) for i in range(8)],
-    }
-    for name, fn in windows.items():
-        with torch_profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e6
-        n_launch = sum(e.count for e in kernels)
-        (out_dir / f"profile_{tag}_{name}.txt").write_text(
-            events.table(sort_by="self_device_time_total", row_limit=40) + "\n"
-            + events.table(sort_by="cpu_time_total", row_limit=40))
-        print(f"  profile {tag} {name}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
-              f"({100 * busy / wall:.1f}%), {n_launch} kernel launches, profiler on")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"    {e.key[:70]:70s} {e.self_device_time_total / 1e3:9.3f} ms x{e.count}")
-        for e in sorted(events, key=lambda e: -e.cpu_time_total)[:12]:
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                print(f"    host {e.key[:65]:65s} {e.cpu_time_total / 1e3:9.3f} ms x{e.count}")
-    print(f"  profiler tables in {out_dir}")
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    n_launch = sum(e.count for e in kernels)
+    (out_dir / f"profile_{tag}_{name}.txt").write_text(
+        events.table(sort_by="self_device_time_total", row_limit=40) + "\n"
+        + events.table(sort_by="cpu_time_total", row_limit=40))
+    print(f"  profile {tag} {name}: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+          f"({100 * busy / wall:.1f}%), {n_launch} kernel launches, profiler on")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.key[:70]:70s} {e.self_device_time_total / 1e3:9.3f} ms x{e.count}")
+    for e in sorted(events, key=lambda e: -e.cpu_time_total)[:12]:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            print(f"    host {e.key[:65]:65s} {e.cpu_time_total / 1e3:9.3f} ms x{e.count}")
+    print(f"  profiler table in {out_dir / f'profile_{tag}_{name}.txt'}")
 
 
 def main() -> int:
@@ -1750,25 +2087,25 @@ def main() -> int:
     reports = {
         "gear_decode": {"name": "gear_decode", "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/gear_decode.cu",
-                        "replaces": "src/repro/kernels/gear_decode.py:138"},
+                        "replaces": "src/repro/kernels/gear_decode.py:183"},
         "flash_prefill": {"name": "flash_prefill", "route": "cuda",
                           "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
-                          "replaces": "src/repro/kernels/flash_prefill.py:80"},
+                          "replaces": "src/repro/kernels/flash_prefill.py:101"},
         "gear_compress": {"name": "gear_compress", "route": "cuda",
                           "source": "src/repro_torch/kernels/csrc/gear_compress.cu",
-                          "replaces": "src/repro/kernels/gear_compress.py:128"},
+                          "replaces": "src/repro/kernels/gear_compress.py:174"},
         "flash_prefill_block": {"name": "flash_prefill_block", "route": "cuda",
                                 "source": "src/repro_torch/kernels/csrc/flash_prefill_block.cu",
-                                "replaces": "src/repro/kernels/flash_prefill.py:145"},
+                                "replaces": "src/repro/kernels/flash_prefill.py:160"},
         "gear_decode_paged": {"name": "gear_decode_paged", "route": "cuda",
                               "source": "src/repro_torch/kernels/csrc/gear_decode_paged.cu",
-                              "replaces": "src/repro/kernels/gear_decode.py:219"},
+                              "replaces": "src/repro/kernels/gear_decode.py:316"},
         "linear_scan_chunked": {"name": "linear_scan_chunked", "route": "cuda",
                                 "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
-                                "replaces": "src/repro/kernels/linear_scan_kernel.py:77"},
+                                "replaces": "src/repro/kernels/linear_scan_kernel.py:94"},
         "quant_pack": {"name": "quant_pack", "route": "cuda",
                        "source": "src/repro_torch/kernels/csrc/quant_pack.cu",
-                       "replaces": "src/repro/kernels/quant_pack.py:42"},
+                       "replaces": "src/repro/kernels/quant_pack.py:53"},
     }
     print("[3] gear_decode vs plain")
     for pol in ("gear_kcvt4", "gear_kivi2"):
@@ -1814,7 +2151,9 @@ def main() -> int:
     for phase, key, layers, fn, title in (
             (10, "monolithic_dense", args.layers, serving, "monolithic prefill, dense layout"),
             (11, "streaming_paged", full.num_layers, serving_paged,
-             "streaming prefill, paged pool")):
+             "streaming prefill, paged pool"),
+            (12, "prefix_paged", full.num_layers, serving_prefix,
+             "streaming prefill, paged pool, prefix trie")):
         print(f"[{phase}] serving llama2-7b, gear_kcvt4, {title}, depth {layers}"
               + ("" if layers == full.num_layers else
                  f" (cut from {full.num_layers} by --layers)"))
@@ -1825,24 +2164,30 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     hymba = get_config("hymba-1.5b")
-    print(f"[12] serving hymba-1.5b, gear_kcvt4, monolithic prefill, dense layout, depth "
+    print(f"[13] serving hymba-1.5b, gear_kcvt4, monolithic prefill, dense layout, depth "
           f"{hymba.num_layers}")
-    summaries["hybrid_dense"] = serving_hybrid(*build(hymba, hymba.num_layers),
-                                               hymba.num_layers, flush, reports)
+    built_hymba = build(hymba, hymba.num_layers)
+    summaries["hybrid_dense"] = serving_hybrid(*built_hymba, hymba.num_layers, flush, reports)
+    print(f"[14] serving hymba-1.5b, gear_kcvt4, streaming prefill (unbucketed), dense layout, "
+          f"depth {hymba.num_layers}, {HYBRID_STREAM_TOKENS} new tokens per request")
+    summaries["hybrid_streaming"] = serving_hybrid_streaming(*built_hymba, hymba.num_layers,
+                                                             flush, reports)
+    del built_hymba
     gc.collect()                          # free hymba before rwkv6-3b's peak is read
     torch.cuda.empty_cache()
 
     rwkv6 = get_config("rwkv6-3b")
-    print(f"[13] serving rwkv6-3b, monolithic prefill, dense layout (no KV cache), depth "
+    print(f"[15] serving rwkv6-3b, monolithic prefill, dense layout (no KV cache), depth "
           f"{rwkv6.num_layers}; {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before")
     summaries["rwkv_dense"] = serving_rwkv(*build(rwkv6, rwkv6.num_layers), rwkv6.num_layers,
                                            flush, reports)
 
-    print("[14] summary")
+    print("[16] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    for name in ("gear_decode", "flash_prefill", "linear_scan_chunked"):
-        reports[name]["launches"] = sum(reports[name]["launches_by_path"].values())
+    for rep in reports.values():
+        if "launches_by_path" in rep:
+            rep["launches"] = sum(rep["launches_by_path"].values())
     kernels = []
     for rep in reports.values():
         row = {("max_abs_err" if k == "err" else k): rep[k] for k in keys}

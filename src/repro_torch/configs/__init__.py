@@ -2,7 +2,7 @@
 
 Only the architectures the port serves are registered (llama2-7b, the
 hybrid hymba-1.5b and the attention-free rwkv6-3b); the reference's other
-families arrive with ROADMAP queue item 10.
+families arrive with ROADMAP queue item 8.
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ capacity, C = S / n_b, r = policy.rank, per = 32 // bits):
 stores K in the V layout.)  Where the reference returns a new pytree, the
 port writes into the cache's tensors in place and returns the same object;
 each such write says so.  FP16 and sliding-window caches are not ported yet
-(ROADMAP queue item 10).
+(ROADMAP queue item 7).
 
 Two more ways in and one more layout come from the reference:
 
@@ -56,7 +56,7 @@ __all__ = [
     "streaming_supported", "chunk_prefix_view", "streaming_prefill_layer_cache",
     "PagedGEARLayerCache", "BlockTables", "POOLED_FIELDS", "paged_supported",
     "page_field_shapes", "page_nbytes", "init_paged_layer_cache", "paged_to_dense",
-    "extract_prefix_chunks", "gather_pool_chunks", "scatter_pool_chunks",
+    "extract_prefix_chunks", "splice_prefix_chunks", "gather_pool_chunks", "scatter_pool_chunks",
     "zero_pool_pages", "append_token_paged",
 ]
 
@@ -84,7 +84,7 @@ class CacheConfig:
         if self.kind != "gear":
             raise NotImplementedError(
                 f"cache kind {self.kind!r} is not ported yet (ROADMAP queue "
-                "item 10: FP16/window caches)")
+                "item 7: FP16/window caches)")
         if self.capacity % self.chunk:
             raise ValueError(f"capacity {self.capacity} not a multiple of chunk {self.chunk}")
 
@@ -242,7 +242,7 @@ def _compress_chunks_fused(cfg: CacheConfig, k: torch.Tensor, v: torch.Tensor,
         vec_len = nb if scheme == "per_channel" else Dh
         n_out = outlier_count(vec_len, pol.sparsity) if pol.use_sparse else 0
         packed, scale, zero, spv, spi, resid = gear_compress(
-            x.reshape(B * H * C, nb, Dh), bits=pol.bits, scheme=scheme, group=group,
+            x.reshape(B * H * C, nb, Dh).contiguous(), bits=pol.bits, scheme=scheme, group=group,
             n_out=n_out, stat_dtype=pol.stat_dtype)
         lead = (B, H, C)
         out[f"{name}_packed"] = packed.reshape(lead + tuple(packed.shape[1:]))
@@ -394,8 +394,8 @@ def chunk_prefix_view(cfg: CacheConfig, cache: GEARLayerCache, n_chunks: int) ->
 
 
 def streaming_prefill_pipeline(cfg: CacheConfig, cache: GEARLayerCache, n: int, q_heads: int,
-                               project, scale: float, *, tail_is_padded: bool = False,
-                               true_n: int | None = None):
+                               project, scale: float, *, start_chunk: int = 0,
+                               tail_is_padded: bool = False, true_n: int | None = None):
     """Shared body of the streaming chunked prefill (port of the
     reference's ``streaming_prefill_pipeline``).
 
@@ -413,6 +413,16 @@ def streaming_prefill_pipeline(cfg: CacheConfig, cache: GEARLayerCache, n: int, 
     through one ``ops.gear_attend_block`` call.  The cache equals
     :func:`prefill_layer_cache`'s bit for bit; the attention output sees
     the history compressed, as decode does.
+
+    ``start_chunk`` > 0 runs the same pipeline as a **suffix** over a cache
+    whose first ``start_chunk`` chunks are already filled (spliced from the
+    prefix cache): ``project`` covers the suffix's ``n`` tokens, new chunks
+    are stored from chunk ``start_chunk``, every block sees the cached
+    chunks as compressed history (its extent is offset by ``start_chunk *
+    n_b``; no other change, no other kernel), and the final length covers
+    prefix + suffix.  Each block's history and in-flight attention is
+    computed on its own, so a suffix block's output equals the cold run's
+    block over the same tokens bit for bit.
 
     ``tail_is_padded`` is the length-bucketing hook: ``n`` is then a chunk
     multiple whose last ``n_b`` block is a right-padded tail holding
@@ -437,8 +447,10 @@ def streaming_prefill_pipeline(cfg: CacheConfig, cache: GEARLayerCache, n: int, 
     n_full = C_new * nb
     rem = n - n_full
     n_real = n if true_n is None else int(true_n)
-    if n_real > cfg.capacity:
-        raise ValueError(f"prefill of {n_real} tokens exceeds capacity {cfg.capacity}")
+    t_pre = start_chunk * nb                   # cached prefix tokens
+    if t_pre + n_real > cfg.capacity:
+        raise ValueError(f"prefill of {t_pre} cached + {n_real} tokens exceeds capacity "
+                         f"{cfg.capacity}")
     n_blk = C_new + (1 if rem else 0)
     dev = cache.length.device
     kt = torch.empty((B, H, n_blk, nb, Dh), dtype=f32, device=dev)
@@ -458,30 +470,33 @@ def streaming_prefill_pipeline(cfg: CacheConfig, cache: GEARLayerCache, n: int, 
         qt[:, :, C_new, :, rem:] = 0.0
     if C_new:
         comp = _compress_chunks_fused(cfg, kt[:, :, :C_new], vt[:, :, :C_new], cfg.policy.rank)
-        _store_chunks(cfg, cache, comp, slice(None), C_new, 0)
+        _store_chunks(cfg, cache, comp, slice(None), C_new, start_chunk)
     # every block, the tail too, in one ops.gear_attend_block call
-    out = ops.gear_attend_block(cfg, cache, qt, kt, vt, [c * nb for c in range(n_blk)],
+    out = ops.gear_attend_block(cfg, cache, qt, kt, vt,
+                                [t_pre + c * nb for c in range(n_blk)],
                                 [nb] * C_new + ([rem] if rem else []), scale)
     # [B, H, NB, G, nb, Dh] -> [B, Hq, NB * nb, Dh], cut to n
     out = out.permute(0, 1, 3, 2, 4, 5).reshape(B, q_heads, n_blk * nb, Dh)[:, :, :n]
     if rem:
         cache.buf_k[:, :, :rem] = k_t.to(cache.buf_k.dtype)
         cache.buf_v[:, :, :rem] = v_t.to(cache.buf_v.dtype)
-    cache.length.fill_(n_real)
+    cache.length.fill_(t_pre + n_real)
     return cache, out.to(q_c.dtype)
 
 
 def streaming_prefill_layer_cache(cfg: CacheConfig, cache: GEARLayerCache, q: torch.Tensor,
                                   k: torch.Tensor, v: torch.Tensor, scale: float, *,
-                                  tail_is_padded: bool = False, true_n: int | None = None):
+                                  start_chunk: int = 0, tail_is_padded: bool = False,
+                                  true_n: int | None = None):
     """Streaming chunked prefill over precomputed q [B, Hq, n, Dh] and k, v
     [B, H, n, Dh], sliced per chunk into :func:`streaming_prefill_pipeline`
-    (the model layer instead projects per chunk).  Returns (cache,
-    out [B, Hq, n, Dh] in q's dtype)."""
+    (the model layer instead projects per chunk); ``start_chunk`` > 0 treats
+    them as the suffix after that many filled chunks of ``cache``.  Returns
+    (cache, out [B, Hq, n, Dh] in q's dtype)."""
     return streaming_prefill_pipeline(
         cfg, cache, q.shape[2], q.shape[1],
         lambda t0, t1: (q[:, :, t0:t1], k[:, :, t0:t1], v[:, :, t0:t1]), scale,
-        tail_is_padded=tail_is_padded, true_n=true_n)
+        start_chunk=start_chunk, tail_is_padded=tail_is_padded, true_n=true_n)
 
 
 # ---------------------------------------------------------------------------
@@ -599,19 +614,38 @@ def _chunk_row_axes(cfg: CacheConfig) -> dict:
     return spec
 
 
-def extract_prefix_chunks(cfg: CacheConfig, cache: GEARLayerCache,
-                          n_chunks: int) -> list[dict]:
-    """Per-chunk payload dicts (views) of the first ``n_chunks`` chunks of a
-    dense cache, batch axis kept."""
+def extract_prefix_chunks(cfg: CacheConfig, cache: GEARLayerCache, n_chunks: int,
+                          start_chunk: int = 0) -> list[dict]:
+    """Per-chunk payload dicts (views) of chunks ``[start_chunk, start_chunk
+    + n_chunks)`` of a dense cache, batch axis kept: every compressed field
+    of one chunk, what :func:`splice_prefix_chunks` needs to reproduce it in
+    any slot of a same-geometry cache.  Buffer and length are not part of
+    a chunk."""
     spec = _chunk_row_axes(cfg)
     out = []
-    for c in range(n_chunks):
+    for c in range(start_chunk, start_chunk + n_chunks):
         payload = {}
         for field, (rpc, ax) in spec.items():
             arr = getattr(cache, field)
             payload[field] = arr.narrow(arr.dim() + ax, c * rpc, rpc)
         out.append(payload)
     return out
+
+
+def splice_prefix_chunks(cfg: CacheConfig, cache: GEARLayerCache, slot: int,
+                         chunks: list[dict], start_chunk: int = 0) -> GEARLayerCache:
+    """Write per-chunk payloads (:func:`extract_prefix_chunks` layout, batch-1
+    axis) into batch row ``slot`` of ``cache`` as chunks ``[start_chunk,
+    start_chunk + len(chunks))``, in place.  ``length`` is left to the
+    caller (a suffix prefill sets it to prefix + suffix)."""
+    if not chunks:
+        return cache
+    for field, (rpc, ax) in _chunk_row_axes(cfg).items():
+        dst = getattr(cache, field)[slot]
+        row_axis = dst.dim() + ax
+        seg = torch.cat([ch[field][0] for ch in chunks], dim=row_axis)
+        dst.narrow(row_axis, start_chunk * rpc, len(chunks) * rpc).copy_(seg)
+    return cache
 
 
 def paged_supported(cfg: CacheConfig) -> bool:

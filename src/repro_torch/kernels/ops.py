@@ -109,7 +109,7 @@ def _attend_decode(cfg: CacheConfig, cache, q: torch.Tensor, scale: float, block
     if not streaming_supported(cfg):       # the gear_decode layout
         raise NotImplementedError(
             "this cache layout needs the portable attend path (fused='off'), "
-            "not ported yet (ROADMAP queue item 3)")
+            "not ported yet (ROADMAP queue item 7)")
     pol = cfg.policy
     B, Hq, Dh = q.shape
     H = cfg.kv_heads
@@ -184,7 +184,7 @@ def gear_attend_block(cfg: CacheConfig, cache: GEARLayerCache, q: torch.Tensor,
     else:
         lens = (torch.tensor(blk_len, dtype=torch.int32) if q.device.type == "cpu"
                 else device_extents(tuple(int(n) for n in blk_len), q.device))
-        kv_len = lens.view(1, NB, 1).expand(BH, NB, G).reshape(-1)
+        kv_len = lens.view(1, NB, 1).expand(BH, NB, G).reshape(-1).contiguous()
     acc_b, m_b, l_b = flash_prefill_block(q_blk, k_blk, v_blk, kv_len, scale=scale,
                                           kv_repeat=G)
     acc_b = acc_b.reshape(B, H, NB, G, T, Dh)

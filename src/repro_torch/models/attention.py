@@ -15,7 +15,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cache as cache_lib
 from repro_torch.kernels import ops
-from repro_torch.models.common import rotate
+from repro_torch.models.common import rotate, rowwise
 
 __all__ = ["attention_prefill", "streaming_prefill_supported", "attention_prefill_streaming",
            "attention_decode"]
@@ -63,28 +63,40 @@ def streaming_prefill_supported(cfg: ModelConfig, cache_cfg: cache_lib.CacheConf
 
 
 def attention_prefill_streaming(cfg: ModelConfig, layer, x: torch.Tensor, rope,
-                                cache_cfg: cache_lib.CacheConfig, *, padded_tail: bool = False,
+                                cache_cfg: cache_lib.CacheConfig, *, cache=None,
+                                start_pos: int = 0, padded_tail: bool = False,
                                 true_len: int | None = None):
     """Streaming prefill of one attention layer: Q/K/V are projected one
     chunk at a time, so the full-sequence FP16 K/V never exists; every
     closed chunk is compressed in one fused event, and each chunk's queries
     attend the compressed history before it plus the chunk itself
     (:func:`repro_torch.core.cache.streaming_prefill_pipeline`).
-    ``padded_tail`` / ``true_len`` take the length-bucketed path.  Returns
-    (out [B, S, d], layer cache)."""
+
+    ``start_pos`` > 0 is the suffix entry (prefix cache): ``x`` and ``rope``
+    cover only the tokens after a chunk-aligned cached prefix, ``cache``
+    holds the ``start_pos / n_b`` prefix chunks already spliced in, and the
+    new chunks are stored after them.  ``padded_tail`` / ``true_len`` take
+    the length-bucketed path (``true_len`` counts this call's tokens).
+    Returns (out [B, S, d], layer cache)."""
     B, S, _ = x.shape
+    nb = cache_cfg.chunk
+    if start_pos % nb:
+        raise ValueError(f"start_pos {start_pos} not aligned to chunk {nb}")
+    if padded_tail and S % nb:
+        raise ValueError(f"padded_tail needs S % n_b == 0 (S={S}, n_b={nb})")
     cos, sin = rope
 
     def project(t0: int, t1: int):
         q, k, v = _project_qkv(cfg, layer, x[:, t0:t1], (cos[t0:t1], sin[t0:t1]))
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
-    cache = cache_lib.init_layer_cache(cache_cfg, torch.bfloat16, x.device)
+    if cache is None:
+        cache = cache_lib.init_layer_cache(cache_cfg, torch.bfloat16, x.device)
     cache, out = cache_lib.streaming_prefill_pipeline(
         cache_cfg, cache, S, cfg.num_heads, project, cfg.head_dim ** -0.5,
-        tail_is_padded=padded_tail, true_n=true_len)
+        start_chunk=start_pos // nb, tail_is_padded=padded_tail, true_n=true_len)
     out = out.transpose(1, 2).reshape(B, S, cfg.q_dim).to(x.dtype)
-    return out @ layer.wo, cache
+    return rowwise(lambda o: o @ layer.wo, out), cache
 
 
 def attention_decode(cfg: ModelConfig, layer, x_t: torch.Tensor, rope, cache,

@@ -6,7 +6,16 @@ from __future__ import annotations
 import torch
 
 __all__ = ["resolve_device", "rmsnorm", "layernorm", "silu", "rope_freqs", "rope_tables",
-           "rotate", "apply_rope"]
+           "rotate", "apply_rope", "MIN_GEMM_ROWS", "rowwise"]
+
+# cuBLAS chooses a GEMM's kernel, and with it the order of its sums, by the
+# row count: on the H100 a token's row of a 64-row [64, 11008] x [11008,
+# 4096] bf16 product differs in its last bits from the same row inside 128
+# or more rows (every count from 128 to 1152 gives the same bits).  The
+# streaming prefill runs its row-wise products on at least this many rows,
+# so a token's activations do not depend on how many tokens share its
+# prefill: a one-chunk prefix-cache suffix equals the cold prefill bit for bit.
+MIN_GEMM_ROWS = 128
 
 
 def resolve_device(device=None) -> torch.device:
@@ -20,6 +29,15 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def rowwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for a row-wise ``fn`` of x [B, S, d], run on at least
+    ``MIN_GEMM_ROWS`` rows: zero rows are appended and their outputs dropped."""
+    S = x.shape[1]
+    if S >= MIN_GEMM_ROWS:
+        return fn(x)
+    return fn(torch.nn.functional.pad(x, (0, 0, 0, MIN_GEMM_ROWS - S)))[:, :S]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

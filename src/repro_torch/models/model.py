@@ -44,6 +44,26 @@ class Model:
                                    padded_tail, true_len)
 
     @torch.inference_mode()
+    def prefill_suffix(self, params: tfm.Transformer, batch: dict, caches: list, start_pos: int,
+                       policy: CompressionPolicy, capacity: int, padded_tail: bool = False,
+                       true_len: int | None = None):
+        """Suffix prefill over a cache tree holding a chunk-aligned prefix.
+
+        ``batch`` covers only the tokens after the cached prefix; ``caches``
+        is a batch-1 tree whose first ``start_pos / n_b`` chunks were spliced
+        from the prefix cache (:func:`repro_torch.core.cache.splice_prefix_chunks`).
+        The streaming pipeline runs on the suffix with the prefix visible as
+        compressed history, writing into ``caches`` in place: the engine's
+        prefix-cache hit path.  The cache and last-position logits equal a
+        cold streaming prefill of prefix + suffix bit for bit.
+        ``padded_tail`` / ``true_len`` bucket the suffix as :meth:`prefill`
+        does; ``true_len`` counts the suffix's real tokens.  Returns
+        (logits [B, 1, V], caches)."""
+        tokens = torch.as_tensor(batch["tokens"], device=params.device)
+        return tfm.forward_prefill(params, tokens, policy, capacity, "streaming", padded_tail,
+                                   true_len, start_pos=start_pos, init_caches=caches)
+
+    @torch.inference_mode()
     def decode_step(self, params: tfm.Transformer, token_batch: dict, caches, pos,
                     policy: CompressionPolicy, capacity: int, lengths=None, block_tables=None):
         """One decode step; ``pos`` is a scalar or a per-slot [B] vector of

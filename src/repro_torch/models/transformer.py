@@ -28,7 +28,7 @@ from repro_torch.core.policy import CompressionPolicy
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import layernorm, resolve_device, rmsnorm, rope_tables
+from repro_torch.models.common import layernorm, resolve_device, rmsnorm, rope_tables, rowwise
 from repro_torch.models.mlp import mlp_apply
 
 __all__ = ["COMPUTE_DTYPE", "Block", "RWKVBlock", "Transformer", "check_supported",
@@ -43,23 +43,17 @@ def is_hybrid(cfg: ModelConfig) -> bool:
     return cfg.ssm and cfg.hybrid_parallel
 
 
-def check_serving(cfg: ModelConfig, layout: str = "dense",
-                  prefill_mode: str = "monolithic") -> None:
-    """Raise for a cache layout or prefill mode this model cannot take: a
-    hybrid serves dense and monolithic only, an RWKV6 model dense only (the
-    paged reasons are the reference's own; an RWKV6 model's streaming
-    prefill is its monolithic one, unbucketed, as in the reference)."""
+def check_serving(cfg: ModelConfig, layout: str = "dense") -> None:
+    """Raise for a cache layout this model cannot take, with the reference's
+    reasons: a hybrid and an RWKV6 model serve on the dense layout only (a
+    hybrid takes either prefill mode, unbucketed; an RWKV6 model's streaming
+    prefill is its monolithic one, as in the reference)."""
     if cfg.rwkv and layout == "paged":
         raise ValueError("paged layout: no GEAR-compressible attention layer in "
                          f"pattern {cfg.layer_pattern!r}")
-    if not is_hybrid(cfg):
-        return
-    if layout == "paged":
+    if is_hybrid(cfg) and layout == "paged":
         raise NotImplementedError("hybrid SSM recurrent state is not chunk-decomposable; "
                                   "serve it with layout='dense'")
-    if prefill_mode == "streaming":
-        raise NotImplementedError("streaming prefill of a hybrid SSM model is not ported yet "
-                                  "(ROADMAP queue item 10: hybrid streaming prefill)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -75,7 +69,7 @@ def check_supported(cfg: ModelConfig) -> None:
             or cfg.norm != "rmsnorm"):
         raise NotImplementedError(
             f"{cfg.name}: only dense or hybrid (parallel SSM) global-attention RMSNorm/SwiGLU "
-            "text decoders and RWKV6 are ported (other families: ROADMAP queue item 10)")
+            "text decoders and RWKV6 are ported (other families: ROADMAP queue item 8)")
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
@@ -201,7 +195,7 @@ def init_caches(cfg: ModelConfig, policy: CompressionPolicy, batch: int, capacit
         return [rwkv_lib.init_rwkv_state(cfg, batch, dtype, device)
                 for _ in range(cfg.num_layers)]
     if policy.is_fp16:
-        raise NotImplementedError("fp16 caches are not ported yet (ROADMAP queue item 10)")
+        raise NotImplementedError("fp16 caches are not ported yet (ROADMAP queue item 7)")
     check_serving(cfg, layout=layout)
     ccfg = cache_cfg_for(cfg, policy, batch, capacity)
     if layout == "paged":
@@ -226,7 +220,7 @@ def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
 
 def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: CompressionPolicy,
                     capacity: int, prefill_mode: str = "monolithic", padded_tail: bool = False,
-                    true_len: int | None = None):
+                    true_len: int | None = None, start_pos: int = 0, init_caches=None):
     """Prefill of ``tokens`` [B, S].  Returns (logits [B, 1, V] of the last
     real position, one filled layer cache per layer).
 
@@ -234,22 +228,31 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
     compression event per layer.  ``"streaming"``: each layer compresses its
     closed chunks first and attends the history in compressed form (a layer
     that cannot stream falls back to monolithic); both build the same
-    caches.  ``padded_tail`` / ``true_len`` (streaming only) are the
-    length-bucketing hooks: ``tokens`` is right-padded to a chunk multiple,
-    the padded block stays out of compression, lengths and the returned
-    logits come from position ``true_len - 1``.  An RWKV6 model runs its
-    blocks over the whole prompt in either mode (no compression, no
-    bucketing: a padded tail would enter its recurrent state)."""
+    caches.  A hybrid's streaming layer runs attention through the streaming
+    pipeline and its SSM heads on the whole normed input beside it, as the
+    reference does.
+
+    ``start_pos`` > 0 is the suffix entry of the prefix cache (streaming
+    only): ``tokens`` are the tokens after a chunk-aligned cached prefix,
+    ``init_caches`` the per-layer caches with the prefix chunks spliced in,
+    and positions start at ``start_pos``.  ``padded_tail`` / ``true_len``
+    (streaming only) are the length-bucketing hooks: ``tokens`` is
+    right-padded to a chunk multiple, the padded block stays out of
+    compression, lengths and the returned logits come from position
+    ``true_len - 1`` of this call's tokens.  Neither a suffix nor a padded
+    tail can resume a recurrent state, so both raise for RWKV6 and hybrid
+    models (which therefore prefill unbucketed), as in the reference."""
     if prefill_mode not in ("monolithic", "streaming"):
         raise ValueError(f"prefill_mode must be monolithic/streaming, got {prefill_mode!r}")
+    if start_pos and prefill_mode != "streaming":
+        raise ValueError("start_pos > 0 requires prefill_mode='streaming'")
     if padded_tail and prefill_mode != "streaming":
         raise ValueError("padded_tail requires prefill_mode='streaming'")
     cfg = model.cfg
-    check_serving(cfg, prefill_mode=prefill_mode)
+    if cfg.rwkv and (start_pos or padded_tail):
+        raise ValueError("suffix/bucketed prefill cannot resume an RWKV state")
     x = embed_tokens(model, tokens)
     if cfg.rwkv:
-        if padded_tail:
-            raise ValueError("suffix/bucketed prefill cannot resume an RWKV state")
         caches = []
         for blk in model.blocks:
             h, (shift_tm, wkv) = rwkv_lib.time_mix_apply(cfg, blk, blk.ln1(x))
@@ -261,18 +264,24 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
         return logits_from_hidden(model, rmsnorm(x, model.final_norm)[:, -1:, :]), caches
     hybrid = is_hybrid(cfg)
     B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    positions = torch.arange(start_pos, start_pos + S, dtype=torch.int32, device=x.device)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     ccfg = cache_cfg_for(cfg, policy, B, capacity)
     stream = prefill_mode == "streaming" and attn_lib.streaming_prefill_supported(cfg, ccfg)
-    if padded_tail and not stream:
-        raise ValueError("bucketed prefill needs every layer to support streaming")
+    if (start_pos or padded_tail) and not stream:
+        raise ValueError("suffix/bucketed prefill requires every layer to support the "
+                         "streaming pipeline (kind='global' does not)")
+    if hybrid and (start_pos or padded_tail):
+        raise ValueError("suffix/bucketed prefill cannot resume a hybrid SSM state")
+    if init_caches is not None and len(init_caches) != len(model.blocks):
+        raise ValueError(f"{len(init_caches)} initial caches for {len(model.blocks)} layers")
     caches = []
-    for blk in model.blocks:
+    for i, blk in enumerate(model.blocks):
         xin = rmsnorm(x, blk.ln1)
         if stream:
             h, cache = attn_lib.attention_prefill_streaming(
-                cfg, blk, xin, rope, ccfg, padded_tail=padded_tail, true_len=true_len)
+                cfg, blk, xin, rope, ccfg, start_pos=start_pos, padded_tail=padded_tail,
+                true_len=true_len, cache=None if init_caches is None else init_caches[i])
         else:
             h, (k, v) = attn_lib.attention_prefill(cfg, blk, xin, rope)
             cache = cache_lib.prefill_layer_cache(
@@ -282,7 +291,8 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
             h = (h + h2) * 0.5
             cache = (cache, ssm_state)
         x = x + h
-        x = x + mlp_apply(blk, rmsnorm(x, blk.ln2))
+        xin2 = rmsnorm(x, blk.ln2)
+        x = x + (rowwise(lambda t: mlp_apply(blk, t), xin2) if stream else mlp_apply(blk, xin2))
         caches.append(cache)
     x = rmsnorm(x, model.final_norm)
     last = S if true_len is None else int(true_len)

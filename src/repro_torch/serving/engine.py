@@ -1,10 +1,10 @@
 """Serving engine: prefill + GEAR-cached decode on one device.
 
 Port of ``repro.serving.engine.Engine`` with ``fused="auto"`` (the CUDA
-kernels on a card, their plain versions for CPU tensors), no prefix cache
-and no telemetry.  ``prefill_mode`` is "monolithic" or "streaming";
-``layout`` is "dense" or "paged".  Other values raise
-``NotImplementedError`` naming the ROADMAP queue item that brings them.
+kernels on a card, their plain versions for CPU tensors) and no telemetry.
+``prefill_mode`` is "monolithic" or "streaming"; ``layout`` is "dense" or
+"paged".  Other values raise ``NotImplementedError`` naming the ROADMAP
+queue item that brings them.
 
 * Streaming prefill length-buckets a raw prompt to the next ``n_b``
   multiple: the padded tail lands in the FP16 buffer, never in a
@@ -13,8 +13,16 @@ and no telemetry.  ``prefill_mode`` is "monolithic" or "streaming";
   (:mod:`repro_torch.serving.pagedpool`): a request reserves the pages of
   its own lifetime at admission, before any device work, and the block
   table goes to the device once per admission or release.
-* A hybrid model (hymba: SSM heads beside attention) serves monolithic
-  prefill on the dense layout only, unbucketed, as in the reference: its
+* The prefix cache (``prefix_cache=True``, streaming prefill only): a
+  radix trie over compressed chunks (:mod:`repro_torch.prefixcache`).
+  ``prefill_slot`` splices the longest cached chunk-aligned prefix of the
+  raw prompt into a batch-1 tree and streams only the suffix over it, bit
+  for bit what the cold prefill computes; the prompt's newly closed chunks
+  then enter the trie.  On the paged layout the trie's payloads are pool
+  page ids: a hit shares the pages by refcount, the suffix prefill gathers
+  them into its scaffold, and no page is ever copied.
+* A hybrid model (hymba: SSM heads beside attention) serves either prefill
+  mode on the dense layout only, unbucketed, as in the reference: its
   per-layer cache is the pair (GEAR cache, SSM state), which the slot
   protocol and the numeric guard cover.
 * An RWKV6 model has no KV cache: its per-layer cache is the recurrent
@@ -41,10 +49,11 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import cache_cfg_for, check_serving
-from repro_torch.serving.pagedpool import PagePool, pages_needed
+from repro_torch.prefixcache import PrefixCache, extract_tree_chunks, splice_tree_chunks
+from repro_torch.serving.pagedpool import PagePool, PagePoolStore, pages_needed
 from repro_torch.serving.views import DenseCacheView, PagedCacheView
 
-__all__ = ["EngineConfig", "Engine"]
+__all__ = ["EngineConfig", "Engine", "prefix_cache_unsupported_reason"]
 
 _CHOICES = {
     "fused": ("auto", "interpret", "off"),
@@ -52,9 +61,9 @@ _CHOICES = {
     "layout": ("dense", "paged"),
 }
 _NOT_PORTED = {
-    ("fused", "off"): "the portable attend path (ROADMAP queue item 3)",
+    ("fused", "off"): "the portable attend path (ROADMAP queue item 7)",
     ("fused", "interpret"): "the Pallas interpret lane; CUDA has no interpret mode "
-                            "(CPU tensors take the plain versions; ROADMAP queue item 3)",
+                            "(CPU tensors take the plain versions; ROADMAP queue item 7)",
 }
 
 
@@ -68,7 +77,14 @@ class EngineConfig:
     eos_id: int = -1               # -1: never stop early
     fused: str = "auto"
     prefill_mode: str = "monolithic"
+    # the radix trie over compressed chunks (streaming prefill only), its
+    # eviction byte budget, TTL in seconds from insert (0: never; hits do
+    # not refresh it) and budget-pressure victim policy ("lru" / "lfu");
+    # Engine.set_params invalidates every cached chunk on a weight swap
     prefix_cache: bool = False
+    prefix_cache_bytes: int = 256 << 20
+    prefix_cache_ttl: float = 0.0
+    prefix_cache_eviction: str = "lru"
     numeric_guard: bool = True
     layout: str = "dense"
     # paged pool size in pages, the zero page included; 0 gives
@@ -84,16 +100,48 @@ class EngineConfig:
             if (knob, value) in _NOT_PORTED:
                 raise NotImplementedError(f"{knob}={value!r}: {_NOT_PORTED[knob, value]}")
             object.__setattr__(self, knob, value)
-        if self.prefix_cache:
-            raise NotImplementedError("prefix_cache: the prefix trie (ROADMAP queue item 7)")
+        if self.prefix_cache and self.prefill_mode != "streaming":
+            raise ValueError(
+                "prefix_cache requires prefill_mode='streaming': the hit "
+                "path attends the cached prefix in compressed form, so only "
+                "streaming cold prefills are bit-identical to warm ones")
+        if self.prefix_cache_eviction not in ("lru", "lfu"):
+            raise ValueError("prefix_cache_eviction must be 'lru' or 'lfu', got "
+                             f"{self.prefix_cache_eviction!r}")
+        if self.prefix_cache_ttl < 0:
+            raise ValueError(f"prefix_cache_ttl must be >= 0, got {self.prefix_cache_ttl}")
+        if (self.prefix_cache_ttl or self.prefix_cache_eviction != "lru") and not self.prefix_cache:
+            raise ValueError("prefix_cache_ttl / prefix_cache_eviction require prefix_cache=True")
         if self.obs:
-            raise NotImplementedError("obs: serving telemetry (ROADMAP queue item 9)")
+            raise NotImplementedError("obs: serving telemetry (ROADMAP queue item 6)")
         if self.layout == "dense" and self.pool_pages:
             raise ValueError("pool_pages only applies to layout='paged'")
 
 
+def prefix_cache_unsupported_reason(cfg, policy: CompressionPolicy,
+                                    capacity: int) -> str | None:
+    """Why this model and policy cannot take the prefix cache (None: it can),
+    in the reference's words.  The hit path replays a cached chunk-aligned
+    prefix as compressed history under the streaming suffix pipeline, so
+    every layer must keep all its prefill state in spliceable GEAR chunks
+    and take the streaming prefill.  An engine whose model and policy can
+    take it also length-buckets its streaming prefills."""
+    if policy.is_fp16:
+        return "fp16 policy has no compressed chunks to cache"
+    if cfg.modality != "text":
+        return f"modality {cfg.modality!r} (prompt is not a flat token-id sequence)"
+    if cfg.ssm and cfg.hybrid_parallel:
+        return "hybrid SSM state is not chunk-decomposable"
+    for kind in cfg.layer_pattern:
+        if kind == "rwkv":
+            return "rwkv layers carry recurrent state, not spliceable chunks"
+        if not attn_lib.streaming_prefill_supported(cfg, cache_cfg_for(cfg, policy, 1, capacity)):
+            return f"layer kind {kind!r} does not support the streaming prefill pipeline"
+    return None
+
+
 class Engine:
-    def __init__(self, model: Model, params, ecfg: EngineConfig, device=None):
+    def __init__(self, model: Model, params, ecfg: EngineConfig, device=None, clock=None):
         self.device = resolve_device(device)
         if params.device != self.device:
             raise ValueError(f"weights live on {params.device}, engine device is {self.device}")
@@ -101,23 +149,34 @@ class Engine:
         self.cfg = model.cfg
         self.ecfg = ecfg
         self.params = params
-        # the GEAR attention layers' cache config; None when there are none
+        # injectable monotonic clock of the prefix cache's TTL (tests pass a
+        # fake one); None is real time
+        self._clock = clock
+        self.weight_version = 0
+        reason = prefix_cache_unsupported_reason(self.cfg, ecfg.policy, self._cap())
+        if ecfg.prefix_cache and reason is not None:
+            raise ValueError(f"prefix_cache unsupported here: {reason}")
+        # the GEAR attention layers' cache config (and its batch-1 twin, the
+        # geometry of one request's prefill); None when there are none
         self._ccfg = (None if self.cfg.rwkv else
                       cache_cfg_for(self.cfg, ecfg.policy, ecfg.batch, self._cap()))
+        self._ccfg1 = None if self._ccfg is None else dataclasses.replace(self._ccfg, batch=1)
         if self._ccfg is not None and not cache_lib.streaming_supported(self._ccfg):
             raise NotImplementedError(                       # the gear_decode layout
                 f"policy {ecfg.policy} needs the portable attend path "
-                "(ROADMAP queue item 3)")
-        check_serving(self.cfg, ecfg.layout, ecfg.prefill_mode)    # before any device work
-        # bucketing rides the streaming padded-tail path, so every layer must
-        # take it (one geometry for all layers in the ported models); a
-        # hybrid never buckets (the reference's prefix_cache_unsupported_reason)
-        self._can_bucket = (ecfg.prefill_mode == "streaming" and self._ccfg is not None
-                            and attn_lib.streaming_prefill_supported(self.cfg, self._ccfg))
+                "(ROADMAP queue item 7)")
+        check_serving(self.cfg, ecfg.layout)    # before any device work
+        # bucketing rides the streaming padded-tail path, so it is gated on
+        # the prefix cache's predicate, as in the reference: a hybrid or an
+        # RWKV6 model prefills at the exact raw length
+        self._can_bucket = ecfg.prefill_mode == "streaming" and reason is None
         self.pool = None
         self.block_tables = None
+        self.prefix_cache = None
         if ecfg.layout == "paged":
             self._init_paged()
+        if ecfg.prefix_cache:
+            self._new_prefix_cache()
 
     def _cap(self) -> int:
         nb = self.ecfg.policy.buffer_size
@@ -134,9 +193,8 @@ class Engine:
     def _init_paged(self) -> None:
         ecfg = self.ecfg
         self._n_chunks = self._cap() // ecfg.policy.buffer_size
-        ccfg1 = dataclasses.replace(self._ccfg, batch=1)
         # one page is one chunk of every layer
-        self._page_bytes = self.cfg.num_layers * cache_lib.page_nbytes(ccfg1)
+        self._page_bytes = self.cfg.num_layers * cache_lib.page_nbytes(self._ccfg1)
         n_pages = ecfg.pool_pages or ecfg.batch * self._n_chunks + 1
         if n_pages < 2:
             raise ValueError(f"pool of {n_pages} pages cannot hold page 0 + one chunk")
@@ -144,8 +202,20 @@ class Engine:
         self._new_pool()
 
     def _new_pool(self) -> None:
+        """A fresh allocator and device block table (and, since the trie's
+        payloads are page ids of the pool being dropped, a fresh trie)."""
         self.pool = PagePool(self._n_pages, self.ecfg.batch, self._n_chunks, self._page_bytes)
         self._push_block_tables()
+        if self.prefix_cache is not None:
+            self._new_prefix_cache()
+
+    def _new_prefix_cache(self) -> None:
+        ecfg = self.ecfg
+        self.prefix_cache = PrefixCache(
+            ecfg.policy.buffer_size, ecfg.prefix_cache_bytes,
+            store=PagePoolStore(self.pool) if ecfg.layout == "paged" else None,
+            ttl=ecfg.prefix_cache_ttl, eviction=ecfg.prefix_cache_eviction, clock=self._clock,
+            validate=ecfg.numeric_guard)
 
     def _push_block_tables(self) -> None:
         """Copy the pool's host block tables to the device: at admission and
@@ -187,53 +257,190 @@ class Engine:
                                       self.ecfg.policy, self._cap(),
                                       block_tables=self.block_tables)
 
-    def prefill_slot(self, batch1: dict, caches: list, slot: int,
+    def prefill_slot(self, batch1: dict, caches: list, slot: int, admit: bool = True,
                      reserve_tokens: int | None = None):
         """Prefill ONE request (batch-1, raw prompt) and splice it into
         ``slot`` of ``caches`` (in place).  Returns (logits [1, 1, V], caches).
         The batch-1 prefill is what a solo run computes, so the request
         decodes as it would alone.
 
+        With the prefix cache, the trie is asked first: the longest cached
+        chunk-aligned prefix of the raw prompt (leaving at least one suffix
+        token, whose logits give the first token) is spliced into a batch-1
+        tree and only the suffix runs streaming prefill, bucketed the same
+        way, bit for bit the cold result.  ``admit`` (the scheduler's
+        admission policy) inserts the prompt's newly closed chunks into the
+        trie afterwards; only full chunks of real tokens close, so pad
+        tokens never enter it.
+
         Paged: the slot first reserves its lifetime's pages
-        (``reserve_tokens``, default the full capacity) and raises
+        (``reserve_tokens``, default the full capacity), the hit's pages
+        shared by refcount, and raises
         :class:`~repro_torch.serving.pagedpool.PoolExhausted`, with no device
-        work done, when the pool cannot cover it."""
+        work done, when the pool cannot cover the rest."""
         if self.ecfg.layout == "paged":
-            return self._prefill_slot_paged(batch1, caches, slot, reserve_tokens)
-        logits, one = self._cold_prefill(batch1)
-        one = self._guard_one(one)
-        for full, one_layer in zip(caches, one):
-            cache_lib.splice_slot(full, one_layer, slot)
+            return self._prefill_slot_paged(batch1, caches, slot, admit, reserve_tokens)
+
+        def commit(one, n_hit, _):
+            for full, one_layer in zip(caches, one):
+                cache_lib.splice_slot(full, one_layer, slot)
+
+        logits = self._prefill_via_trie(
+            batch1, admit, commit,
+            scaffold=lambda hit: splice_tree_chunks(self._ccfg1, self._fresh_batch1(), 0, hit),
+            payloads=lambda one, lo, hi: extract_tree_chunks(self._ccfg1, one, lo, hi))
         return logits, caches
 
-    def _prefill_slot_paged(self, batch1, caches, slot, reserve_tokens):
+    def _prefill_via_trie(self, batch1: dict, admit: bool, commit, scaffold, payloads,
+                          reserve=lambda hit: None, abort=lambda: None):
+        """The prefix-cache protocol both layouts share.  Match the raw
+        prompt's longest cached chunk-aligned prefix (leaving at least one
+        suffix token); ``reserve(hit payloads)`` (paged: the slot's pages);
+        the suffix prefill over ``scaffold(hit payloads)`` on a hit, else the
+        cold prefill, then the numeric guard (``abort()`` undoes the
+        reservation when either raises); ``commit(one, n_hit, reservation)``
+        writes the batch-1 tree into the layout; with ``admit``, the
+        prompt's newly closed chunks go into the trie as
+        ``payloads(one, n_hit, n_closed)``.  The match is released on every
+        exit.  Returns the logits."""
+        tokens = np.asarray(batch1["tokens"])[0]
+        nb = self.ecfg.policy.buffer_size
+        n = int(tokens.shape[0])
+        match, n_hit, hit = None, 0, []
+        if self.prefix_cache is not None:
+            match = self.prefix_cache.match(tokens, max_chunks=max((n - 1) // nb, 0))
+            n_hit, hit = match.n_chunks, match.payloads
+        try:
+            reservation = reserve(hit)
+            try:
+                if n_hit:
+                    logits, one = self._prefill_suffix(tokens, n_hit, scaffold(hit))
+                else:
+                    logits, one = self._cold_prefill(batch1)
+                one = self._guard_one(one)
+            except BaseException:
+                abort()
+                raise
+            commit(one, n_hit, reservation)
+            if self.prefix_cache is not None and admit and n // nb > n_hit:
+                self.prefix_cache.insert(tokens, payloads(one, n_hit, n // nb),
+                                         start_chunk=n_hit)
+        finally:
+            if match is not None:
+                self.prefix_cache.release(match)
+        return logits
+
+    def _fresh_batch1(self) -> list:
+        """An empty batch-1 cache tree for a suffix prefill's scaffold (the
+        pipeline writes into it in place, so each hit takes a new one)."""
+        return self.model.init_caches(self.ecfg.policy, 1, self._cap(), self.device)
+
+    def _prefill_suffix(self, tokens: np.ndarray, n_hit: int, one1: list):
+        """Run the (bucketed, when unaligned) suffix after an ``n_hit``-chunk
+        hit over the batch-1 scaffold ``one1``."""
+        ecfg = self.ecfg
+        nb = ecfg.policy.buffer_size
+        suf = torch.as_tensor(np.asarray(tokens[n_hit * nb:], np.int32))[None]
+        n_suf = suf.shape[1]
+        start = n_hit * nb
+        if n_suf % nb == 0:
+            return self.model.prefill_suffix(self.params, {"tokens": suf}, one1, start,
+                                             ecfg.policy, self._cap())
+        padded = torch.nn.functional.pad(suf, (0, -n_suf % nb))
+        return self.model.prefill_suffix(self.params, {"tokens": padded}, one1, start,
+                                         ecfg.policy, self._cap(), padded_tail=True,
+                                         true_len=n_suf)
+
+    def _prefill_slot_paged(self, batch1, caches, slot, admit, reserve_tokens):
         nb = self.ecfg.policy.buffer_size
         cap = self._cap()
         plen = int(np.asarray(batch1["tokens"]).shape[1])
-        n_closed = plen // nb
-        reserve = cap if reserve_tokens is None else min(int(reserve_tokens), cap)
-        n_total = max(pages_needed(max(reserve, plen), nb), n_closed)
-        if self.pool.slot_pages(slot).size:       # splicing over a live slot drops it
-            self.pool.release_slot(slot)
-        fresh = self.pool.admit(slot, n_total)    # host-side first: no device work on failure
-        try:
-            logits, one = self._cold_prefill(batch1)
-            one = self._guard_one(one)
-        except BaseException:
+        n_closed = plen // nb                     # chunks the prompt closes
+        reserve_n = cap if reserve_tokens is None else min(int(reserve_tokens), cap)
+        n_total = max(pages_needed(max(reserve_n, plen), nb), n_closed)
+
+        def reserve(hit):
+            if self.pool.slot_pages(slot).size:   # splicing over a live slot drops it
+                self.pool.release_slot(slot)
+            # host-side reservation first: no device work on failure; the
+            # hit's payloads ARE page ids, shared by refcount
+            return self.pool.admit(slot, n_total, shared=[int(p) for p in hit])
+
+        def abort():
             self.pool.release_slot(slot)
             self._push_block_tables()
-            raise
-        pages = torch.from_numpy(fresh.astype(np.int64)).to(self.device)
-        zero_pages, sc_pages = pages[n_closed:], pages[:n_closed]
-        ccfg1 = dataclasses.replace(self._ccfg, batch=1)
-        for lyr, one_lyr in zip(caches, one):
-            cache_lib.zero_pool_pages(ccfg1, lyr, zero_pages)
-            cache_lib.scatter_pool_chunks(
-                ccfg1, lyr, sc_pages, cache_lib.extract_prefix_chunks(ccfg1, one_lyr, n_closed))
-            for name in ("buf_k", "buf_v", "length"):
-                getattr(lyr, name)[slot].copy_(getattr(one_lyr, name)[0])
-        self._push_block_tables()
+
+        def commit(one, n_hit, fresh):
+            # only the fresh pages are written: the reserved ones zeroed, the
+            # first n_sc given the suffix's closed chunks; shared pages never
+            n_sc = n_closed - n_hit
+            pages = torch.from_numpy(fresh.astype(np.int64)).to(self.device)
+            zero_pages, sc_pages = pages[n_sc:], pages[:n_sc]
+            ccfg1 = self._ccfg1
+            for lyr, one_lyr in zip(caches, one):
+                cache_lib.zero_pool_pages(ccfg1, lyr, zero_pages)
+                cache_lib.scatter_pool_chunks(
+                    ccfg1, lyr, sc_pages,
+                    cache_lib.extract_prefix_chunks(ccfg1, one_lyr, n_sc, n_hit))
+                for name in ("buf_k", "buf_v", "length"):
+                    getattr(lyr, name)[slot].copy_(getattr(one_lyr, name)[0])
+            self._push_block_tables()
+
+        logits = self._prefill_via_trie(
+            batch1, admit, commit, reserve=reserve, abort=abort,
+            scaffold=lambda hit: self._gather_scaffold(caches, [int(p) for p in hit]),
+            payloads=lambda one, lo, hi: [int(p) for p in self.pool.block_tables[slot, lo:hi]])
         return logits, caches
+
+    def _gather_scaffold(self, caches: list, pages: list) -> list:
+        """Gather the hit's pool pages of every layer into a fresh batch-1
+        dense tree as its first chunks: the scaffold the suffix prefill runs
+        over (the paged twin of splicing host payloads).  The pages are read,
+        never copied into other pool pages."""
+        per_layer = [cache_lib.gather_pool_chunks(self._ccfg1, lyr, pages) for lyr in caches]
+        payloads = [tuple(chunks[c] for chunks in per_layer) for c in range(len(pages))]
+        return splice_tree_chunks(self._ccfg1, self._fresh_batch1(), 0, payloads)
+
+    def reclaim_pages(self, n_pages: int) -> int:
+        """Evict prefix-trie entries until ``n_pages`` pool pages came free
+        (or nothing evictable remains): the scheduler's valve when every slot
+        is idle and the queue head still does not fit, so the only
+        references keeping pages off the free list are the trie's.  Returns
+        the pages reclaimed."""
+        if self.pool is None or self.prefix_cache is None:
+            return 0
+        freed = self.prefix_cache.evict_bytes(n_pages * self.pool.page_bytes)
+        return freed // self.pool.page_bytes
+
+    def audit(self) -> dict:
+        """Cross-structure invariant report, never raises: the pool's
+        refcounts against its block tables plus the trie's live handles
+        (and those waiting to be freed), and the trie's own audit."""
+        issues: list[str] = []
+        report: dict[str, Any] = {}
+        if self.pool is not None:
+            retained = None
+            if self.prefix_cache is not None:
+                retained = ([int(h) for h in self.prefix_cache.live_handles()]
+                            + [int(h) for h in self.prefix_cache.trie.pending_free])
+            report["pool"] = self.pool.audit(retained=retained)
+            issues += [f"pool: {m}" for m in report["pool"]["issues"]]
+        if self.prefix_cache is not None:
+            report["trie"] = self.prefix_cache.audit()
+            issues += [f"trie: {m}" for m in report["trie"]["issues"]]
+        return {"ok": not issues, "issues": issues, **report}
+
+    def set_params(self, params) -> None:
+        """Swap the served weights.  Bumps :attr:`weight_version` and
+        invalidates every prefix-cache entry (chunks compressed under the old
+        weights must never be spliced into a new-weights prefill; the trie
+        prunes them lazily, counted as ``version_evictions``)."""
+        if params.device != self.device:
+            raise ValueError(f"weights live on {params.device}, engine device is {self.device}")
+        self.params = params
+        self.weight_version += 1
+        if self.prefix_cache is not None:
+            self.prefix_cache.bump_version()
 
     def reset_slot(self, caches: list, slot: int) -> list:
         """Return ``slot`` to the empty state in place; paged, release its

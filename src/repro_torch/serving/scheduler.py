@@ -6,8 +6,12 @@ moment a slot's request reaches its EOS or budget, the next queued request
 is prefilled at batch 1 and spliced into that slot while the others keep
 decoding.  On the paged layout a request is admitted only when the pool
 holds the pages of its lifetime; until then it waits at the queue head.
-Retries, deadlines, quarantine handling, fault injection, prefix admission
-and telemetry arrive with ROADMAP queue item 9.
+When the engine has a prefix cache, the scheduler's admission policy
+(``prefix_admission``) reaches every slot prefill, a paged engine whose
+slots are all idle while the head still does not fit reclaims trie pages
+(the reclaim valve), and ``last_stats`` reports the run's prefix counters.
+Retries, deadlines, quarantine handling and fault injection arrive with
+ROADMAP queue item 5, telemetry with item 6.
 """
 
 from __future__ import annotations
@@ -45,10 +49,15 @@ class Result:
 
 class Scheduler:
     """Request queue + continuous batching over one engine; per-run
-    aggregates land in :attr:`last_stats`."""
+    aggregates land in :attr:`last_stats`.  ``prefix_admission`` is "all"
+    (every request's newly closed prompt chunks enter the trie) or "off"
+    (cached prefixes are reused, nothing new is admitted)."""
 
-    def __init__(self, engine: Engine, seed: int = 0):
+    def __init__(self, engine: Engine, seed: int = 0, prefix_admission: str = "all"):
+        if prefix_admission not in ("all", "off"):
+            raise ValueError(f"prefix_admission must be all/off, got {prefix_admission!r}")
         self.engine = engine
+        self.prefix_admission = prefix_admission
         self.queue: deque[Request] = deque()
         self.last_stats: dict = {}
         self._gen = torch.Generator(device=engine.device).manual_seed(seed)
@@ -89,6 +98,9 @@ class Scheduler:
         B = eng.ecfg.batch
         eos = eng.ecfg.eos_id
         view = eng.new_view()
+        # the trie's counters are lifetime totals: snapshot them (after
+        # new_view, which re-keys a paged engine's trie) to report this run's
+        pstats0 = eng.prefix_cache.snapshot() if eng.prefix_cache is not None else None
         results: list[Result] = []
         pos = np.zeros(B, np.int32)        # per-slot absolute decode position
         budget = np.zeros(B, np.int32)
@@ -120,6 +132,7 @@ class Scheduler:
             t0 = time.time()
             try:
                 logits = view.prefill_slot({"tokens": prompt}, s,
+                                           admit=self.prefix_admission == "all",
                                            reserve_tokens=self._need_tokens(r))
             except PoolExhausted:
                 return False               # stays at the head until pages come back
@@ -152,12 +165,14 @@ class Scheduler:
             if bool(done.all()):
                 if not self.queue:
                     break
-                if view.can_admit(self._need_tokens(self.queue[0])):
-                    continue               # the resets above freed its pages
-                # submit() bounds a request by the whole pool, so an idle
-                # engine always admits the head
+                need = self._need_tokens(self.queue[0])
+                # every slot is idle yet the head does not fit: the pool's
+                # other pages are held by the prefix trie, so evict trie
+                # entries back into free pages (the reclaim valve)
+                if view.can_admit(need) or view.reclaim(need):
+                    continue
                 raise RuntimeError(f"request {self.queue[0].rid} cannot be admitted "
-                                   "with every slot idle")
+                                   "with every slot idle, and reclaim freed too little")
             if self.queue and bool(done.any()):
                 # a free slot decodes empty because the head's pages are not free
                 waited.add(self.queue[0].rid)
@@ -190,6 +205,18 @@ class Scheduler:
         }
         if eng.pool is not None:
             self.last_stats["pool"] = eng.pool.snapshot()
+        if pstats0 is not None:
+            pstats = eng.prefix_cache.snapshot()
+            hit = pstats.hit_chunks - pstats0.hit_chunks
+            look = pstats.lookup_chunks - pstats0.lookup_chunks
+            self.last_stats["prefix_hit_rate"] = hit / max(look, 1)
+            self.last_stats["prefill_toks_saved"] = (
+                pstats.prefill_toks_saved - pstats0.prefill_toks_saved)
+            self.last_stats["prefix_evictions"] = pstats.evictions - pstats0.evictions
+            self.last_stats["prefix_expiries"] = pstats.expiries - pstats0.expiries
+            self.last_stats["prefix_version_evictions"] = (
+                pstats.version_evictions - pstats0.version_evictions)
+            self.last_stats["prefix"] = pstats
         return results
 
 

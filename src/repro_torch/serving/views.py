@@ -2,8 +2,9 @@
 ``repro.serving.views``' ``DenseCacheView`` and ``PagedCacheView``).
 
 A view owns one live cache tree (a list of per-layer caches) and wraps the
-engine's slot protocol and the admission question, so the scheduler never
-threads raw caches and works the same for both layouts.
+engine's slot protocol, the admission question, the reclaim valve and the
+invariant audit, so the scheduler never threads raw caches and works the
+same for both layouts.
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ class _ViewBase:
         self.engine = engine
         self.caches = caches
 
-    def prefill_slot(self, batch1: dict, slot: int, reserve_tokens: int | None = None):
-        """Prefill one raw-length prompt into ``slot``; ``reserve_tokens``
-        right-sizes a paged reservation to the request's lifetime."""
-        logits, self.caches = self.engine.prefill_slot(batch1, self.caches, slot,
+    def prefill_slot(self, batch1: dict, slot: int, admit: bool = True,
+                     reserve_tokens: int | None = None):
+        """Prefill one raw-length prompt into ``slot``; ``admit=False`` keeps
+        its chunks out of the prefix trie, ``reserve_tokens`` right-sizes a
+        paged reservation to the request's lifetime."""
+        logits, self.caches = self.engine.prefill_slot(batch1, self.caches, slot, admit=admit,
                                                        reserve_tokens=reserve_tokens)
         return logits
 
@@ -32,6 +35,10 @@ class _ViewBase:
         logits, self.caches = self.engine.decode(token_batch, self.caches, pos)
         return logits
 
+    def audit(self) -> dict:
+        """Backing-store invariant report ``{"ok", "issues", ...}``; never raises."""
+        return self.engine.audit()
+
 
 class DenseCacheView(_ViewBase):
     """Dense per-slot layout: a free slot always has full capacity."""
@@ -39,12 +46,27 @@ class DenseCacheView(_ViewBase):
     def can_admit(self, n_tokens: int) -> bool:
         return True
 
+    def reclaim(self, n_tokens: int) -> bool:
+        return False                 # nothing to reclaim; admission never fails
+
 
 class PagedCacheView(_ViewBase):
-    """Pooled page layout: admission is limited by the pool's free pages; a
-    True ``can_admit`` guarantees that ``prefill_slot`` will not raise
-    :class:`~repro_torch.serving.pagedpool.PoolExhausted`."""
+    """Pooled page layout: admission is limited by the pool's free pages.
+    ``can_admit`` prices the request with no prefix sharing (a hit only
+    lowers the fresh pages it needs), so a True answer guarantees that
+    ``prefill_slot`` will not raise
+    :class:`~repro_torch.serving.pagedpool.PoolExhausted`; ``reclaim``
+    turns prefix-trie references back into free pages."""
+
+    def _pages(self, n_tokens: int) -> int:
+        return pages_needed(n_tokens, self.engine.ecfg.policy.buffer_size)
 
     def can_admit(self, n_tokens: int) -> bool:
-        return self.engine.pool.can_admit(
-            pages_needed(n_tokens, self.engine.ecfg.policy.buffer_size))
+        return self.engine.pool.can_admit(self._pages(n_tokens))
+
+    def reclaim(self, n_tokens: int) -> bool:
+        """Evict trie entries until ``n_tokens`` fit; True if they now do."""
+        deficit = self._pages(n_tokens) - self.engine.pool.free_pages
+        if deficit > 0:
+            self.engine.reclaim_pages(deficit)
+        return self.can_admit(n_tokens)

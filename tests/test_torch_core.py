@@ -281,7 +281,7 @@ def test_splice_reset_and_numeric_guard():
 
 
 def test_cache_config_rejects_unported_kinds():
-    with pytest.raises(NotImplementedError, match="queue item 10"):
+    with pytest.raises(NotImplementedError, match="queue item 7"):
         cache.CacheConfig(batch=1, kv_heads=1, head_dim=64, capacity=64,
                           policy=named_policy("gear_kcvt4"), kind="window")
 

@@ -708,3 +708,19 @@ def test_gear_decode_paged_equals_dense_every_regime(dev, polname, G):
                           **{n: gathered[n] for n in extra})
     for a, b in zip(paged, flat):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 11008), (11008, 4096)])
+def test_prefill_row_products_do_not_depend_on_row_count(dev, K, N):
+    """llama2-7b's prefill products (wo, w_gate / w_up, w_down; bf16) through
+    ``common.rowwise``: a one-chunk suffix's rows equal the same rows inside
+    a cold prefill's product bit for bit (cuBLAS gives a 64-row
+    [64, 11008] x [11008, 4096] product other bits; ROADMAP §3)."""
+    from repro_torch.models.common import rowwise
+
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    w = (torch.randn(K, N, generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+    x = torch.randn(1, 1152, K, generator=g, device=dev).to(torch.bfloat16)
+    cold = rowwise(lambda t: t @ w, x)
+    for lo, hi in ((512, 576), (512, 640), (1088, 1152), (0, 64)):
+        assert torch.equal(rowwise(lambda t: t @ w, x[:, lo:hi]), cold[:, lo:hi]), (lo, hi)

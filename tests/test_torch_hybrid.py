@@ -395,17 +395,33 @@ def test_pair_cache_slot_protocol_and_guard(pair):
                                      dict(prefill_mode="streaming", layout="paged")],
                          ids=["paged", "streaming", "streaming-paged"])
 def test_hybrid_paged_and_streaming_raise(pair, options):
+    """A hybrid serves on the dense layout only (either prefill mode, as in
+    the reference): the paged layout raises with either prefill mode.
+    Streaming prefill serves, unbucketed; a suffix or a padded tail, and the
+    prefix cache, raise the reference's errors (an SSM state does not resume
+    from a chunk boundary)."""
     ecfg = EngineConfig(batch=1, capacity=CAP, policy=pair.policy, **options)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        Engine(pair.model, pair.params, ecfg, device="cpu")
-    if options.get("prefill_mode") == "streaming":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pair.model.prefill(pair.params, {"tokens": np.ones((1, 64), np.int32)}, pair.policy,
-                               CAP, prefill_mode="streaming")
-    else:
+    if options.get("layout") == "paged":
+        with pytest.raises(NotImplementedError, match="hybrid"):
+            Engine(pair.model, pair.params, ecfg, device="cpu")
         with pytest.raises(NotImplementedError, match="layout='dense'"):
             pair.model.init_caches(pair.policy, 1, CAP, device="cpu", layout="paged",
                                    pool_pages=4)
+        return
+    eng = Engine(pair.model, pair.params, ecfg, device="cpu")
+    assert not eng._can_bucket
+    logits, caches = pair.model.prefill(pair.params, {"tokens": np.ones((1, 70), np.int32)},
+                                        pair.policy, CAP, prefill_mode="streaming")
+    assert logits.shape == (1, 1, pair.cfg.vocab_size) and caches[0][0].length.tolist() == [70]
+    with pytest.raises(ValueError, match="hybrid SSM state"):
+        pair.model.prefill(pair.params, {"tokens": np.ones((1, 128), np.int32)}, pair.policy,
+                           CAP, prefill_mode="streaming", padded_tail=True, true_len=70)
+    with pytest.raises(ValueError, match="hybrid SSM state"):
+        pair.model.prefill_suffix(pair.params, {"tokens": np.ones((1, 6), np.int32)},
+                                  [c[0] for c in caches], 64, pair.policy, CAP)
+    with pytest.raises(ValueError, match="hybrid SSM state is not chunk-decomposable"):
+        Engine(pair.model, pair.params, dataclasses.replace(ecfg, prefix_cache=True),
+               device="cpu")
 
 
 def test_scan_state0_on_a_card_raises():

@@ -113,18 +113,27 @@ STREAM_PAGED = dict(prefill_mode="streaming", layout="paged")
 
 @pytest.mark.parametrize("options,exc", [
     (dict(fused="off"), NotImplementedError), (dict(fused="interpret"), NotImplementedError),
-    (dict(STREAM_PAGED, prefix_cache=True), NotImplementedError),
+    (dict(STREAM_PAGED, prefix_cache=True), None),
     (dict(pool_pages=8), ValueError),
-    (dict(prefix_cache=True), NotImplementedError), (dict(obs=True), NotImplementedError),
+    (dict(prefix_cache=True), ValueError), (dict(obs=True), NotImplementedError),
     (dict(fused="bogus"), ValueError),
 ], ids=["fused-off-NotImplementedError", "fused-interpret-NotImplementedError",
-        "prefix_cache-streaming-paged-NotImplementedError", "pool_pages-dense-ValueError",
-        "prefix_cache-True-NotImplementedError", "obs-True-NotImplementedError",
+        "prefix_cache-streaming-paged-accepted", "pool_pages-dense-ValueError",
+        "prefix_cache-monolithic-ValueError", "obs-True-NotImplementedError",
         "fused-bogus-ValueError"])
 def test_engine_config_rejects_unported_options(options, exc):
-    with pytest.raises(exc):
+    """Options not ported yet raise ``NotImplementedError``, invalid ones the
+    reference's ``ValueError`` (the prefix cache needs streaming prefill);
+    the prefix cache with streaming prefill is accepted on either layout."""
+    if exc is None:
         EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **options)
+    else:
+        with pytest.raises(exc):
+            EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **options)
     EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **STREAM_PAGED)
+    if options == dict(prefix_cache=True):
+        with pytest.raises(ValueError, match="prefix_cache requires prefill_mode='streaming'"):
+            EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **options)
 
 
 def test_prefill_logits_and_greedy_decode_match_reference(pair):

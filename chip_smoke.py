@@ -133,7 +133,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
     from the slots' states) are held against their plain versions and
     timed, and profiler windows cover one unaligned prefill and 8 decode
     steps;
-16. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
+16. serving, path 7: wave mode on phase 10's llama2-7b (``--layers`` cuts
+    it too): ``Engine(batch=4, capacity=1152)`` dense and ``Scheduler.run``
+    over the 8 requests in two waves, left-padded to 859 and 899 tokens,
+    each prefilled at batch 4 (``flash_prefill`` at BHq = 128) and decoded
+    in lockstep; every request must end ``OK`` with 96 in-vocab tokens, each
+    wave prefill launch exactly 32 ``flash_prefill`` and each decode step 32
+    ``gear_decode``; the live layer-0 ``flash_prefill`` call (BHq 128) is
+    held against its plain version and timed beside SDPA, one live decode
+    step's layer-0 cache against the plain version, and each wave row's
+    last-position prefill logits against a batch-1 prefill of the same
+    left-padded prompt, bit for bit; a profiler window covers one wave
+    prefill;
+17. serving, path 8: path 5's engine and traffic (all 32 layers) with
+    ``obs=ObsConfig()`` and a seeded ``FaultInjector`` on a ``FakeClock``
+    whose schedule fires ``pool_exhausted``, ``prefill_error``,
+    ``nan_chunk``, ``decode_error`` and ``trie_evict`` once each: exactly one
+    result per rid and ``Scheduler.audit`` clean, the quarantined request
+    ``FAILED``, every ``OK`` / ``DEGRADED`` request's greedy tokens bit for
+    bit path 5's, one complete trace per rid, and the metrics counting each
+    fired site;
+18. the launcher: ``python -m repro_torch.launch.serve`` at full width as
+    subprocesses, once in wave mode (batch 4, prompt 512, 16 tokens) and once
+    in continuous + paged mode with ``--obs``, ``--metrics-json`` and
+    ``--trace-out`` under ``build/serve/``; each must exit 0 and print the
+    reference launcher's lines, and both JSON files must parse;
+19. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
     by path), the card's name and power limit, and the final
     ``{"ok": true, "device": {...}}`` line.
 
@@ -179,6 +204,16 @@ BLOCK_TOL = 1e-4       # flash_prefill_block normalized output and score max (f3
 B_SERVE, CAP_SERVE, N_REQUESTS, NEW_TOKENS = 4, 1152, 8, 96
 # raw prompt lengths of the 8 requests (numpy seed 0), as requests() draws them
 PROMPT_LENGTHS = [int(n) for n in np.random.RandomState(0).randint(300, 901, size=N_REQUESTS)]
+
+
+PHASE_S = {}           # phase header -> seconds from the run's start when it began
+_T0 = time.perf_counter()
+
+
+def phase(header: str) -> None:
+    """Print a phase header and note when the phase began."""
+    PHASE_S[header.split("]")[0] + "]"] = time.perf_counter() - _T0
+    print(header)
 
 
 def fail(msg: str) -> None:
@@ -398,6 +433,13 @@ FLASH_CASES = [
 TIMED_FLASH_CASES = {1: "", 5: "_hymba"}
 
 
+def flash_bytes_flops(S: int, BH: int, rep: int, Dh: int):
+    """Bytes (q, k, v read once, o written once, bf16) and causal operations
+    of one ``flash_prefill`` call."""
+    pairs = S * (S + 1) // 2
+    return 2.0 * Dh * S * (2 * BH + 2 * BH // rep), 4.0 * pairs * Dh * BH
+
+
 def flash_case(case, flush, report: dict, suffix) -> None:
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels.ref import flash_prefill_ref
@@ -426,9 +468,7 @@ def flash_case(case, flush, report: dict, suffix) -> None:
         vs = v[None].repeat_interleave(rep, dim=1)
         lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True), 20, flush)
-        pairs = S * (S + 1) // 2
-        flops = 4.0 * pairs * Dh * BH
-        nbytes = 2.0 * Dh * S * (2 * BH + 2 * BH // rep)
+        nbytes, flops = flash_bytes_flops(S, BH, rep, Dh)
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         timed = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(t_ops, t_bytes),
                      bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -1683,6 +1723,7 @@ def serving_rwkv(model, params, cfg, layers: int, flush, reports: dict) -> dict:
     return summary
 
 
+LIVE = {}                    # what a later phase holds against: path 5's tokens
 PREFIX_SYSTEM = 512          # path 5: tokens of the shared system prompt (8 chunks)
 PREFIX_SUFFIX = (40, 400)    # path 5: raw length range of each request's own suffix
 # path 5's pool: two thirds of the dense-equivalent pages (48 allocatable, as
@@ -1878,6 +1919,7 @@ def serving_prefix(model, params, cfg, layers: int, flush, reports: dict) -> dic
           f"equal {same_chunks}")
     if diff or not same_logits or not same_chunks:
         fail("the prefix-cache engine differs from the cold engine (ROADMAP §3)")
+    LIVE["path5_tokens"] = {rid: r.tokens for rid, r in kept["results"].items()}
     print(f"  prefill ms per request (admission order), warm engine: "
           f"{[round(t, 1) for t in rec['ms']]} (request 0 cold); cold engine: "
           f"{[round(t, 1) for t in rec_c['ms']]}")
@@ -1965,6 +2007,297 @@ def serving_hybrid_streaming(model, params, cfg, layers: int, flush, reports: di
     summary.update(layers=layers, prefill_ms_by_admission=rec["ms"][:N_REQUESTS])
     profile(eng, cfg, HERE / "build" / "profile", "hybrid_streaming", prompt_len=659)
     return summary
+
+
+def watch_waves(eng) -> dict:
+    """Wrap ``eng.prefill`` and ``eng.generate``: per wave, the prefill's
+    kernel launches and logits and ``generate``'s stats."""
+    fns = kernel_fns()
+    real_prefill, real_generate = eng.prefill, eng.generate
+    rec = {"launches": [], "logits": [], "stats": []}
+
+    def prefill(batch):
+        l0 = {name: fn.launches for name, fn in fns.items()}
+        logits, caches = real_prefill(batch)
+        rec["launches"].append({name: fn.launches - l0[name] for name, fn in fns.items()})
+        rec["logits"].append(logits.clone())
+        return logits, caches
+
+    def generate(*args, **kwargs):
+        toks, stats = real_generate(*args, **kwargs)
+        rec["stats"].append(stats)
+        return toks, stats
+
+    eng.prefill, eng.generate = prefill, generate
+    return rec
+
+
+def serving_wave(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 7: wave mode (``Scheduler.run`` / ``Engine.generate``) on phase
+    10's llama2-7b: monolithic prefill of a whole wave at batch 4, dense
+    layout, lockstep decode."""
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_prefill_ref, gear_decode_ref
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.scheduler import Request, Scheduler, _pad
+
+    pol = named_policy("gear_kcvt4")
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=CAP_SERVE, policy=pol),
+                 device=DEV)
+    prompts = requests(cfg)
+    waves = [list(range(w, w + B_SERVE)) for w in range(0, N_REQUESTS, B_SERVE)]
+    pads = [max(len(prompts[r]) for r in wave) for wave in waves]
+    padded = [np.stack([_pad(prompts[r], pad) for r in wave]) for wave, pad in zip(waves, pads)]
+    rec = watch_waves(eng)
+    # wave 0's layer-0 attention (BHq = 4 x 32 = 128 rows); layer 0 of its decode step 40
+    caps = {"flash_prefill": Capture(ops, "flash_prefill", 0),
+            "gear_decode": Capture(ops, "gear_decode", 40 * layers)}
+    sched = Scheduler(eng)
+    for rid, toks in enumerate(prompts):
+        sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=NEW_TOKENS))
+    fns = kernel_fns()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        results = sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in fns.items()}
+    finally:
+        for c in caps.values():
+            c.restore()
+        del eng.prefill, eng.generate
+    peak = torch.cuda.max_memory_allocated()
+    if len(results) != N_REQUESTS or any(str(r.status) != "ok" or len(r.tokens) != NEW_TOKENS
+                                         for r in results):
+        fail(f"wave results: {[(r.rid, str(r.status), len(r.tokens)) for r in results]}")
+    if sorted(r.rid for r in results) != list(range(N_REQUESTS)):
+        fail(f"wave results' rids {[r.rid for r in results]}")
+    for r in results:
+        if r.tokens.min() < 0 or r.tokens.max() >= cfg.vocab_size:
+            fail(f"request {r.rid}: token ids out of range")
+    steps = len(waves) * (NEW_TOKENS - 1)
+    per_wave = [lw["flash_prefill"] for lw in rec["launches"]]
+    if per_wave != [layers] * len(waves) or launches["flash_prefill"] != len(waves) * layers:
+        fail(f"flash_prefill launches per wave prefill {per_wave} != {layers} each")
+    if launches["gear_decode"] != steps * layers:
+        fail(f"gear_decode launches {launches['gear_decode']} != {steps} steps x {layers}")
+    for c in caps.values():
+        if len(c.seen) != len(c.indices):
+            fail(f"no live {c.name} call was captured (calls {c.indices} of {c.calls})")
+    prefill_s = [st["prefill_s"] for st in rec["stats"]]
+    tok_s = [st["decode_tok_per_s"] for st in rec["stats"]]
+    print(f"  {len(waves)} waves left-padded to {pads} tokens: prefill s per wave "
+          f"{[round(t, 3) for t in prefill_s]}, decode tok/s per wave "
+          f"{[round(t, 1) for t in tok_s]}, wall {wall:.1f} s, peak memory {peak / 1e9:.2f} GB; "
+          f"launches {launches} ({layers} flash_prefill per wave prefill, {layers} gear_decode "
+          f"per step over {steps} steps)")
+
+    # the live BHq-128 flash_prefill call against its plain version, timed beside SDPA
+    c = caps["flash_prefill"]
+    (q, k, v), kw = c.args, c.kwargs
+    BH, S, Dh = q.shape
+    rep = reports["flash_prefill"]
+    if (BH, S) != (B_SERVE * cfg.num_heads, pads[0]):
+        fail(f"the captured flash_prefill call is [{BH}, {S}, {Dh}], not wave 0's layer 0")
+    o_k, o_p = c.real(q, k, v, **kw), flash_prefill_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((o_k.float() - o_p.float()).abs().max())
+    print(f"  flash_prefill live wave layer-0 call (BHq {BH}, S {S}, Dh {Dh}, {kw}): kernel vs "
+          f"plain max_abs_err={err:.3e} (tol {PREFILL_TOL})")
+    if not err <= PREFILL_TOL:
+        fail(f"live wave flash_prefill disagrees with its plain version: {err}")
+    rep["err"] = max(rep.get("err", 0.0), err)
+    rep_k = kw.get("kv_repeat", 1)
+    qs, ks, vs = q[None], k[None].repeat_interleave(rep_k, 1), v[None].repeat_interleave(rep_k, 1)
+    ms = time_ms(lambda: c.real(q, k, v, **kw), 20, flush)
+    plain = time_ms(lambda: flash_prefill_ref(q, k, v, **kw), 3, flush)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True), 20, flush)
+    nbytes, flops = flash_bytes_flops(S, BH, rep_k, Dh)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    rep.update(ms_wave=ms, plain_ms_wave=plain, library_ms_wave=lib,
+               bound_ms_wave=max(t_bytes, t_ops),
+               bound_by_wave="operations" if t_ops >= t_bytes else "bytes")
+    print(f"  flash_prefill live wave call: kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
+          f"{lib:.4f} ms, bound {rep['bound_ms_wave']:.4f} ms ({rep['bound_by_wave']})")
+
+    # the live decode step's layer-0 cache against the plain version
+    c = caps["gear_decode"]
+    print(f"  live wave layer-0 step: q {tuple(c.args[0].shape)}, n_comp per slot "
+          f"{[int(x) for x in c.args[7][::cfg.num_kv_heads]]}")
+    rep = reports["gear_decode"]
+    rep["ms_wave"], rep["plain_ms_wave"], rep["bound_ms_wave"], _ = live_check(
+        c, gear_decode_ref, "gear_decode live wave decode step", flush, rep,
+        decode_call_bytes_flops, rows_of=lambda a: a[7] > 0)
+
+    # batch 4 computes what batch 1 does: each wave row's last-position
+    # prefill logits against a batch-1 prefill of the same padded prompt, bit
+    # for bit (every GEMM of the prefill gives a row the same bits at 859 and
+    # 4 x 859 rows on the H100; a row that reads another row or a shifted
+    # mask would not)
+    row_err, equal_rows = 0.0, 0
+    for w, rows in enumerate(padded):
+        for i in range(B_SERVE):
+            one, _ = eng.prefill({"tokens": rows[i:i + 1]})
+            diff = float((one[0].float() - rec["logits"][w][i].float()).abs().max())
+            row_err = max(row_err, diff)
+            equal_rows += int(torch.equal(one[0], rec["logits"][w][i]))
+    print(f"  wave rows vs batch-1 prefills of the same padded prompts: last-position logits "
+          f"max_abs_err={row_err:.4e}; {equal_rows} of {N_REQUESTS} rows bit for bit")
+    if equal_rows != N_REQUESTS:
+        fail(f"a batch-{B_SERVE} wave row differs from its batch-1 prefill by {row_err}")
+    reports["flash_prefill"]["launches_by_path"]["wave_dense"] = launches["flash_prefill"]
+    reports["gear_decode"]["launches_by_path"]["wave_dense"] = launches["gear_decode"]
+    torch.cuda.synchronize()
+    profile_window(lambda: eng.prefill({"tokens": padded[0]}), HERE / "build" / "profile",
+                   "wave_dense", "prefill")
+    return {"layers": layers, "wave_pads": pads, "prefill_s_per_wave": prefill_s,
+            "decode_tok_per_s_per_wave": tok_s, "decode_steps": steps, "launches": launches,
+            "wall_s": wall, "max_memory_allocated_gb": peak / 1e9,
+            "row_vs_batch1_max_abs_err": row_err, "rows_bit_equal": equal_rows}
+
+
+# path 8's fault schedule: each site fires once, at a visit every run reaches
+# (admissions, splice attempts and guarded prefills number at least 8, decode
+# steps and scheduler iterations hundreds)
+RESILIENCE_EVENTS = (("pool_exhausted", 1), ("prefill_error", 2), ("nan_chunk", 3),
+                     ("decode_error", 10), ("trie_evict", 20))
+
+
+def serving_resilience(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 8: path 5's engine and traffic with telemetry on and a seeded
+    fault injector on a fake clock; every request that completes gives path
+    5's tokens bit for bit."""
+    from repro_torch.core.policy import named_policy
+    from repro_torch.serving import (Engine, EngineConfig, FakeClock, FaultEvent, FaultInjector,
+                                     ObsConfig, Request, RetryPolicy, Scheduler)
+
+    pol = named_policy("gear_kcvt4")
+    clock = FakeClock()
+    eng = Engine(model, params, EngineConfig(
+        batch=B_SERVE, capacity=CAP_SERVE, policy=pol, prefill_mode="streaming", layout="paged",
+        pool_pages=PREFIX_POOL_PAGES, prefix_cache=True, obs=ObsConfig()), device=DEV,
+        clock=clock)
+    inj = FaultInjector(seed=0, clock=clock,
+                        schedule=[FaultEvent(site, at) for site, at in RESILIENCE_EVENTS])
+    sched = Scheduler(eng, faults=inj, retry=RetryPolicy(max_attempts=3))
+    prompts = prefix_requests(cfg)
+    for rid, toks in enumerate(prompts):
+        sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=NEW_TOKENS))
+    fns = kernel_fns()
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = sched.run_continuous()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    stats = sched.last_stats
+    statuses = {r.rid: str(r.status) for r in results}
+    print(f"  injector log {inj.log}; statuses {stats['statuses']} "
+          f"({dict(sorted(statuses.items()))}); attempts "
+          f"{ {r.rid: r.attempts for r in results} }; {stats['decode_steps']} decode steps, "
+          f"wall {wall:.1f} s, launches {launches}")
+    audit = sched.audit(results)
+    if len(results) != N_REQUESTS or not audit["ok"]:
+        fail(f"path 8: {len(results)} results, audit {audit['issues'][:5]}")
+    missing = [site for site, _ in RESILIENCE_EVENTS if inj.fired[site] < 1]
+    if missing:
+        fail(f"fault sites that never fired: {missing} (log {inj.log})")
+    victims = [r.rid for r in results if str(r.status) == "failed" and "quarantine" in r.error]
+    if len(victims) != inj.fired["nan_chunk"]:
+        fail(f"nan_chunk fired {inj.fired['nan_chunk']}x but FAILED by quarantine: {victims}")
+    done = [r for r in results if str(r.status) in ("ok", "degraded")]
+    if len(done) + len(victims) != N_REQUESTS:
+        fail(f"unexpected statuses {statuses}")
+    want = LIVE["path5_tokens"]
+    diff = [r.rid for r in done if not np.array_equal(r.tokens, want[r.rid])]
+    if diff:
+        fail(f"completed requests {diff} differ from path 5's tokens")
+    cov = eng.obs.tracer.coverage(range(N_REQUESTS))
+    if not cov["complete"] or cov["statuses"] != statuses:
+        fail(f"trace coverage {cov}")
+    fired = {s["labels"]["site"]: s["value"]
+             for s in eng.obs.registry.get("serving_faults_injected_total").series()}
+    if fired != {site: float(n) for site, n in inj.fired.items() if n}:
+        fail(f"the metrics count fired sites {fired}, the injector {inj.fired}")
+    by_status = {s["labels"]["status"]: s["value"]
+                 for s in eng.obs.registry.get("serving_results_total").series()}
+    if by_status != {k: float(v) for k, v in stats["statuses"].items()}:
+        fail(f"serving_results_total {by_status} != {stats['statuses']}")
+    print(f"  one result per rid and the audit pass; the quarantine victim {victims} FAILED; "
+          f"{len(done)} completed requests equal path 5's tokens bit for bit; traces complete "
+          f"for all {N_REQUESTS} rids; serving_faults_injected_total {fired}")
+    for name in ("gear_decode", "flash_prefill_block", "gear_compress", "gear_decode_paged"):
+        reports[name]["launches_by_path"]["resilience_paged"] = launches[name]
+    return {"layers": layers, "injector_log": inj.log, "statuses": stats["statuses"],
+            "attempts": {r.rid: r.attempts for r in results}, "decode_steps": stats["decode_steps"],
+            "launches": launches, "wall_s": wall, "faults_metric": fired}
+
+
+LAUNCHER_RUNS = {
+    "wave": ["--arch", "llama2-7b", "--batch", "4", "--prompt", "512", "--gen", "16"],
+    "continuous": ["--arch", "llama2-7b", "--batch", "4", "--prompt", "512", "--gen", "16",
+                   "--mode", "continuous", "--layout", "paged", "--requests", "8", "--obs",
+                   "--metrics-json", "build/serve/metrics.json",
+                   "--trace-out", "build/serve/trace.json"],
+}
+LAUNCHER_LINES = {
+    "wave": [r"generated \(4, 16\); prefill [0-9.]+s, decode [0-9.]+s \([0-9.]+ tok/s\), "
+             r"cache [0-9.]+ MB"],
+    "continuous": [r"served 8 requests \(128 tokens\) in [0-9.]+s; attend=fused layout=paged; "
+                   r"pool \d+/\d+ pages used, \d+ shared",
+                   r"obs: traces 8/8 rids complete=True",
+                   r"obs: metrics snapshot -> build/serve/metrics\.json",
+                   r"obs: chrome trace -> build/serve/trace\.json"],
+}
+
+
+def launcher_runs(extra: tuple = ()) -> dict:
+    """``python -m repro_torch.launch.serve`` at full width, as a user runs
+    it, once in wave mode and once in continuous + paged + telemetry mode;
+    each must exit 0 and print the reference launcher's lines, and the
+    metrics and trace JSON must parse."""
+    import os
+
+    out_dir = HERE / "build" / "serve"
+    for f in ("metrics.json", "trace.json"):
+        (out_dir / f).unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    summary = {}
+    for name, argv in LAUNCHER_RUNS.items():
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv, *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
+                              timeout=600)
+        sec = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        print(f"  {' '.join(cmd[1:])}: exit {proc.returncode} in {sec:.1f} s")
+        for line in lines:
+            print(f"    {line}")
+        if proc.returncode != 0:
+            fail(f"the launcher ({name}) exited {proc.returncode}: {proc.stderr[-2000:]}")
+        want = LAUNCHER_LINES[name]
+        if len(lines) != len(want) or not all(re.fullmatch(w, line)
+                                              for w, line in zip(want, lines)):
+            fail(f"the launcher ({name}) printed {lines}, not {want}")
+        summary[name] = {"seconds": sec, "stdout": lines}
+    metrics = json.loads((out_dir / "metrics.json").read_text())
+    trace = json.loads((out_dir / "trace.json").read_text())
+    series = {m["name"]: m["series"] for m in metrics["metrics"]}
+    submitted = series["serving_requests_submitted_total"][0]["value"]
+    rids = sorted({e["tid"] for e in trace["traceEvents"] if e["name"] == "request"})
+    print(f"  metrics JSON ({metrics['schema']}, {len(series)} metrics, {submitted:.0f} "
+          f"submitted) and trace JSON ({trace['schema']}, {len(trace['traceEvents'])} events, "
+          f"rids {rids}) parse")
+    if submitted != 8 or rids != list(range(8)):
+        fail(f"the launcher's telemetry counts {submitted} submits, traces rids {rids}")
+    return summary
+
 
 
 def profile_warm(eng, prompts: list, out_dir: pathlib.Path, tag: str) -> None:
@@ -2060,14 +2393,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    print("[1] environment")
+    phase("[1] environment")
     card = smi()
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(f"  {card}")
 
-    print("[2] build")
+    phase("[2] build")
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     parent = None if args.parent_scan is None else start_parent_build(args.parent_scan)
@@ -2107,28 +2440,28 @@ def main() -> int:
                        "source": "src/repro_torch/kernels/csrc/quant_pack.cu",
                        "replaces": "src/repro/kernels/quant_pack.py:53"},
     }
-    print("[3] gear_decode vs plain")
+    phase("[3] gear_decode vs plain")
     for pol in ("gear_kcvt4", "gear_kivi2"):
         decode_case(pol, flush, reports["gear_decode"])
         decode_case(pol, flush, reports["gear_decode"], H=5, Dh=64, G=5)     # hymba
     history_case(flush, reports["gear_decode"])
-    print("[4] flash_prefill vs plain")
+    phase("[4] flash_prefill vs plain")
     for i, case in enumerate(FLASH_CASES):
         flash_case(case, flush, reports["flash_prefill"], TIMED_FLASH_CASES.get(i))
-    print("[5] gear_compress vs plain")
+    phase("[5] gear_compress vs plain")
     for pol in ("gear_kcvt4", "gear_kivi2"):
         compress_case(pol, flush, reports["gear_compress"])
-    print("[6] flash_prefill_block vs plain")
+    phase("[6] flash_prefill_block vs plain")
     for T, rep in ((64, 1), (64, 4), (37, 1)):
         block_case(T, rep, flush, reports["flash_prefill_block"])
-    print("[7] gear_decode_paged vs plain and vs gear_decode")
+    phase("[7] gear_decode_paged vs plain and vs gear_decode")
     for pol in ("gear_kcvt4", "gear_kivi2"):
         paged_case(pol, reports["gear_decode_paged"])
 
-    print("[8] linear_scan_chunked vs plain")
+    phase("[8] linear_scan_chunked vs plain")
     for case in SCAN_CASES:
         scan_case(case, flush, reports["linear_scan_chunked"])
-    print("[9] quant_pack through kernels.quantize_chunk vs plain")
+    phase("[9] quant_pack through kernels.quantize_chunk vs plain")
     quant_pack_phase(flush, reports["quant_pack"])
 
     from repro_torch.configs import get_config
@@ -2148,13 +2481,13 @@ def main() -> int:
 
     full = get_config("llama2-7b")
     built_models, summaries = {}, {}
-    for phase, key, layers, fn, title in (
+    for num, key, layers, fn, title in (
             (10, "monolithic_dense", args.layers, serving, "monolithic prefill, dense layout"),
             (11, "streaming_paged", full.num_layers, serving_paged,
              "streaming prefill, paged pool"),
             (12, "prefix_paged", full.num_layers, serving_prefix,
              "streaming prefill, paged pool, prefix trie")):
-        print(f"[{phase}] serving llama2-7b, gear_kcvt4, {title}, depth {layers}"
+        phase(f"[{num}] serving llama2-7b, gear_kcvt4, {title}, depth {layers}"
               + ("" if layers == full.num_layers else
                  f" (cut from {full.num_layers} by --layers)"))
         if layers not in built_models:
@@ -2164,11 +2497,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     hymba = get_config("hymba-1.5b")
-    print(f"[13] serving hymba-1.5b, gear_kcvt4, monolithic prefill, dense layout, depth "
+    phase(f"[13] serving hymba-1.5b, gear_kcvt4, monolithic prefill, dense layout, depth "
           f"{hymba.num_layers}")
     built_hymba = build(hymba, hymba.num_layers)
     summaries["hybrid_dense"] = serving_hybrid(*built_hymba, hymba.num_layers, flush, reports)
-    print(f"[14] serving hymba-1.5b, gear_kcvt4, streaming prefill (unbucketed), dense layout, "
+    phase(f"[14] serving hymba-1.5b, gear_kcvt4, streaming prefill (unbucketed), dense layout, "
           f"depth {hymba.num_layers}, {HYBRID_STREAM_TOKENS} new tokens per request")
     summaries["hybrid_streaming"] = serving_hybrid_streaming(*built_hymba, hymba.num_layers,
                                                              flush, reports)
@@ -2177,12 +2510,36 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rwkv6 = get_config("rwkv6-3b")
-    print(f"[15] serving rwkv6-3b, monolithic prefill, dense layout (no KV cache), depth "
+    phase(f"[15] serving rwkv6-3b, monolithic prefill, dense layout (no KV cache), depth "
           f"{rwkv6.num_layers}; {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated before")
     summaries["rwkv_dense"] = serving_rwkv(*build(rwkv6, rwkv6.num_layers), rwkv6.num_layers,
                                            flush, reports)
+    gc.collect()                          # free rwkv6-3b before llama2-7b is built again
+    torch.cuda.empty_cache()
 
-    print("[16] summary")
+    phase(f"[16] serving llama2-7b, gear_kcvt4, wave mode (Scheduler.run: monolithic prefill of "
+          f"each wave at batch {B_SERVE}, dense layout), depth {args.layers}"
+          + ("" if args.layers == full.num_layers else
+             f" (cut from {full.num_layers} by --layers)"))
+    built_models[args.layers] = build(dc.replace(full, num_layers=args.layers), full.num_layers)
+    summaries["wave_dense"] = serving_wave(*built_models[args.layers], args.layers, flush,
+                                           reports)
+    phase(f"[17] serving llama2-7b, gear_kcvt4, streaming prefill, paged pool, prefix trie, "
+          f"telemetry and injected faults, depth {full.num_layers}")
+    if full.num_layers not in built_models:
+        built_models.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        built_models[full.num_layers] = build(full, full.num_layers)
+    summaries["resilience_paged"] = serving_resilience(*built_models[full.num_layers],
+                                                       full.num_layers, flush, reports)
+    built_models.clear()                  # the launcher builds its own model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("[18] the launcher, python -m repro_torch.launch.serve, llama2-7b at full width")
+    summaries["launcher"] = launcher_runs()
+
+    phase("[19] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for rep in reports.values():
@@ -2193,6 +2550,10 @@ def main() -> int:
         row = {("max_abs_err" if k == "err" else k): rep[k] for k in keys}
         row.update({k: v for k, v in rep.items() if k not in keys})
         kernels.append(row)
+    marks = list(PHASE_S.items())
+    spans = {name: round(nxt - t, 1) for (name, t), (_, nxt) in zip(marks, marks[1:])}
+    print(f"  seconds per phase {spans}; {time.perf_counter() - _T0:.1f} s since the start")
+    summaries["phase_seconds"] = spans
     print(json.dumps({"serving": summaries}))
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -1,10 +1,15 @@
 """Serving engine: prefill + GEAR-cached decode on one device.
 
 Port of ``repro.serving.engine.Engine`` with ``fused="auto"`` (the CUDA
-kernels on a card, their plain versions for CPU tensors) and no telemetry.
+kernels on a card, their plain versions for CPU tensors).
 ``prefill_mode`` is "monolithic" or "streaming"; ``layout`` is "dense" or
 "paged".  Other values raise ``NotImplementedError`` naming the ROADMAP
-queue item that brings them.
+queue item that brings them.  Two batching modes sit on top
+(:mod:`repro_torch.serving.scheduler`): wave mode, where
+:meth:`Engine.generate` prefills the whole batch at once and decodes it in
+lockstep (dense layout only), and continuous mode, where the scheduler
+drives :meth:`Engine.decode` step by step and splices each request's
+batch-1 prefill into a slot (:meth:`Engine.prefill_slot`).
 
 * Streaming prefill length-buckets a raw prompt to the next ``n_b``
   multiple: the padded tail lands in the FP16 buffer, never in a
@@ -29,6 +34,12 @@ queue item that brings them.
   state, the policy touches no layer, prefill is unbucketed in either mode,
   the layout is dense only, and ``attend_path`` reports "xla", as the
   reference's does when no layer has a GEAR attention cache.
+* Telemetry (``obs``, :mod:`repro_torch.obs`): the engine owns the
+  :class:`~repro_torch.obs.Observability` hub the scheduler drives, and
+  annotates each prefill; with ``ObsConfig(profiler=True)`` prefill and
+  decode run inside ``torch.profiler.record_function`` ranges.
+* Fault injection (:mod:`repro_torch.serving.faults`): ``attach_faults``
+  wires an injector into the numeric guard and the page pool.
 
 The cache tree is a list of per-layer caches that the engine updates in
 place: ``decode``, ``prefill_slot`` and ``reset_slot`` return the same tree
@@ -37,7 +48,9 @@ they were given (the reference donates and rebuilds it).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Any
 
 import numpy as np
@@ -49,8 +62,11 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import cache_cfg_for, check_serving
+from repro_torch.obs import Observability, ObsConfig
+from repro_torch.obs.tracing import profiler_span
 from repro_torch.prefixcache import PrefixCache, extract_tree_chunks, splice_tree_chunks
 from repro_torch.serving.pagedpool import PagePool, PagePoolStore, pages_needed
+from repro_torch.serving.sampling import sample
 from repro_torch.serving.views import DenseCacheView, PagedCacheView
 
 __all__ = ["EngineConfig", "Engine", "prefix_cache_unsupported_reason"]
@@ -87,12 +103,24 @@ class EngineConfig:
     prefix_cache_eviction: str = "lru"
     numeric_guard: bool = True
     layout: str = "dense"
-    # paged pool size in pages, the zero page included; 0 gives
-    # batch * n_chunks allocatable pages (dense-equivalent)
+    # paged pool sizing, at most one of the two: ``pool_pages`` counts the
+    # zero page; ``pool_bytes`` is a device byte budget (pages = pool_bytes
+    # // page_bytes + 1); both 0 give batch * n_chunks allocatable pages
+    # (dense-equivalent)
     pool_pages: int = 0
-    obs: Any = None
+    pool_bytes: int = 0
+    # telemetry (repro_torch.obs.ObsConfig; True coerces to the defaults, a
+    # dict to ObsConfig(**dict)); None builds no telemetry state
+    obs: ObsConfig | None = None
 
     def __post_init__(self):
+        if self.obs is not None and not isinstance(self.obs, ObsConfig):
+            if isinstance(self.obs, bool):
+                object.__setattr__(self, "obs", ObsConfig() if self.obs else None)
+            elif isinstance(self.obs, dict):
+                object.__setattr__(self, "obs", ObsConfig(**self.obs))
+            else:
+                raise ValueError(f"obs must be an ObsConfig, bool, or dict, got {self.obs!r}")
         for knob, options in _CHOICES.items():
             value = str(getattr(self, knob))
             if value not in options:
@@ -112,10 +140,10 @@ class EngineConfig:
             raise ValueError(f"prefix_cache_ttl must be >= 0, got {self.prefix_cache_ttl}")
         if (self.prefix_cache_ttl or self.prefix_cache_eviction != "lru") and not self.prefix_cache:
             raise ValueError("prefix_cache_ttl / prefix_cache_eviction require prefix_cache=True")
-        if self.obs:
-            raise NotImplementedError("obs: serving telemetry (ROADMAP queue item 6)")
-        if self.layout == "dense" and self.pool_pages:
-            raise ValueError("pool_pages only applies to layout='paged'")
+        if self.pool_pages and self.pool_bytes:
+            raise ValueError("set pool_pages OR pool_bytes, not both")
+        if self.layout == "dense" and (self.pool_pages or self.pool_bytes):
+            raise ValueError("pool_pages/pool_bytes only apply to layout='paged'")
 
 
 def prefix_cache_unsupported_reason(cfg, policy: CompressionPolicy,
@@ -149,10 +177,14 @@ class Engine:
         self.cfg = model.cfg
         self.ecfg = ecfg
         self.params = params
-        # injectable monotonic clock of the prefix cache's TTL (tests pass a
-        # fake one); None is real time
+        # injectable monotonic clock of the prefix cache's TTL and of the
+        # telemetry (tests pass a fake one); None is real time
         self._clock = clock
         self.weight_version = 0
+        # the fault injector (attach_faults) and the telemetry hub, which the
+        # scheduler finds as ``engine.obs``; None when the knob is off
+        self._faults = None
+        self.obs = Observability(ecfg.obs, clock=clock) if ecfg.obs is not None else None
         reason = prefix_cache_unsupported_reason(self.cfg, ecfg.policy, self._cap())
         if ecfg.prefix_cache and reason is not None:
             raise ValueError(f"prefix_cache unsupported here: {reason}")
@@ -195,9 +227,15 @@ class Engine:
         self._n_chunks = self._cap() // ecfg.policy.buffer_size
         # one page is one chunk of every layer
         self._page_bytes = self.cfg.num_layers * cache_lib.page_nbytes(self._ccfg1)
-        n_pages = ecfg.pool_pages or ecfg.batch * self._n_chunks + 1
+        if ecfg.pool_pages:
+            n_pages = ecfg.pool_pages
+        elif ecfg.pool_bytes:
+            n_pages = ecfg.pool_bytes // self._page_bytes + 1
+        else:
+            n_pages = ecfg.batch * self._n_chunks + 1         # dense-equivalent
         if n_pages < 2:
-            raise ValueError(f"pool of {n_pages} pages cannot hold page 0 + one chunk")
+            raise ValueError(f"pool of {n_pages} pages cannot hold page 0 + one chunk "
+                             f"(page_bytes={self._page_bytes}; raise pool_bytes/pool_pages)")
         self._n_pages = n_pages
         self._new_pool()
 
@@ -205,6 +243,7 @@ class Engine:
         """A fresh allocator and device block table (and, since the trie's
         payloads are page ids of the pool being dropped, a fresh trie)."""
         self.pool = PagePool(self._n_pages, self.ecfg.batch, self._n_chunks, self._page_bytes)
+        self.pool.faults = self._faults
         self._push_block_tables()
         if self.prefix_cache is not None:
             self._new_prefix_cache()
@@ -224,14 +263,59 @@ class Engine:
         self.block_tables = cache_lib.BlockTables(
             host=host, device=torch.from_numpy(host).to(self.device))
 
+    def attach_faults(self, injector) -> None:
+        """Wire a :class:`~repro_torch.serving.faults.FaultInjector` into the
+        engine's hooks (prefill corruption here, admission faults in the page
+        pool); ``None`` detaches.  The scheduler calls it when constructed
+        with ``faults=...``."""
+        self._faults = injector
+        if self.pool is not None:
+            self.pool.faults = injector
+        if injector is not None:
+            injector.obs = self.obs
+
     def _guard_one(self, one: list) -> list:
-        """Numeric guard on one request's batch-1 cache (a hybrid's SSM
-        state included) before it is spliced into the shared tree: raises
+        """Numeric quarantine of one request's batch-1 cache (a hybrid's SSM
+        state included), after its prefill and before anything shares it
+        (the splice, the trie insert, the page scatter); an injected NaN
+        lands here first, so it takes a real one's path.  Raises
         :class:`NumericFault` on NaN/Inf, with the shared tree untouched."""
+        if self._faults is not None:
+            one = self._faults.corrupt_tree(one)
         if self.ecfg.numeric_guard and not bool(cache_lib.tree_finite(one)):
+            if self.obs is not None:
+                self.obs.quarantine()
+                self.obs.tracer.event_bound("quarantine")
             raise cache_lib.NumericFault(
-                "prefill produced NaN/Inf in a compressed chunk; shared cache state untouched")
+                "prefill produced NaN/Inf in a compressed chunk; quarantining this request "
+                "(shared cache state untouched)")
         return one
+
+    # -- telemetry hooks ----------------------------------------------------
+    @property
+    def _prof(self) -> bool:
+        return self.obs is not None and self.obs.cfg.profiler
+
+    def _span(self, name: str):
+        """Trace span on the scheduler-bound rid; no-op without obs."""
+        if self.obs is None:
+            return contextlib.nullcontext()
+        return self.obs.tracer.span_bound(name)
+
+    def _obs_prefill(self, plen: int, n_hit: int = 0, pages_reserved: int | None = None) -> None:
+        """Per-prefill telemetry on the guarded batch-1 tree, before the
+        splice: annotates the scheduler's open prefill span (prefix hit,
+        bucket, pages) and feeds the bucket histogram."""
+        o = self.obs
+        if o is None:
+            return
+        nb = self.ecfg.policy.buffer_size
+        bucket = (plen + nb - 1) // nb * nb if self._can_bucket else plen
+        o.observe_bucket(bucket)
+        ann = {"prompt_tokens": plen, "bucket_tokens": bucket, "prefix_hit_chunks": n_hit}
+        if pages_reserved is not None:
+            ann["pages_reserved"] = pages_reserved
+        o.tracer.annotate(**ann)
 
     # ------------------------------------------------------------------
     def _cold_prefill(self, batch1: dict):
@@ -244,18 +328,33 @@ class Engine:
         tokens = torch.as_tensor(np.asarray(batch1["tokens"]), dtype=torch.int32)
         n = tokens.shape[1]
         nb = ecfg.policy.buffer_size
-        if not self._can_bucket or n % nb == 0:
-            return self.model.prefill(self.params, {"tokens": tokens}, ecfg.policy,
-                                      self._cap(), prefill_mode=ecfg.prefill_mode)
-        padded = torch.nn.functional.pad(tokens, (0, -n % nb))
-        return self.model.prefill(self.params, {"tokens": padded}, ecfg.policy, self._cap(),
-                                  prefill_mode="streaming", padded_tail=True, true_len=n)
+        with profiler_span("gear.prefill", self._prof):
+            if not self._can_bucket or n % nb == 0:
+                return self.model.prefill(self.params, {"tokens": tokens}, ecfg.policy,
+                                          self._cap(), prefill_mode=ecfg.prefill_mode)
+            padded = torch.nn.functional.pad(tokens, (0, -n % nb))
+            return self.model.prefill(self.params, {"tokens": padded}, ecfg.policy, self._cap(),
+                                      prefill_mode="streaming", padded_tail=True, true_len=n)
+
+    def prefill(self, batch: dict):
+        """Full-batch prefill of ``batch["tokens"]`` [B, S] (wave mode; the
+        dense layout only).  Returns (logits [B, 1, V], a fresh cache tree)."""
+        if self.ecfg.layout == "paged":
+            raise NotImplementedError(
+                "full-batch wave prefill is dense-only; paged engines serve "
+                "through Engine.prefill_slot / Scheduler.run_continuous")
+        _check_text_batch(batch)
+        tokens = torch.as_tensor(batch["tokens"]).to(torch.int32)
+        with profiler_span("gear.prefill", self._prof):
+            return self.model.prefill(self.params, {"tokens": tokens}, self.ecfg.policy,
+                                      self._cap(), prefill_mode=self.ecfg.prefill_mode)
 
     def decode(self, token_batch: dict, caches: list, pos):
         """One decode step over all slots (``pos``: scalar or per-slot [B])."""
-        return self.model.decode_step(self.params, token_batch, caches, pos,
-                                      self.ecfg.policy, self._cap(),
-                                      block_tables=self.block_tables)
+        with profiler_span("gear.decode", self._prof):
+            return self.model.decode_step(self.params, token_batch, caches, pos,
+                                          self.ecfg.policy, self._cap(),
+                                          block_tables=self.block_tables)
 
     def prefill_slot(self, batch1: dict, caches: list, slot: int, admit: bool = True,
                      reserve_tokens: int | None = None):
@@ -292,7 +391,8 @@ class Engine:
         return logits, caches
 
     def _prefill_via_trie(self, batch1: dict, admit: bool, commit, scaffold, payloads,
-                          reserve=lambda hit: None, abort=lambda: None):
+                          reserve=lambda hit: None, abort=lambda: None,
+                          pages_reserved: int | None = None):
         """The prefix-cache protocol both layouts share.  Match the raw
         prompt's longest cached chunk-aligned prefix (leaving at least one
         suffix token); ``reserve(hit payloads)`` (paged: the slot's pages);
@@ -302,7 +402,8 @@ class Engine:
         writes the batch-1 tree into the layout; with ``admit``, the
         prompt's newly closed chunks go into the trie as
         ``payloads(one, n_hit, n_closed)``.  The match is released on every
-        exit.  Returns the logits."""
+        exit.  ``pages_reserved`` only annotates the trace.  Returns the
+        logits."""
         tokens = np.asarray(batch1["tokens"])[0]
         nb = self.ecfg.policy.buffer_size
         n = int(tokens.shape[0])
@@ -321,7 +422,9 @@ class Engine:
             except BaseException:
                 abort()
                 raise
-            commit(one, n_hit, reservation)
+            self._obs_prefill(n, n_hit, pages_reserved)
+            with self._span("splice"):
+                commit(one, n_hit, reservation)
             if self.prefix_cache is not None and admit and n // nb > n_hit:
                 self.prefix_cache.insert(tokens, payloads(one, n_hit, n // nb),
                                          start_chunk=n_hit)
@@ -343,13 +446,14 @@ class Engine:
         suf = torch.as_tensor(np.asarray(tokens[n_hit * nb:], np.int32))[None]
         n_suf = suf.shape[1]
         start = n_hit * nb
-        if n_suf % nb == 0:
-            return self.model.prefill_suffix(self.params, {"tokens": suf}, one1, start,
-                                             ecfg.policy, self._cap())
-        padded = torch.nn.functional.pad(suf, (0, -n_suf % nb))
-        return self.model.prefill_suffix(self.params, {"tokens": padded}, one1, start,
-                                         ecfg.policy, self._cap(), padded_tail=True,
-                                         true_len=n_suf)
+        with profiler_span("gear.prefill_suffix", self._prof):
+            if n_suf % nb == 0:
+                return self.model.prefill_suffix(self.params, {"tokens": suf}, one1, start,
+                                                 ecfg.policy, self._cap())
+            padded = torch.nn.functional.pad(suf, (0, -n_suf % nb))
+            return self.model.prefill_suffix(self.params, {"tokens": padded}, one1, start,
+                                             ecfg.policy, self._cap(), padded_tail=True,
+                                             true_len=n_suf)
 
     def _prefill_slot_paged(self, batch1, caches, slot, admit, reserve_tokens):
         nb = self.ecfg.policy.buffer_size
@@ -387,7 +491,7 @@ class Engine:
             self._push_block_tables()
 
         logits = self._prefill_via_trie(
-            batch1, admit, commit, reserve=reserve, abort=abort,
+            batch1, admit, commit, reserve=reserve, abort=abort, pages_reserved=n_total,
             scaffold=lambda hit: self._gather_scaffold(caches, [int(p) for p in hit]),
             payloads=lambda one, lo, hi: [int(p) for p in self.pool.block_tables[slot, lo:hi]])
         return logits, caches
@@ -473,3 +577,86 @@ class Engine:
         if self.ecfg.layout == "paged":
             return PagedCacheView(self, caches)
         return DenseCacheView(self, caches)
+
+    # -- wave mode ----------------------------------------------------------
+    def generate(self, batch: dict, max_new_tokens: int, generator: torch.Generator | None = None,
+                 active=None):
+        """Wave generation: one full-batch prefill, then ``max_new_tokens - 1``
+        lockstep decode steps.  Returns (tokens [B, T] int32 numpy, stats).
+
+        Tokens come from :func:`~repro_torch.serving.sampling.sample` with
+        ``generator`` (default: seeded 0); at temperature 0 they are greedy.
+        With an ``eos_id`` a row that sampled it keeps emitting it, and the
+        loop stops once every row has.  ``active``: optional bool mask [B]
+        of rows holding real requests; padded copy rows are left out of
+        ``decode_tok_per_s``.  Dense layout only."""
+        ecfg = self.ecfg
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        t0 = time.time()
+        logits, caches = self.prefill(batch)
+        tok = sample(logits[:, -1], ecfg.temperature, ecfg.top_k, generator)
+        self._sync()
+        t_prefill = time.time() - t0
+        prompt_len = self._prompt_len(batch)
+        B = tok.shape[0]
+        out = [tok]
+        done = torch.zeros(B, dtype=torch.bool, device=tok.device)
+        t1 = time.time()
+        for t in range(max_new_tokens - 1):
+            pos = np.full(B, prompt_len + t, np.int32)
+            logits, caches = self.decode({"tokens": tok[:, None]}, caches, pos)
+            tok = sample(logits[:, -1], ecfg.temperature, ecfg.top_k, generator)
+            if ecfg.eos_id >= 0:
+                done = done | (tok == ecfg.eos_id)
+                tok = torch.where(done, torch.full_like(tok, ecfg.eos_id), tok)
+            out.append(tok)
+            if ecfg.eos_id >= 0 and bool(done.all()):
+                break
+        toks = torch.stack(out, dim=1).cpu().numpy()
+        t_decode = time.time() - t1
+        stats = {
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "decode_tok_per_s": self._decode_tok_per_s(toks, t_decode, active),
+            "cache_bytes": self.cache_nbytes(caches),
+        }
+        return toks, stats
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _decode_tok_per_s(self, toks: np.ndarray, t_decode: float, active) -> float:
+        """Decode throughput over useful tokens only: padded copy rows
+        (``active`` False) and the filler after a row's EOS are left out."""
+        B, T = toks.shape[0], toks.shape[1]
+        act = np.ones(B, bool) if active is None else np.asarray(active, bool)
+        n_use = np.full(B, T)
+        if self.ecfg.eos_id >= 0:
+            hit = toks == self.ecfg.eos_id
+            has = hit.any(axis=1)
+            n_use[has] = hit.argmax(axis=1)[has] + 1      # keep the EOS itself
+        useful_decode = int(np.maximum(n_use - 1, 0)[act].sum())   # 1st token: prefill
+        return useful_decode / max(t_decode, 1e-9)
+
+    @staticmethod
+    def _prompt_len(batch: dict) -> int:
+        return int(batch["tokens"].shape[1])
+
+    @staticmethod
+    def cache_nbytes(caches: list) -> int:
+        """Bytes of every tensor of a cache tree (a hybrid's SSM states and
+        an RWKV6 model's recurrent states included)."""
+        return sum(t.numel() * t.element_size() for layer in caches
+                   for part in cache_lib._parts(layer) for t in part.tensors().values())
+
+
+def _check_text_batch(batch: dict) -> None:
+    """Wave mode serves text token ids [B, S] only."""
+    extra = sorted(set(batch) - {"tokens"})
+    rank = batch["tokens"].ndim
+    if extra or rank != 2:
+        raise NotImplementedError(
+            f"audio and VLM batches (extra keys {extra}, token rank {rank}): those model "
+            "families arrive with ROADMAP queue 1, item 8")

@@ -111,6 +111,10 @@ class PagePool:
         self._slot_n = np.zeros(batch, np.int64)   # pages held per slot
         self.stats = {"admits": 0, "rejects": 0, "shared_pages": 0,
                       "fresh_pages": 0, "freed_pages": 0}
+        # fault-injection hook (serving/faults.py): a FaultInjector whose
+        # on_admit may raise PoolExhausted before any state change; None in
+        # production
+        self.faults = None
 
     # -- capacity ----------------------------------------------------------
     @property
@@ -164,6 +168,12 @@ class PagePool:
             raise ValueError(
                 f"request needs {n_total} pages but the block table has "
                 f"{self.n_chunks} chunk entries (capacity bound)")
+        if self.faults is not None:
+            try:
+                self.faults.on_admit(slot)
+            except PoolExhausted:
+                self.stats["rejects"] += 1
+                raise
         n_fresh = n_total - len(shared)
         if n_fresh > len(self._free):
             self.stats["rejects"] += 1

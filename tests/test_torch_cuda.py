@@ -724,3 +724,36 @@ def test_prefill_row_products_do_not_depend_on_row_count(dev, K, N):
     cold = rowwise(lambda t: t @ w, x)
     for lo, hi in ((512, 576), (512, 640), (1088, 1152), (0, 64)):
         assert torch.equal(rowwise(lambda t: t @ w, x[:, lo:hi]), cold[:, lo:hi]), (lo, hi)
+
+
+def test_wave_prefill_row_matches_batch1_prefill(dev):
+    """A batch-4 monolithic prefill (the wave path: ``flash_prefill`` at BHq =
+    4 x heads, the plain compression at batch 4) computes, row for row, what
+    a batch-1 prefill of the same left-padded prompt does: its last-position
+    logits bit for bit, as ``chip_smoke.py`` path 7; smoke llama2-7b at head_dim
+    128 (the card's ``flash_prefill`` build), four prompts padded to 300."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.scheduler import _pad
+
+    cfg = dataclasses.replace(smoke_config("llama2-7b"), head_dim=128, num_layers=4)
+    model = build_model(cfg)
+    eng = Engine(model, model.init(seed=0, device=dev),
+                 EngineConfig(batch=4, capacity=384, policy=named_policy("gear_kcvt4")),
+                 device=dev)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (300, 211, 97, 256)]
+    padded = np.stack([_pad(p, 300) for p in prompts])
+    before = fp.flash_prefill.launches
+    wave, _ = eng.prefill({"tokens": padded})
+    assert fp.flash_prefill.launches - before == cfg.num_layers
+    for i in range(4):
+        one, _ = eng.prefill({"tokens": padded[i:i + 1]})
+        err = float((one[0].float() - wave[i].float()).abs().max())
+        assert torch.equal(one[0], wave[i]), (i, err)

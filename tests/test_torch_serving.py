@@ -115,7 +115,10 @@ STREAM_PAGED = dict(prefill_mode="streaming", layout="paged")
     (dict(fused="off"), NotImplementedError), (dict(fused="interpret"), NotImplementedError),
     (dict(STREAM_PAGED, prefix_cache=True), None),
     (dict(pool_pages=8), ValueError),
-    (dict(prefix_cache=True), ValueError), (dict(obs=True), NotImplementedError),
+    # obs=True is ported; an obs config that asks for the fidelity probes
+    # (ROADMAP queue 1, item 7) is what still raises
+    (dict(prefix_cache=True), ValueError),
+    (dict(obs={"fidelity_every_n": 1}), NotImplementedError),
     (dict(fused="bogus"), ValueError),
 ], ids=["fused-off-NotImplementedError", "fused-interpret-NotImplementedError",
         "prefix_cache-streaming-paged-accepted", "pool_pages-dense-ValueError",
@@ -124,13 +127,15 @@ STREAM_PAGED = dict(prefill_mode="streaming", layout="paged")
 def test_engine_config_rejects_unported_options(options, exc):
     """Options not ported yet raise ``NotImplementedError``, invalid ones the
     reference's ``ValueError`` (the prefix cache needs streaming prefill);
-    the prefix cache with streaming prefill is accepted on either layout."""
+    the prefix cache with streaming prefill is accepted on either layout,
+    and so is telemetry without the fidelity probes."""
     if exc is None:
         EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **options)
     else:
         with pytest.raises(exc):
             EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **options)
     EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **STREAM_PAGED)
+    EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), obs=True)
     if options == dict(prefix_cache=True):
         with pytest.raises(ValueError, match="prefix_cache requires prefill_mode='streaming'"):
             EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **options)

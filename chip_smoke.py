@@ -71,7 +71,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    show ``gear_decode`` and ``flash_prefill`` on the path, and the live
    layer-0 cache of one decode step is held against the plain version, and
    the timer's own check runs on it (CUDA events beside the profiler's
-   kernel time); then ``torch.profiler`` windows over one prefill and 8 decode steps say
+   kernel time); path 10b: that step's layer-0 ``gear_attend`` output (the
+   kernel) against the portable ``cache.attend`` on the same cache (atol
+   3e-2, the reference's bound for its f32 / bf16 pair); then
+   ``torch.profiler`` windows over one prefill and 8 decode steps say
    where the time goes (tables under ``build/profile/``);
 11. serving, path 2: the same requests through llama2-7b at all its 32
     layers with ``prefill_mode="streaming", layout="paged"`` and a pool of
@@ -153,12 +156,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
     ``FAILED``, every ``OK`` / ``DEGRADED`` request's greedy tokens bit for
     bit path 5's, one complete trace per rid, and the metrics counting each
     fired site;
-18. the launcher: ``python -m repro_torch.launch.serve`` at full width as
+18. serving, path 9: the paper's FP16 baseline, llama2-7b at all 32 layers
+    with ``policy=fp16`` (monolithic prefill, dense layout, the path-1
+    requests, 96 new tokens): every request ``OK``, 32 ``flash_prefill`` per
+    prefill and no ``gear_decode`` or ``gear_compress`` launch; the live
+    layer-0 decode attend of one step (the portable ``cache.attend``) held
+    against an f64 softmax(q·Kᵀ)·V of the same FP16 cache; decode tok/s,
+    prefill ms, peak memory and ``Engine.cache_nbytes`` printed beside path
+    1's gear_kcvt4 readings;
+19. serving, path 10a: per_token_q4 (per-token-group K, not the kernels'
+    layout), monolithic prefill, the paged layout with path 2's pool, 16 new
+    tokens: every request ``OK``, no ``gear_decode`` / ``gear_decode_paged``
+    launch, and the live layer-0 ``attend_paged`` output equal, bit for bit,
+    to ``attend`` on the gathered dense cache;
+20. serving, path 11: path 5's engine and traffic twice more, with
+    ``obs=ObsConfig()`` (telemetry on; its wall beside path 5's) and with
+    ``obs=ObsConfig(fidelity_every_n=1)`` (the fidelity probes): tokens bit
+    for bit path 5's in both; no probe error, at least one probe, every
+    layer in a report with finite K/V errors, 32 ``flash_prefill`` launches
+    (the FP16 shadow prefill) per probe;
+21. the launcher: ``python -m repro_torch.launch.serve`` at full width as
     subprocesses, once in wave mode (batch 4, prompt 512, 16 tokens) and once
     in continuous + paged mode with ``--obs``, ``--metrics-json`` and
     ``--trace-out`` under ``build/serve/``; each must exit 0 and print the
     reference launcher's lines, and both JSON files must parse;
-19. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
+22. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
     by path), the card's name and power limit, and the final
     ``{"ok": true, "device": {...}}`` line.
 
@@ -1365,6 +1387,35 @@ class Capture:
         setattr(self.module, self.name, self.real)
 
 
+class CallCheck:
+    """Stand-in for ``module.name`` that forwards every call and, at its
+    ``index``-th call (0-based), hands the call's arguments and result to
+    ``check(args, kwargs, out)``, keeping what it returns in ``found``.
+    It has ``Capture``'s ``seen`` / ``indices`` / ``restore`` for ``drive``."""
+
+    def __init__(self, module, name: str, index: int, check):
+        self.module, self.name, self.index, self.check = module, name, index, check
+        self.indices = (index,)
+        self.real = getattr(module, name)
+        self.calls = 0
+        self.seen = {}
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        out = self.real(*args, **kwargs)
+        if self.calls == self.index:
+            self.seen[self.index] = self.check(args, kwargs, out)
+        self.calls += 1
+        return out
+
+    @property
+    def found(self):
+        return self.seen.get(self.index)
+
+    def restore(self) -> None:
+        setattr(self.module, self.name, self.real)
+
+
 def requests(cfg) -> list:
     """The 8 prompts both serving paths answer: raw lengths drawn from
     300-900 and token ids from numpy seed 0."""
@@ -1499,9 +1550,11 @@ def serving(model, params, cfg, layers: int, flush, reports: dict) -> dict:
     pol = named_policy("gear_kcvt4")
     eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=CAP_SERVE, policy=pol),
                  device=DEV)
-    # layer 0 of decode step 40 (all 4 slots live)
+    # layer 0 of decode step 40 (all 4 slots live): its gear_decode operands,
+    # and (path 10b) its gear_attend output against the portable attend
     cap = Capture(ops, "gear_decode", 40 * layers)
-    summary = drive(eng, cfg, requests(cfg), [cap])
+    att = CallCheck(ops, "gear_attend", 40 * layers, portable_attend_check)
+    summary = drive(eng, cfg, requests(cfg), [cap, att])
     launches, steps = summary["launches"], summary["decode_steps"]
     if launches["flash_prefill"] != N_REQUESTS * layers:
         fail(f"flash_prefill launches {launches['flash_prefill']} != 8 prefills x {layers}")
@@ -1518,7 +1571,13 @@ def serving(model, params, cfg, layers: int, flush, reports: dict) -> dict:
                 rep)
     reports["gear_decode"]["launches_by_path"] = {"monolithic_dense": launches["gear_decode"]}
     reports["flash_prefill"]["launches_by_path"] = {"monolithic_dense": launches["flash_prefill"]}
-    summary["layers"] = layers
+    err, lengths = att.found
+    print(f"  path 10b: live layer-0 gear_attend (the kernel) vs the portable cache.attend on "
+          f"the same cache (slot lengths {lengths}): max_abs_err={err:.3e} (tol {ATTEND_TOL})")
+    if not err <= ATTEND_TOL:
+        fail(f"the portable attend disagrees with gear_attend on a live cache: {err}")
+    summary.update(layers=layers, portable_attend_err=err,
+                   cache_nbytes=cache_nbytes(model, pol))
     profile(eng, cfg, HERE / "build" / "profile", "monolithic_dense")
     return summary
 
@@ -2239,6 +2298,173 @@ def serving_resilience(model, params, cfg, layers: int, flush, reports: dict) ->
             "launches": launches, "wall_s": wall, "faults_metric": fired}
 
 
+ATTEND_TOL = 3e-2             # portable attend vs gear_attend (tests/test_cache.py:118)
+FP16_ATTEND_RTOL = 1e-2       # FP16 attend (bf16 out) vs f64, relative to max(1, |out|)
+PER_TOKEN_TOKENS = 16         # path 10a's budget per request, cut from 96 for time
+
+
+def portable_attend_check(args, kwargs, out):
+    """Path 10b: a live ``gear_attend`` call's output against the portable
+    ``cache.attend`` on the same cache and query."""
+    from repro_torch.core import cache as cache_lib
+
+    ccfg, cache, q, scale = args
+    want = cache_lib.attend(ccfg, cache, q, scale)
+    return float((want.float() - out.float()).abs().max()), [int(x) for x in cache.length]
+
+
+def cache_nbytes(model, pol) -> int:
+    """``Engine.cache_nbytes`` of a batch-4, capacity-1152 tree of ``pol``
+    (built on the meta device: no memory)."""
+    from repro_torch.serving.engine import Engine
+
+    return Engine.cache_nbytes(model.init_caches(pol, B_SERVE, CAP_SERVE, device="meta"))
+
+
+def record_launches(reports: dict, path: str, launches: dict) -> None:
+    for name, n in launches.items():
+        reports[name].setdefault("launches_by_path", {})[path] = n
+
+
+def serving_fp16(model, params, cfg, layers: int, flush, reports: dict, gear: dict) -> dict:
+    """Path 9: the paper's FP16 baseline (monolithic prefill, dense layout),
+    beside path 1's gear_kcvt4 readings ``gear``."""
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core.policy import named_policy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = named_policy("fp16")
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=CAP_SERVE, policy=pol),
+                 device=DEV)
+
+    def f64_check(args, kwargs, out):
+        ccfg, cache, q, scale = args
+        B, Hq, Dh = q.shape
+        H = ccfg.kv_heads
+        qd = q.double().reshape(B, H, Hq // H, Dh)
+        s = torch.einsum("bhgd,bhsd->bhgs", qd, cache.k.double()) * scale
+        valid = torch.arange(cache.k.shape[2], device=q.device)[None, :] < cache.length[:, None]
+        s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+        want = torch.einsum("bhgs,bhsd->bhgd", torch.softmax(s, dim=-1), cache.v.double())
+        want = want.reshape(B, Hq, Dh)
+        err = float((out.double() - want).abs().max())
+        return err, err / max(1.0, float(want.abs().max())), [int(x) for x in cache.length]
+
+    chk = CallCheck(cache_lib, "attend", 40 * layers, f64_check)   # layer 0, step 40
+    summary = drive(eng, cfg, requests(cfg), [chk])
+    launches = summary["launches"]
+    if launches["flash_prefill"] != N_REQUESTS * layers:
+        fail(f"flash_prefill launches {launches['flash_prefill']} != 8 prefills x {layers}")
+    if launches["gear_decode"] or launches["gear_decode_paged"] or launches["gear_compress"]:
+        fail(f"the FP16 path launched a GEAR kernel: {launches}")
+    err, rel, lengths = chk.found
+    print(f"  live layer-0 FP16 decode attend (slot lengths {lengths}) vs f64 softmax(q K^T) V: "
+          f"max_abs_err={err:.3e}, relative {rel:.3e} (tol {FP16_ATTEND_RTOL})")
+    if not rel <= FP16_ATTEND_RTOL:
+        fail(f"the FP16 decode attend disagrees with f64: {err}")
+    summary.update(layers=layers, attend_err=err, cache_nbytes=cache_nbytes(model, pol))
+    print(f"  FP16 vs gear_kcvt4 (path 1, depth {gear['layers']}; {smi()}): decode tok/s "
+          f"{summary['decode_tok_per_s']:.1f} vs {gear['decode_tok_per_s']:.1f}; prefill ms per "
+          f"request {summary['prefill_ms_per_request']} vs {gear['prefill_ms_per_request']}; "
+          f"max_memory_allocated {summary['max_memory_allocated_gb']:.3f} vs "
+          f"{gear['max_memory_allocated_gb']:.3f} GB; cache_nbytes "
+          f"{summary['cache_nbytes'] / 1e9:.3f} vs {gear['cache_nbytes'] / 1e9:.3f} GB")
+    record_launches(reports, "fp16_dense", launches)
+    return summary
+
+
+def serving_per_token_paged(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 10a: per_token_q4 on the paged layout through ``attend_paged``."""
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core.policy import named_policy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = named_policy("per_token_q4")
+    pages = B_SERVE * (CAP_SERVE // pol.buffer_size) * 2 // 3 + 1     # path 2's pool
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=CAP_SERVE, policy=pol,
+                                             layout="paged", pool_pages=pages), device=DEV)
+    if eng.attend_path != "xla":
+        fail(f"per_token_q4 reports attend path {eng.attend_path!r}, not the reference's 'xla'")
+
+    def gathered(args, kwargs, out):
+        ccfg, pcache, bt, q, scale = args
+        want = cache_lib.attend(ccfg, cache_lib.paged_to_dense(ccfg, pcache, bt), q, scale)
+        return bool(torch.equal(want, out)), [int(x) for x in pcache.length]
+
+    chk = CallCheck(cache_lib, "attend_paged", 8 * layers, gathered)    # layer 0, step 8
+    summary = drive(eng, cfg, requests(cfg), [chk], new_tokens=PER_TOKEN_TOKENS)
+    launches = summary["launches"]
+    if launches["gear_decode"] or launches["gear_decode_paged"]:
+        fail(f"per_token_q4 decode launched gear_decode: {launches}")
+    if launches["flash_prefill"] != N_REQUESTS * layers:
+        fail(f"flash_prefill launches {launches['flash_prefill']} != 8 prefills x {layers}")
+    same, lengths = chk.found
+    print(f"  live layer-0 attend_paged (slot lengths {lengths}) equals attend on the gathered "
+          f"dense cache bit for bit: {same}; pool {summary['pool']}")
+    if not same:
+        fail("attend_paged differs from attend on the gathered dense cache")
+    summary.update(layers=layers, cache_nbytes=cache_nbytes(model, pol))
+    record_launches(reports, "per_token_paged", launches)
+    return summary
+
+
+def serving_telemetry(model, params, cfg, layers: int, flush, reports: dict,
+                      path5: dict) -> dict:
+    """Path 11: path 5's engine and traffic with telemetry on, then with the
+    fidelity probes; both must give path 5's tokens bit for bit."""
+    from repro_torch.core.policy import named_policy
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving import ObsConfig
+
+    pol = named_policy("gear_kcvt4")
+    out = {"layers": layers, "path5_wall_s": path5["wall_s"]}
+    for key, obs in (("obs_on", ObsConfig()), ("probes_on", ObsConfig(fidelity_every_n=1))):
+        eng = Engine(model, params, EngineConfig(
+            batch=B_SERVE, capacity=CAP_SERVE, policy=pol, prefill_mode="streaming",
+            layout="paged", pool_pages=PREFIX_POOL_PAGES, prefix_cache=True, obs=obs), device=DEV)
+        kept = {}
+        summary = drive(eng, cfg, prefix_requests(cfg), [], keep=kept)
+        diff = [rid for rid, r in kept["results"].items()
+                if not np.array_equal(r.tokens, LIVE["path5_tokens"][rid])]
+        print(f"  {key}: wall {summary['wall_s']:.2f} s (path 5, telemetry off: "
+              f"{path5['wall_s']:.2f} s); requests whose tokens differ from path 5's: {diff}")
+        if diff:
+            fail(f"{key}: tokens differ from path 5's for rids {diff}")
+        record_launches(reports, f"telemetry_paged_{key}", summary["launches"])
+        out[key] = {"wall_s": summary["wall_s"], "decode_tok_per_s": summary["decode_tok_per_s"],
+                    "launches": summary["launches"]}
+    reg = eng.obs.registry
+    probes = int(reg.get("fidelity_probes_total").value())
+    errors = int(reg.get("fidelity_probe_errors_total").value())
+    skipped = int(reg.get("fidelity_probe_skipped_total").value())
+    reps = list(eng.obs.fidelity.reports)
+    flash = out["probes_on"]["launches"]["flash_prefill"]
+    print(f"  fidelity: {probes} probes, {skipped} skipped by the budget, {errors} errors; "
+          f"{flash} flash_prefill launches (the FP16 shadow prefills)")
+    if errors or probes < 1 or len(reps) != probes:
+        fail(f"fidelity probes: {probes} run, {errors} errors, {len(reps)} reports")
+    if flash != probes * layers:
+        fail(f"flash_prefill launches {flash} != {probes} shadow prefills x {layers}")
+    rows = [row for rep in reps for row in rep["layers"]]
+    if {row["layer"] for row in rows} != set(range(layers)):
+        fail(f"layers in the probe reports: {sorted({row['layer'] for row in rows})}")
+    errs = {f: np.array([row[f"{f}_rel_err"] for row in rows]) for f in ("k", "v")}
+    if not all(np.isfinite(e).all() for e in errs.values()):
+        fail("a probe reported a non-finite K/V relative error")
+    by_layer = {f: np.array([[row[f"{f}_rel_err"] for row in rows if row["layer"] == i]
+                             for i in range(layers)]) for f in ("k", "v")}
+    stats = {f: {"median_of_layer_medians": float(np.median(np.median(a, axis=1))),
+                 "max": float(a.max()), "layer_of_max": int(a.max(axis=1).argmax())}
+             for f, a in by_layer.items()}
+    drift = [rep["logits_drift"] for rep in reps]
+    print(f"  probes on prompts of {[rep['prompt_tokens'] for rep in reps]} tokens "
+          f"({[rep['closed_chunks'] for rep in reps]} closed chunks): K/V relative error "
+          f"{stats}; logit drift {drift} (random weights: these describe random activations)")
+    out.update(probes=probes, skipped=skipped, errors=errors, rel_err=stats, logits_drift=drift,
+               reports=reps)
+    return out
+
+
 LAUNCHER_RUNS = {
     "wave": ["--arch", "llama2-7b", "--batch", "4", "--prompt", "512", "--gen", "16"],
     "continuous": ["--arch", "llama2-7b", "--batch", "4", "--prompt", "512", "--gen", "16",
@@ -2533,13 +2759,28 @@ def main() -> int:
         built_models[full.num_layers] = build(full, full.num_layers)
     summaries["resilience_paged"] = serving_resilience(*built_models[full.num_layers],
                                                        full.num_layers, flush, reports)
+    llama = built_models[full.num_layers]
+    phase(f"[18] serving llama2-7b, fp16 (the paper's baseline), monolithic prefill, dense "
+          f"layout, depth {full.num_layers}")
+    summaries["fp16_dense"] = serving_fp16(*llama, full.num_layers, flush, reports,
+                                           summaries["monolithic_dense"])
+    phase(f"[19] serving llama2-7b, per_token_q4 (the portable attend path), monolithic "
+          f"prefill, paged pool, depth {full.num_layers}, {PER_TOKEN_TOKENS} new tokens per "
+          f"request")
+    summaries["per_token_paged"] = serving_per_token_paged(*llama, full.num_layers, flush,
+                                                           reports)
+    phase(f"[20] serving llama2-7b, gear_kcvt4, path 5's engine with telemetry, then with the "
+          f"fidelity probes, depth {full.num_layers}")
+    summaries["telemetry_paged"] = serving_telemetry(*llama, full.num_layers, flush, reports,
+                                                     summaries["prefix_paged"])
+    del llama
     built_models.clear()                  # the launcher builds its own model
     gc.collect()
     torch.cuda.empty_cache()
-    phase("[18] the launcher, python -m repro_torch.launch.serve, llama2-7b at full width")
+    phase("[21] the launcher, python -m repro_torch.launch.serve, llama2-7b at full width")
     summaries["launcher"] = launcher_runs()
 
-    phase("[19] summary")
+    phase("[22] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for rep in reports.values():

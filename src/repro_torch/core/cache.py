@@ -20,8 +20,19 @@ capacity, C = S / n_b, r = policy.rank, per = 32 // bits):
 (shown for per-channel K at chunk granularity; the per-token-group backbone
 stores K in the V layout.)  Where the reference returns a new pytree, the
 port writes into the cache's tensors in place and returns the same object;
-each such write says so.  FP16 and sliding-window caches are not ported yet
-(ROADMAP queue item 7).
+each such write says so.  The other two kinds keep K/V uncompressed:
+:class:`FP16LayerCache` (``k``/``v`` bf16 [B, H, S, Dh], the paper's FP16
+baseline) and :class:`WindowLayerCache`, a ring of the last ``window``
+tokens whose ``pos`` [B, W] holds each ring slot's absolute position (-1
+while empty).
+
+Decode attention over any kind has a portable twin here, plain PyTorch as
+the reference's is plain ``jnp``: :func:`attend` (a window ring, the dense
+reconstruction :func:`dense_kv` of an FP16 or GEAR cache, or GEAR's
+factored score path in the reference's bf16 rounding order) and
+:func:`attend_paged`.  The decode layer takes it where the ``gear_decode``
+kernels do not apply (``fused="off"``, FP16 and window caches, per-token K
+stats).
 
 Two more ways in and one more layout come from the reference:
 
@@ -44,20 +55,21 @@ import torch
 
 from repro_torch.core import gear as gear_lib
 from repro_torch.core import lowrank as lr_lib
+from repro_torch.core import packing
 from repro_torch.core.outlier import outlier_count
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.kernels.gear_compress import gear_compress
 from repro_torch.models.common import resolve_device
 
 __all__ = [
-    "CacheConfig", "GEARLayerCache", "NumericFault",
+    "CacheConfig", "GEARLayerCache", "FP16LayerCache", "WindowLayerCache", "NumericFault",
     "init_layer_cache", "prefill_layer_cache", "append_token",
     "splice_slot", "reset_slot", "tree_finite", "FIELDS",
     "streaming_supported", "chunk_prefix_view", "streaming_prefill_layer_cache",
     "PagedGEARLayerCache", "BlockTables", "POOLED_FIELDS", "paged_supported",
     "page_field_shapes", "page_nbytes", "init_paged_layer_cache", "paged_to_dense",
     "extract_prefix_chunks", "splice_prefix_chunks", "gather_pool_chunks", "scatter_pool_chunks",
-    "zero_pool_pages", "append_token_paged",
+    "zero_pool_pages", "append_token_paged", "dense_kv", "attend", "attend_paged",
 ]
 
 NEG_INF = -1e30
@@ -77,15 +89,11 @@ class CacheConfig:
     head_dim: int
     capacity: int            # max tokens (multiple of chunk)
     policy: CompressionPolicy
-    kind: str = "gear"       # only "gear" is ported
-    window: int = 0
+    kind: str = "gear"       # "gear" | "fp16" | "window"
+    window: int = 0          # for kind == "window"
 
     def __post_init__(self):
-        if self.kind != "gear":
-            raise NotImplementedError(
-                f"cache kind {self.kind!r} is not ported yet (ROADMAP queue "
-                "item 7: FP16/window caches)")
-        if self.capacity % self.chunk:
+        if self.kind == "gear" and self.capacity % self.chunk:
             raise ValueError(f"capacity {self.capacity} not a multiple of chunk {self.chunk}")
 
     @property
@@ -128,6 +136,35 @@ class GEARLayerCache:
         return {f: getattr(self, f) for f in FIELDS if getattr(self, f) is not None}
 
 
+@dataclasses.dataclass
+class FP16LayerCache:
+    """Uncompressed K/V [B, H, S, Dh] (bf16) and per-slot ``length``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+    def tensors(self) -> dict:
+        return {"k": self.k, "v": self.v, "length": self.length}
+
+
+@dataclasses.dataclass
+class WindowLayerCache:
+    """Ring buffer of the most recent ``window`` tokens (bf16 K/V [B, H, W,
+    Dh]); ``pos`` int32 [B, W] is the absolute position each ring slot holds,
+    -1 while empty (:data:`EMPTY`: what :func:`reset_slot` writes)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    length: torch.Tensor
+
+    EMPTY = {"pos": -1}
+
+    def tensors(self) -> dict:
+        return {"k": self.k, "v": self.v, "pos": self.pos, "length": self.length}
+
+
 class NumericFault(RuntimeError):
     """A compressed chunk failed the NaN/Inf finiteness guard."""
 
@@ -161,10 +198,20 @@ def _k_per_channel(cfg: CacheConfig) -> bool:
     return cfg.k_scheme()[0] == "per_channel"
 
 
-def init_layer_cache(cfg: CacheConfig, dtype=torch.bfloat16, device=None) -> GEARLayerCache:
-    """Zero layer cache on ``device`` (CUDA unless the caller names another)."""
+def init_layer_cache(cfg: CacheConfig, dtype=torch.bfloat16, device=None):
+    """Empty layer cache of ``cfg.kind`` on ``device`` (CUDA unless the caller
+    names another): zeros, and a window ring's ``pos`` -1."""
     device = resolve_device(device)
     B, H, Dh, S = cfg.batch, cfg.kv_heads, cfg.head_dim, cfg.capacity
+    if cfg.kind in ("fp16", "window"):
+        rows = S if cfg.kind == "fp16" else cfg.window
+        kv = dict(k=torch.zeros((B, H, rows, Dh), dtype=dtype, device=device),
+                  v=torch.zeros((B, H, rows, Dh), dtype=dtype, device=device),
+                  length=torch.zeros((B,), dtype=torch.int32, device=device))
+        if cfg.kind == "fp16":
+            return FP16LayerCache(**kv)
+        return WindowLayerCache(**kv, pos=torch.full((B, rows), -1, dtype=torch.int32,
+                                                      device=device))
     pol = cfg.policy
     per = 32 // pol.bits
     C, r = cfg.n_chunks, pol.rank
@@ -295,15 +342,31 @@ def _store_chunks(cfg: CacheConfig, cache: GEARLayerCache, comp: dict,
                 getattr(cache, f"{kv}_sp_idx")[rows, :, chunk0:chunk0 + n_chunks] = si
 
 
-def prefill_layer_cache(cfg: CacheConfig, cache: GEARLayerCache, k: torch.Tensor,
-                        v: torch.Tensor) -> GEARLayerCache:
-    """Fill a fresh layer cache from prefill K/V [B, H, n, Dh].
+def prefill_layer_cache(cfg: CacheConfig, cache, k: torch.Tensor, v: torch.Tensor):
+    """Fill a fresh layer cache from prefill K/V [B, H, n, Dh]: an FP16 cache
+    takes them whole, a window ring its last ``window`` tokens, a GEAR
+    cache compresses every closed chunk.
 
     Writes into ``cache`` in place (the reference builds a new tree) and
     returns it.
     """
     n = k.shape[2]
     B, H, _, Dh = k.shape
+    if cfg.kind == "fp16":
+        cache.k[:, :, :n] = k
+        cache.v[:, :, :n] = v
+        cache.length.fill_(n)
+        return cache
+    if cfg.kind == "window":
+        W = cfg.window
+        take = min(n, W)
+        pos = torch.arange(n - take, n, dtype=torch.int32, device=k.device)
+        slots = (pos % W).long()
+        cache.k[:, :, slots] = k[:, :, n - take:].to(cache.k.dtype)
+        cache.v[:, :, slots] = v[:, :, n - take:].to(cache.v.dtype)
+        cache.pos[:, slots] = pos
+        cache.length.fill_(n)
+        return cache
     nb = cfg.chunk
     n_full = (n // nb) * nb
     C_new = n_full // nb
@@ -323,12 +386,35 @@ def prefill_layer_cache(cfg: CacheConfig, cache: GEARLayerCache, k: torch.Tensor
     return cache
 
 
-def append_token(cfg: CacheConfig, cache: GEARLayerCache, k_t: torch.Tensor,
-                 v_t: torch.Tensor, lengths: np.ndarray) -> GEARLayerCache:
+def _append_rows(cfg: CacheConfig, cache, k_t: torch.Tensor, v_t: torch.Tensor) -> None:
+    """The FP16 / window append, in place: each slot writes its token at row
+    ``length`` (FP16; dropped once the cache is full, as the reference's
+    scatter drops it) or at ring slot ``length % window`` (whose ``pos``
+    becomes ``length``), then advances.  Device-side, no host sync."""
+    B = cache.length.shape[0]
+    bidx = torch.arange(B, device=k_t.device)
+    length = cache.length.long()
+    rows = cache.k.shape[2]
+    if cfg.kind == "window":
+        row, keep = length % rows, None
+        cache.pos[bidx, row] = cache.length
+    else:
+        keep = (length < rows)[:, None, None]
+        row = length.clamp(max=rows - 1)
+    for buf, x in ((cache.k, k_t), (cache.v, v_t)):
+        x = x.to(buf.dtype)
+        buf[bidx, :, row] = x if keep is None else torch.where(keep, x, buf[bidx, :, row])
+    cache.length += 1
+
+
+def append_token(cfg: CacheConfig, cache, k_t: torch.Tensor, v_t: torch.Tensor,
+                 lengths: np.ndarray):
     """Append one token's K/V [B, H, Dh] per slot; compress full buffers.
 
-    ``lengths`` is the host copy of ``cache.length`` before the append (the
-    engine knows it, so no device sync per layer).  Each slot writes its
+    An FP16 or window cache writes the token uncompressed
+    (:func:`_append_rows`).  For a GEAR cache, ``lengths`` is the host copy
+    of ``cache.length`` before the append (the engine knows it, so no device
+    sync per layer).  Each slot writes its
     buffer row ``length % n_b`` and advances; a slot whose buffer just
     filled (and whose chunk fits the capacity) gets its chunk compressed
     and written to its chunk slot, alone, at batch 1, so its compression
@@ -336,6 +422,9 @@ def append_token(cfg: CacheConfig, cache: GEARLayerCache, k_t: torch.Tensor,
     write nothing else, as the reference's dropped scatter.  All writes are
     in place.
     """
+    if cfg.kind != "gear":
+        _append_rows(cfg, cache, k_t, v_t)
+        return cache
     nb = cfg.chunk
     B = cache.length.shape[0]
     lengths = np.asarray(lengths, np.int64)
@@ -500,6 +589,207 @@ def streaming_prefill_layer_cache(cfg: CacheConfig, cache: GEARLayerCache, q: to
 
 
 # ---------------------------------------------------------------------------
+# Reconstruction and the portable decode attention
+
+
+def _expand_stat(cfg: CacheConfig, stat: torch.Tensor, kind: str) -> torch.Tensor:
+    """Expand compact scale/zero rows back to [B, H, S, Dh]."""
+    scheme, group = cfg.k_scheme() if kind == "k" else cfg.v_scheme()
+    B, H = stat.shape[0], stat.shape[1]
+    S, Dh = cfg.capacity, cfg.head_dim
+    if scheme == "per_channel":
+        g = cfg.chunk if group is None else group
+        return stat[:, :, :, None, :].expand(B, H, S // g, g, Dh).reshape(B, H, S, Dh)
+    g = Dh if group is None else group
+    return stat[..., None].expand(B, H, S, Dh // g, g).reshape(B, H, S, Dh)
+
+
+def _dequant_backbone(cfg: CacheConfig, packed, scale, zero, kind: str,
+                      dtype=torch.float32) -> torch.Tensor:
+    codes = packing.unpack(packed, cfg.policy.bits, cfg.head_dim).to(dtype)
+    s = _expand_stat(cfg, scale.to(dtype), kind)
+    z = _expand_stat(cfg, zero.to(dtype), kind)
+    return codes * s + z
+
+
+def _sparse_dense(cfg: CacheConfig, sp_val, sp_idx, kind: str) -> torch.Tensor:
+    """Densify cached outliers to [B, H, S, Dh] f32 by the reference's one-hot
+    sum (a row's top and bottom outliers may name one index)."""
+    B, H = sp_val.shape[0], sp_val.shape[1]
+    S, Dh, nb = cfg.capacity, cfg.head_dim, cfg.chunk
+    f32 = torch.float32
+    if kind == "k" and cfg.k_scheme()[0] == "per_channel":
+        # sp_* [B, H, C, Dh, 2k]: token index within the chunk
+        onehot = (sp_idx[..., None] == torch.arange(nb, device=sp_idx.device)).to(f32)
+        dense = torch.einsum("bhcdk,bhcdkn->bhcnd", sp_val.to(f32), onehot)
+        return dense.reshape(B, H, S, Dh)
+    # sp_* [B, H, S, 2k]: channel index within Dh
+    onehot = (sp_idx[..., None] == torch.arange(Dh, device=sp_idx.device)).to(f32)
+    return torch.einsum("bhsk,bhskd->bhsd", sp_val.to(f32), onehot)
+
+
+def _lowrank_dense(cfg: CacheConfig, a, b) -> torch.Tensor:
+    """Materialize per-chunk A·Bᵀ to [B, H, S, Dh] f32."""
+    B, H = a.shape[0], a.shape[1]
+    C, nb, Dh, r = cfg.n_chunks, cfg.chunk, cfg.head_dim, cfg.policy.rank
+    ac = a.reshape(B, H, C, nb, r).to(torch.float32)
+    return torch.einsum("bhcnr,bhcdr->bhcnd", ac, b.to(torch.float32)).reshape(
+        B, H, cfg.capacity, Dh)
+
+
+def dense_kv(cfg: CacheConfig, cache) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reconstruct dense K̂/V̂ [B, H, S, Dh] f32 (a window ring: [B, H, W, Dh]).
+
+    A GEAR cache's positions past each slot's length read 0 and its buffered
+    tokens read their FP16 values.  Reads ``cache`` only: every result is a
+    new tensor."""
+    f32 = torch.float32
+    if cfg.kind in ("fp16", "window"):
+        return cache.k.to(f32), cache.v.to(f32)
+    pol = cfg.policy
+    k_hat = _dequant_backbone(cfg, cache.k_packed, cache.k_scale, cache.k_zero, "k")
+    v_hat = _dequant_backbone(cfg, cache.v_packed, cache.v_scale, cache.v_zero, "v")
+    if pol.use_lowrank:
+        k_hat = k_hat + _lowrank_dense(cfg, cache.k_a, cache.k_b)
+        v_hat = v_hat + _lowrank_dense(cfg, cache.v_a, cache.v_b)
+    if pol.use_sparse:
+        k_hat = k_hat + _sparse_dense(cfg, cache.k_sp_val, cache.k_sp_idx, "k")
+        v_hat = v_hat + _sparse_dense(cfg, cache.v_sp_val, cache.v_sp_idx, "v")
+    # overlay each slot's buffered (uncompressed) tokens
+    nb, S = cfg.chunk, cfg.capacity
+    B, H, _, Dh = k_hat.shape
+    length = cache.length.long()
+    n_comp = (length // nb) * nb                                      # [B]
+    tok = torch.arange(S, device=length.device)
+    buf_slot = tok[None, :] - n_comp[:, None]                         # [B, S]
+    in_buf = (buf_slot >= 0) & (buf_slot < nb) & (tok[None, :] < length[:, None])
+    idx = buf_slot.clamp(0, nb - 1)[:, None, :, None].expand(B, H, S, Dh)
+    mask = in_buf[:, None, :, None]
+    k_hat = torch.where(mask, torch.gather(cache.buf_k.to(f32), 2, idx), k_hat)
+    v_hat = torch.where(mask, torch.gather(cache.buf_v.to(f32), 2, idx), v_hat)
+    valid = (tok[None, :] < length[:, None])[:, None, :, None]
+    return k_hat * valid, v_hat * valid
+
+
+def _scatter_rows(idx: torch.Tensor, val: torch.Tensor, width: int) -> torch.Tensor:
+    """The reference's vals-only scatter ``zeros([rows, width]).at[row,
+    idx].add(val)`` in ``val``'s dtype: idx, val [..., k] -> [..., width]."""
+    out = torch.zeros(idx.shape[:-1] + (width,), dtype=val.dtype, device=val.device)
+    return out.scatter_add_(-1, idx.long(), val)
+
+
+def _dot(eq: str, a: torch.Tensor, b: torch.Tensor, out=torch.bfloat16) -> torch.Tensor:
+    """A contraction of bf16 operands with the reference's
+    ``preferred_element_type``: products summed in f32, rounded once to
+    ``out``."""
+    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32)).to(out)
+
+
+def _masked_softmax_attend(qf, k, v, valid, scale: float) -> torch.Tensor:
+    """softmax(q·kᵀ · scale, masked) · v over [B, H, G, Dh] queries and
+    [B, H, T, Dh] f32 keys / values; ``valid`` [B, T]."""
+    scores = torch.einsum("bhgd,bhtd->bhgt", qf, k) * scale
+    scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, NEG_INF))
+    return torch.einsum("bhgt,bhtd->bhgd", torch.softmax(scores, dim=-1), v)
+
+
+def attend(cfg: CacheConfig, cache, q: torch.Tensor, scale: float,
+           use_factored: bool = True) -> torch.Tensor:
+    """Decode attention of one query token over the cache (the reference's
+    portable ``attend``).  q [B, Hq, Dh] with Hq = G * kv_heads -> [B, Hq,
+    Dh] in q's dtype.
+
+    A window ring attends the slots whose ``pos`` lies in ``[0, length)``;
+    an FP16 cache, or a GEAR cache with ``use_factored=False``, attends its
+    dense reconstruction (:func:`dense_kv`) in f32.  A GEAR cache otherwise
+    takes the factored path: backbone, low-rank ``(q·B)·Aᵀ`` and outlier
+    scores over the compressed region, the FP16 buffer beside them, one
+    two-piece softmax, then the weighted values the same way.  It computes
+    in bf16 where the reference does (every contraction summed in f32 and
+    rounded once to bf16), so it agrees with the reference to rounding.
+    Reads ``cache`` only."""
+    B, Hq, Dh = q.shape
+    H = cfg.kv_heads
+    G = Hq // H
+    f32, cdt = torch.float32, torch.bfloat16
+    qf = q.to(f32).reshape(B, H, G, Dh)
+
+    if cfg.kind == "window":
+        valid = (cache.pos >= 0) & (cache.pos < cache.length[:, None])
+        out = _masked_softmax_attend(qf, cache.k.to(f32), cache.v.to(f32), valid, scale)
+        return out.reshape(B, Hq, Dh).to(q.dtype)
+    if cfg.kind == "fp16" or not use_factored:
+        kf, vf = dense_kv(cfg, cache)
+        valid = torch.arange(cfg.capacity, device=q.device)[None, :] < cache.length[:, None]
+        out = _masked_softmax_attend(qf, kf, vf, valid, scale)
+        return out.reshape(B, Hq, Dh).to(q.dtype)
+
+    pol = cfg.policy
+    nb, C, S = cfg.chunk, cfg.n_chunks, cfg.capacity
+    length = cache.length.long()
+    n_comp = (length // nb) * nb                 # [B] per-slot compressed extent
+    n_buf = length - n_comp                      # [B] per-slot buffer fill
+    qc = qf.to(cdt)
+    per_channel_k = cfg.k_scheme()[0] == "per_channel"
+
+    # --- scores over the compressed region --------------------------------
+    k_codes = packing.unpack(cache.k_packed, pol.bits, Dh).to(cdt)
+    if per_channel_k:
+        g = nb if cfg.k_scheme()[1] is None else cfg.k_scheme()[1]
+        rows = S // g
+        sc = cache.k_scale.to(cdt).reshape(B, H, rows, Dh)
+        zr = cache.k_zero.to(cdt).reshape(B, H, rows, Dh)
+        # (q ⊙ scale_row)·codes + q·zero_row per row group of g tokens
+        q_sc = qc[:, :, :, None, :] * sc[:, :, None]                   # [B, H, G, rows, Dh]
+        s_bb = _dot("bhgrd,bhrnd->bhgrn", q_sc, k_codes.reshape(B, H, rows, g, Dh))
+        s_bb = (s_bb + _dot("bhgd,bhrd->bhgr", qc, zr)[..., None]).reshape(B, H, G, S)
+    else:
+        k_hat = _dequant_backbone(cfg, cache.k_packed, cache.k_scale, cache.k_zero, "k",
+                                  dtype=cdt)
+        s_bb = _dot("bhgd,bhsd->bhgs", qc, k_hat)
+    if pol.use_lowrank:                          # (q·B_c)·A_cᵀ per chunk
+        qb = _dot("bhgd,bhcdr->bhgcr", qc, cache.k_b)
+        a_c = cache.k_a.to(cdt).reshape(B, H, C, nb, pol.rank)
+        s_bb = s_bb + _dot("bhgcr,bhcnr->bhgcn", qb, a_c).reshape(B, H, G, S)
+    if pol.use_sparse:
+        if per_channel_k:                        # outliers densified along the chunk's tokens
+            sp = _scatter_rows(cache.k_sp_idx, cache.k_sp_val.to(cdt), nb)   # [B, H, C, Dh, nb]
+            s_bb = s_bb + _dot("bhgd,bhcdn->bhgcn", qc, sp).reshape(B, H, G, S)
+        else:                                    # f32, as the reference (promotes s_bb)
+            sp = _sparse_dense(cfg, cache.k_sp_val, cache.k_sp_idx, "k")
+            s_bb = s_bb + torch.einsum("bhgd,bhsd->bhgs", qf, sp)
+
+    # --- buffer scores -------------------------------------------------------
+    s_buf = _dot("bhgd,bhnd->bhgn", qc, cache.buf_k)
+
+    # --- masks + two-piece softmax ------------------------------------------
+    m_bb = (torch.arange(S, device=q.device)[None, :] < n_comp[:, None])[:, None, None, :]
+    m_buf = (torch.arange(nb, device=q.device)[None, :] < n_buf[:, None])[:, None, None, :]
+    s_bb = torch.where(m_bb, s_bb * scale, torch.full_like(s_bb, NEG_INF))
+    s_buf = torch.where(m_buf, s_buf * scale, torch.full_like(s_buf, NEG_INF))
+    m_all = torch.maximum(s_bb.amax(dim=-1), s_buf.amax(dim=-1))[..., None]
+    e_bb = torch.exp((s_bb - m_all).to(f32))
+    e_buf = torch.exp((s_buf - m_all).to(f32))
+    denom = e_bb.sum(dim=-1, keepdim=True) + e_buf.sum(dim=-1, keepdim=True)
+    w_cb = (e_bb / denom).to(cdt)
+    w_buf = e_buf / denom
+
+    # --- weighted values -------------------------------------------------------
+    v_codes = packing.unpack(cache.v_packed, pol.bits, Dh).to(cdt)
+    v_hat = (v_codes * _expand_stat(cfg, cache.v_scale.to(cdt), "v")
+             + _expand_stat(cfg, cache.v_zero.to(cdt), "v"))
+    if pol.use_sparse:                           # V outliers folded into the backbone
+        v_hat = v_hat + _scatter_rows(cache.v_sp_idx, cache.v_sp_val.to(cdt), Dh)
+    out = _dot("bhgs,bhsd->bhgd", w_cb, v_hat, out=f32)
+    if pol.use_lowrank:                          # (w·A_c)·B_cᵀ per chunk
+        wa = _dot("bhgcn,bhcnr->bhgcr", w_cb.reshape(B, H, G, C, nb),
+                  cache.v_a.reshape(B, H, C, nb, pol.rank))
+        out = out + _dot("bhgcr,bhcdr->bhgd", wa, cache.v_b, out=f32)
+    out = out + _dot("bhgn,bhnd->bhgd", w_buf.to(cdt), cache.buf_v, out=f32)
+    return out.reshape(B, Hq, Dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Slot protocol + numeric guard
 
 
@@ -521,12 +811,14 @@ def splice_slot(full, one, slot: int):
 
 
 def reset_slot(cache, slot: int):
-    """Return batch row ``slot`` to the empty state: every leaf zeroed (what
-    the reference's splice of a fresh zero cache writes; a hybrid's conv
-    window and recurrent state, and an RWKV6 state, included), in place."""
+    """Return batch row ``slot`` to the empty state, in place: what the
+    reference's splice of a fresh cache writes, i.e. every leaf zeroed (a
+    hybrid's conv window and recurrent state, and an RWKV6 state, included)
+    but a window ring's ``pos``, which goes back to -1."""
     for part in _parts(cache):
-        for t in part.tensors().values():
-            t[slot].zero_()
+        empty = getattr(part, "EMPTY", {})
+        for name, t in part.tensors().items():
+            t[slot].fill_(empty.get(name, 0))
     return cache
 
 
@@ -772,3 +1064,13 @@ def append_token_paged(cfg: CacheConfig, pcache: PagedGEARLayerCache, block_tabl
             pool = getattr(pcache, field)
             pool[page] = comp[field].reshape(pool.shape[1:])
     return pcache
+
+
+def attend_paged(cfg: CacheConfig, pcache: PagedGEARLayerCache, block_tables: torch.Tensor,
+                 q: torch.Tensor, scale: float, use_factored: bool = True) -> torch.Tensor:
+    """Portable paged decode attention: gather the slots' pages into the
+    dense layout (:func:`paged_to_dense`), then :func:`attend`; the same
+    values in the same shapes, so the result equals the dense path's bit
+    for bit."""
+    return attend(cfg, paged_to_dense(cfg, pcache, block_tables), q, scale,
+                  use_factored=use_factored)

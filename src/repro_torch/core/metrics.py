@@ -6,7 +6,7 @@ reports "KV size % of FP16": :func:`kv_size_breakdown` /
 :func:`kv_size_fraction` cover every policy on an ``n`` tokens × ``d``
 channels cache (one layer; layers scale linearly).  The masked Frobenius
 reductions (:func:`masked_rel_frobenius`, :func:`masked_share`) are what the
-fidelity probes read (ROADMAP queue 1, item 7).
+fidelity probes (:mod:`repro_torch.obs.fidelity`) read.
 """
 
 from __future__ import annotations

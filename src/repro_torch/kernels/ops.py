@@ -2,7 +2,9 @@
 ``repro.kernels.ops``).
 
 ``gear_attend`` / ``gear_attend_paged`` are decode attention over a dense /
-paged GEAR layer cache: the compressed region goes through ``gear_decode``
+paged GEAR layer cache in the kernel layout (:func:`fused_supported`; the
+decode layer sends every other layout to the portable
+``repro_torch.core.cache.attend``): the compressed region goes through ``gear_decode``
 / ``gear_decode_paged`` (the CUDA kernels for CUDA tensors, their plain
 versions for CPU tensors), and the FP16 streaming buffer is merged with one
 softmax rescale.  ``gear_attend_block`` is the streaming prefill's attention
@@ -24,11 +26,21 @@ from repro_torch.kernels.gear_decode import (device_extents, gear_decode, gear_d
                                               gear_decode_paged)
 from repro_torch.kernels.quant_pack import quant_pack
 
-__all__ = ["gear_attend", "gear_attend_paged", "gear_attend_block",
+__all__ = ["fused_supported", "gear_attend", "gear_attend_paged", "gear_attend_block",
            "flash_attention", "quantize_chunk"]
 
 # -1e30, never -inf: the merge relies on exp(-1e30 - m) == 0 without NaN.
 NEG_INF = -1e30
+
+
+def fused_supported(cfg: CacheConfig) -> bool:
+    """True when this layer cache has the ``gear_decode`` kernel layout: a
+    GEAR cache with per-channel K stats at chunk granularity (both of the
+    paper's recommended policies; not the per-token-group backbone, FP16
+    or window caches).  The streaming prefill's history scorer shares the
+    layout, so this is :func:`~repro_torch.core.cache.streaming_supported`,
+    as in the reference."""
+    return streaming_supported(cfg)
 
 
 def _flat(x, bh):
@@ -106,10 +118,10 @@ def gear_attend_paged(cfg: CacheConfig, pcache: PagedGEARLayerCache,
 
 
 def _attend_decode(cfg: CacheConfig, cache, q: torch.Tensor, scale: float, block_tables):
-    if not streaming_supported(cfg):       # the gear_decode layout
-        raise NotImplementedError(
-            "this cache layout needs the portable attend path (fused='off'), "
-            "not ported yet (ROADMAP queue item 7)")
+    if not fused_supported(cfg):
+        raise ValueError(
+            "gear_attend needs the gear_decode layout (a GEAR cache with per-channel K stats "
+            "at chunk granularity); other layouts take repro_torch.core.cache.attend")
     pol = cfg.policy
     B, Hq, Dh = q.shape
     H = cfg.kv_heads

@@ -18,8 +18,9 @@ equal the reference launcher's ``jax.random.randint`` draws, so the two
 launchers serve different prompts.
 
 ``--device`` (default ``cuda``) names the device; nothing falls back to the
-CPU when CUDA is absent.  ``--mesh`` (sharding, ROADMAP queue 1, item 10)
-and ``--fidelity-every`` (the fidelity probes, item 7) exit with a message.
+CPU when CUDA is absent.  ``--fidelity-every N`` turns on telemetry with the
+fidelity probes (one FP16 shadow prefill every Nth closed chunk).
+``--mesh`` (sharding, ROADMAP queue 1, item 10) exits with a message.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ def main(argv=None) -> None:
     ap.add_argument("--obs", action="store_true",
                     help="enable serving telemetry (metrics + traces)")
     ap.add_argument("--fidelity-every", type=int, default=0,
-                    help="obs: probe every Nth closed chunk (0 = off; not ported)")
+                    help="obs: probe every Nth closed chunk (0 = off)")
     ap.add_argument("--metrics-json", default="",
                     help="write the metrics registry snapshot here (JSON; implies --obs)")
     ap.add_argument("--trace-out", default="",
@@ -68,10 +69,7 @@ def main(argv=None) -> None:
     if args.mesh:
         raise SystemExit("--mesh: sharding over a device mesh is not ported "
                          "(ROADMAP queue 1, item 10)")
-    if args.fidelity_every:
-        raise SystemExit("--fidelity-every: the fidelity probes are not ported "
-                         "(ROADMAP queue 1, item 7)")
-    if args.metrics_json or args.trace_out:
+    if args.metrics_json or args.trace_out or args.fidelity_every:
         args.obs = True
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -90,7 +88,8 @@ def main(argv=None) -> None:
                  EngineConfig(batch=args.batch, capacity=cap, policy=pol,
                               temperature=args.temperature, layout=args.layout,
                               pool_bytes=args.pool_bytes,
-                              obs=ObsConfig() if args.obs else None),
+                              obs=(ObsConfig(fidelity_every_n=max(args.fidelity_every, 0))
+                                   if args.obs else None)),
                  device=args.device)
     rng = np.random.RandomState(1)
 
@@ -115,8 +114,11 @@ def main(argv=None) -> None:
         print(line)
         if eng.obs is not None:
             cov = eng.obs.tracer.coverage([r.rid for r in results])
-            print(f"obs: traces {len(cov['statuses'])}/{len(results)} rids"
-                  f" complete={cov['complete']}")
+            line = (f"obs: traces {len(cov['statuses'])}/{len(results)} rids"
+                    f" complete={cov['complete']}")
+            if eng.obs.fidelity is not None:
+                line += f", fidelity probes {len(eng.obs.fidelity.reports)}"
+            print(line)
             if args.metrics_json:
                 pathlib.Path(args.metrics_json).parent.mkdir(parents=True, exist_ok=True)
                 eng.obs.write_metrics_json(args.metrics_json)

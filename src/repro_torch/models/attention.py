@@ -1,7 +1,7 @@
 """Multi-head attention with GQA and RoPE: full-sequence prefill through
 ``flash_prefill``, streaming prefill into a GEAR layer cache, and cached
-decode over a dense or paged GEAR layer cache (port of
-``repro.models.attention``'s flash, streaming and fused-decode paths).
+decode over a dense or paged layer cache of any kind (port of
+``repro.models.attention``'s flash, streaming and decode paths).
 
 Monolithic prefill always takes the flash path, on the card and on the CPU —
 the path the reference takes on a TPU (and under ``fused="interpret"``).
@@ -57,8 +57,11 @@ def attention_prefill(cfg: ModelConfig, layer, x: torch.Tensor, rope):
 
 def streaming_prefill_supported(cfg: ModelConfig, cache_cfg: cache_lib.CacheConfig) -> bool:
     """Layers that can take the streaming prefill: the streaming cache layout
-    (:func:`repro_torch.core.cache.streaming_supported`) and plain causal
-    attention (the history scorer has no logit softcap)."""
+    (:func:`repro_torch.core.cache.streaming_supported`: not an FP16 or
+    window cache, nor per-token K stats) and plain causal attention (the
+    history scorer has no logit softcap).  Other layers fall back to the
+    monolithic prefill, as in the reference (whose prefix-LM models the
+    port does not serve yet)."""
     return cache_lib.streaming_supported(cache_cfg) and cfg.attn_logit_softcap == 0.0
 
 
@@ -101,23 +104,34 @@ def attention_prefill_streaming(cfg: ModelConfig, layer, x: torch.Tensor, rope,
 
 def attention_decode(cfg: ModelConfig, layer, x_t: torch.Tensor, rope, cache,
                      cache_cfg: cache_lib.CacheConfig, lengths: np.ndarray,
-                     block_tables: cache_lib.BlockTables | None = None):
+                     block_tables: cache_lib.BlockTables | None = None, fused: str = "auto"):
     """One-token attention against a layer cache.  x_t [B, 1, d]; ``rope``
     the (cos, sin) tables of the per-slot positions [B, 1]; ``lengths`` the
     host copy of the cache's per-slot lengths before this step.  Appends
     this token's K/V to ``cache`` in place and returns out [B, 1, d].  A
     :class:`~repro_torch.core.cache.PagedGEARLayerCache` needs the engine's
-    ``block_tables``."""
+    ``block_tables``.
+
+    The attend path follows the reference's static, layout-based choice:
+    with ``fused`` other than "off" and a cache in the kernel layout
+    (:func:`repro_torch.kernels.ops.fused_supported`), ``gear_attend`` /
+    ``gear_attend_paged`` (the ``gear_decode`` kernels on the card);
+    otherwise the portable :func:`repro_torch.core.cache.attend` /
+    ``attend_paged``.  It never depends on whether a kernel builds: a
+    kernel that fails raises."""
     B = x_t.shape[0]
     q, k, v = _project_qkv(cfg, layer, x_t, rope)
     scale = cfg.head_dim ** -0.5
+    kernel = fused != "off" and ops.fused_supported(cache_cfg)
     if isinstance(cache, cache_lib.PagedGEARLayerCache):
         if block_tables is None:
             raise ValueError("paged cache decode needs block_tables")
         cache_lib.append_token_paged(cache_cfg, cache, block_tables.host, k[:, 0], v[:, 0],
                                      lengths)
-        out = ops.gear_attend_paged(cache_cfg, cache, block_tables.device, q[:, 0], scale)
+        attend = ops.gear_attend_paged if kernel else cache_lib.attend_paged
+        out = attend(cache_cfg, cache, block_tables.device, q[:, 0], scale)
     else:
         cache_lib.append_token(cache_cfg, cache, k[:, 0], v[:, 0], lengths)
-        out = ops.gear_attend(cache_cfg, cache, q[:, 0], scale=scale)
+        attend = ops.gear_attend if kernel else cache_lib.attend
+        out = attend(cache_cfg, cache, q[:, 0], scale)
     return out.reshape(B, 1, cfg.q_dim) @ layer.wo

@@ -65,15 +65,17 @@ class Model:
 
     @torch.inference_mode()
     def decode_step(self, params: tfm.Transformer, token_batch: dict, caches, pos,
-                    policy: CompressionPolicy, capacity: int, lengths=None, block_tables=None):
+                    policy: CompressionPolicy, capacity: int, lengths=None, block_tables=None,
+                    fused: str = "auto"):
         """One decode step; ``pos`` is a scalar or a per-slot [B] vector of
         absolute positions; ``block_tables`` (a
         :class:`~repro_torch.core.cache.BlockTables`) is required for caches
-        built with ``layout="paged"``.  The caches advance in place; returns
-        (logits [B, 1, V], caches)."""
+        built with ``layout="paged"``; ``fused="off"`` sends every layer
+        through the portable ``cache.attend``.  The caches advance in place;
+        returns (logits [B, 1, V], caches)."""
         tokens = torch.as_tensor(token_batch["tokens"], device=params.device)
         logits = tfm.decode_tokens(params, tokens, caches, pos, policy, capacity, lengths,
-                                   block_tables)
+                                   block_tables, fused)
         return logits, caches
 
     def init_caches(self, policy: CompressionPolicy, batch: int, capacity: int, device=None,

@@ -173,19 +173,26 @@ class Transformer(nn.Module):
 
 def cache_cfg_for(cfg: ModelConfig, policy: CompressionPolicy, batch: int,
                   capacity: int) -> cache_lib.CacheConfig:
+    """The cache geometry of an attention layer: an FP16 cache under the
+    fp16 policy, a GEAR cache under any other (the reference's rule for
+    "global" layers, the only kind the ported models have)."""
     return cache_lib.CacheConfig(batch=batch, kv_heads=cfg.num_kv_heads,
-                                 head_dim=cfg.head_dim, capacity=capacity, policy=policy)
+                                 head_dim=cfg.head_dim, capacity=capacity, policy=policy,
+                                 kind="fp16" if policy.is_fp16 else "gear")
 
 
 def init_caches(cfg: ModelConfig, policy: CompressionPolicy, batch: int, capacity: int,
                 device, dtype=torch.bfloat16, layout: str = "dense", pool_pages: int = 0) -> list:
     """One empty layer cache per layer: a dense
-    :class:`~repro_torch.core.cache.GEARLayerCache`, or for ``layout="paged"``
-    a :class:`~repro_torch.core.cache.PagedGEARLayerCache` whose pool holds
+    :class:`~repro_torch.core.cache.GEARLayerCache` (an
+    :class:`~repro_torch.core.cache.FP16LayerCache` under the fp16 policy),
+    or for ``layout="paged"`` a
+    :class:`~repro_torch.core.cache.PagedGEARLayerCache` whose pool holds
     ``pool_pages`` pages (page 0 reserved).  Every layer's pool is addressed
-    by one engine-owned block table.  A hybrid layer's cache is the pair
-    (GEAR cache, zero :class:`~repro_torch.models.ssm.SSMState`); hybrids
-    are dense-only.  An RWKV6 layer's is a zero
+    by one engine-owned block table; an FP16 cache has no chunks to pool and
+    raises the reference's ``ValueError``.  A hybrid layer's cache is the
+    pair (attention cache, zero :class:`~repro_torch.models.ssm.SSMState`);
+    hybrids are dense-only.  An RWKV6 layer's is a zero
     :class:`~repro_torch.models.rwkv.RWKVState` whatever the policy (it
     touches no RWKV layer); RWKV6 is dense-only too."""
     if layout not in ("dense", "paged"):
@@ -194,10 +201,11 @@ def init_caches(cfg: ModelConfig, policy: CompressionPolicy, batch: int, capacit
         check_serving(cfg, layout=layout)
         return [rwkv_lib.init_rwkv_state(cfg, batch, dtype, device)
                 for _ in range(cfg.num_layers)]
-    if policy.is_fp16:
-        raise NotImplementedError("fp16 caches are not ported yet (ROADMAP queue item 7)")
     check_serving(cfg, layout=layout)
     ccfg = cache_cfg_for(cfg, policy, batch, capacity)
+    if layout == "paged" and not cache_lib.paged_supported(ccfg):
+        raise ValueError("paged layout requires a compressed (GEAR) policy: fp16 caches "
+                         "have no chunk pages to pool")
     if layout == "paged":
         return [cache_lib.init_paged_layer_cache(ccfg, pool_pages, dtype, device)
                 for _ in range(cfg.num_layers)]
@@ -301,11 +309,14 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
 
 def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
                   policy: CompressionPolicy, capacity: int, lengths=None,
-                  block_tables: cache_lib.BlockTables | None = None) -> torch.Tensor:
+                  block_tables: cache_lib.BlockTables | None = None,
+                  fused: str = "auto") -> torch.Tensor:
     """One decode step.  tokens [B, 1]; ``pos`` [B] per-slot absolute
     positions; ``lengths`` the host copy of the caches' per-slot lengths
     (read from the first layer cache, one device sync per step, when not
-    given); ``block_tables`` addresses every layer's pool for paged caches.
+    given); ``block_tables`` addresses every layer's pool for paged caches;
+    ``fused`` picks the attend path
+    (:func:`~repro_torch.models.attention.attention_decode`).
     Updates ``caches`` in place; returns logits [B, 1, V].  An RWKV6 model
     reads neither ``pos`` nor lengths: each layer advances its
     :class:`~repro_torch.models.rwkv.RWKVState` by one token."""
@@ -326,12 +337,15 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
     hybrid = is_hybrid(cfg)
     if lengths is None:
         lengths = (caches[0][0] if hybrid else caches[0]).length.cpu().numpy()
-    lengths = np.asarray(lengths)
+    # a copy: for a CPU cache ``.cpu().numpy()`` shares the first layer's
+    # ``length``, which its append advances before the next layer reads it
+    lengths = np.array(lengths, dtype=np.int64)
     ccfg = cache_cfg_for(cfg, policy, B, capacity)
     for blk, cache in zip(model.blocks, caches):
         gear, st = cache if hybrid else (cache, None)
         xin = rmsnorm(x, blk.ln1)
-        h = attn_lib.attention_decode(cfg, blk, xin, rope, gear, ccfg, lengths, block_tables)
+        h = attn_lib.attention_decode(cfg, blk, xin, rope, gear, ccfg, lengths, block_tables,
+                                      fused)
         if hybrid:
             h2, new = ssm_lib.ssm_decode(cfg, blk, xin, st)
             st.conv.copy_(new.conv)

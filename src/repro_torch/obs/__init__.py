@@ -1,5 +1,5 @@
-"""Serving observability: metrics registry and request tracing (port of
-``repro.obs``; the fidelity probes are not ported, ROADMAP queue 1, item 7).
+"""Serving observability: metrics registry, request tracing and the online
+compression-fidelity probes (port of ``repro.obs``).
 
 Enable with ``EngineConfig(obs=ObsConfig(...))`` (or ``obs=True`` for
 defaults).  The engine owns one :class:`Observability`; the scheduler finds
@@ -15,6 +15,7 @@ import json
 import time
 
 from .catalog import METRICS, MetricSpec, build_registry
+from .fidelity import FidelityProbe
 from .registry import (CardinalityError, Counter, Gauge, Histogram, Registry,
                        parse_prometheus)
 from .tracing import RequestTrace, Span, Tracer, profiler_span
@@ -23,7 +24,7 @@ __all__ = [
     "ObsConfig", "Observability",
     "Registry", "Counter", "Gauge", "Histogram", "CardinalityError",
     "parse_prometheus", "Tracer", "Span", "RequestTrace", "profiler_span",
-    "MetricSpec", "METRICS", "build_registry",
+    "MetricSpec", "METRICS", "build_registry", "FidelityProbe",
 ]
 
 
@@ -33,11 +34,11 @@ class ObsConfig:
     coerces to defaults).
 
     ``metrics``/``tracing`` toggle the registry sync and per-request
-    spans.  ``fidelity_every_n`` > 0 (the compression-fidelity probes)
-    raises ``NotImplementedError``: the probes need the FP16 shadow prefill
-    and ``cache.dense_kv``, which arrive with ROADMAP queue 1, item 7.
-    ``fidelity_budget_frac`` is validated as in the reference.
-    ``profiler`` wraps the engine's prefill and decode in
+    spans.  ``fidelity_every_n`` > 0 turns on the compression-fidelity
+    probes (:class:`~repro_torch.obs.fidelity.FidelityProbe`: one FP16
+    shadow prefill each time the running count of closed prompt chunks
+    crosses a multiple of it), within ``fidelity_budget_frac`` of real
+    time.  ``profiler`` wraps the engine's prefill and decode in
     ``torch.profiler.record_function`` ranges.
     """
 
@@ -52,15 +53,12 @@ class ObsConfig:
             raise ValueError("fidelity_every_n must be >= 0 (0 disables)")
         if not 0.0 < self.fidelity_budget_frac <= 1.0:
             raise ValueError("fidelity_budget_frac must be in (0, 1]")
-        if self.fidelity_every_n > 0:
-            raise NotImplementedError(
-                "fidelity probes (fidelity_every_n > 0) need the FP16 shadow prefill "
-                "and cache.dense_kv (ROADMAP queue 1, item 7)")
 
 
 class Observability:
     """Per-engine telemetry hub: registry + tracer, with the emitters the
-    serving layers call (``fidelity`` stays None: no probe is ported).  All
+    serving layers call, and ``fidelity``, the engine's
+    :class:`FidelityProbe` when its config asks for one (else None).  All
     emitters are cheap and exception-free by construction (label sets are
     closed; see :mod:`repro_torch.obs.catalog`)."""
 
@@ -69,7 +67,7 @@ class Observability:
         self.clock = time.monotonic if clock is None else clock
         self.registry = build_registry(clock=self.clock)
         self.tracer = Tracer(clock=self.clock, enabled=cfg.tracing)
-        self.fidelity = None  # the probes arrive with ROADMAP queue 1, item 7
+        self.fidelity: FidelityProbe | None = None     # set by the engine
         self._m = bool(cfg.metrics)
         self._synced: dict = {}
 

@@ -7,8 +7,8 @@ snapshot always holds the whole catalog.  Label values come from closed sets
 only (``status`` from ``RequestStatus``, ``site`` from ``FAULT_SITES``,
 ``kind`` from the two retry kinds, ``layer`` / ``field`` from the model's
 layers), which is what makes the registry's cardinality bounds meaningful.
-The ``fidelity_*`` metrics are registered and stay at zero: the fidelity
-probes are not ported (ROADMAP queue 1, item 7).
+The ``fidelity_*`` metrics are filled by the fidelity probes
+(:mod:`repro_torch.obs.fidelity`) when an engine turns them on.
 """
 
 from __future__ import annotations

@@ -1,10 +1,14 @@
 """Serving engine: prefill + GEAR-cached decode on one device.
 
-Port of ``repro.serving.engine.Engine`` with ``fused="auto"`` (the CUDA
-kernels on a card, their plain versions for CPU tensors).
-``prefill_mode`` is "monolithic" or "streaming"; ``layout`` is "dense" or
-"paged".  Other values raise ``NotImplementedError`` naming the ROADMAP
-queue item that brings them.  Two batching modes sit on top
+Port of ``repro.serving.engine.Engine``.  ``fused="auto"`` decodes a cache
+in the ``gear_decode`` layout through the kernels (the CUDA kernels on a
+card, their plain versions for CPU tensors) and every other cache (the fp16
+policy, per-token K stats) through the portable ``cache.attend``;
+``fused="off"`` sends every layer there.  ``fused="interpret"`` (the
+reference's Pallas interpret lane) raises ``NotImplementedError``: CUDA has
+no interpret mode.  ``prefill_mode`` is "monolithic" or "streaming" (a
+layer the pipeline cannot take prefills monolithically); ``layout`` is
+"dense" or "paged" (the fp16 policy is dense only).  Two batching modes sit on top
 (:mod:`repro_torch.serving.scheduler`): wave mode, where
 :meth:`Engine.generate` prefills the whole batch at once and decodes it in
 lockstep (dense layout only), and continuous mode, where the scheduler
@@ -37,7 +41,9 @@ batch-1 prefill into a slot (:meth:`Engine.prefill_slot`).
 * Telemetry (``obs``, :mod:`repro_torch.obs`): the engine owns the
   :class:`~repro_torch.obs.Observability` hub the scheduler drives, and
   annotates each prefill; with ``ObsConfig(profiler=True)`` prefill and
-  decode run inside ``torch.profiler.record_function`` ranges.
+  decode run inside ``torch.profiler.record_function`` ranges, and with
+  ``fidelity_every_n`` > 0 a GEAR engine on a text model probes sampled
+  prefills against an FP16 shadow prefill (:mod:`repro_torch.obs.fidelity`).
 * Fault injection (:mod:`repro_torch.serving.faults`): ``attach_faults``
   wires an injector into the numeric guard and the page pool.
 
@@ -57,12 +63,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import cache as cache_lib
-from repro_torch.core.policy import CompressionPolicy
+from repro_torch.core.policy import FP16, CompressionPolicy
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import cache_cfg_for, check_serving
-from repro_torch.obs import Observability, ObsConfig
+from repro_torch.obs import FidelityProbe, Observability, ObsConfig
 from repro_torch.obs.tracing import profiler_span
 from repro_torch.prefixcache import PrefixCache, extract_tree_chunks, splice_tree_chunks
 from repro_torch.serving.pagedpool import PagePool, PagePoolStore, pages_needed
@@ -77,9 +84,9 @@ _CHOICES = {
     "layout": ("dense", "paged"),
 }
 _NOT_PORTED = {
-    ("fused", "off"): "the portable attend path (ROADMAP queue item 7)",
-    ("fused", "interpret"): "the Pallas interpret lane; CUDA has no interpret mode "
-                            "(CPU tensors take the plain versions; ROADMAP queue item 7)",
+    ("fused", "interpret"): "the reference's Pallas interpret lane; CUDA has no interpret "
+                            "mode (CPU tensors take the kernels' plain versions under "
+                            "fused='auto')",
 }
 
 
@@ -193,10 +200,9 @@ class Engine:
         self._ccfg = (None if self.cfg.rwkv else
                       cache_cfg_for(self.cfg, ecfg.policy, ecfg.batch, self._cap()))
         self._ccfg1 = None if self._ccfg is None else dataclasses.replace(self._ccfg, batch=1)
-        if self._ccfg is not None and not cache_lib.streaming_supported(self._ccfg):
-            raise NotImplementedError(                       # the gear_decode layout
-                f"policy {ecfg.policy} needs the portable attend path "
-                "(ROADMAP queue item 7)")
+        if ecfg.layout == "paged" and ecfg.policy.is_fp16:
+            raise ValueError("paged layout requires a compressed (GEAR) policy: fp16 caches "
+                             "have no chunk pages to pool")
         check_serving(self.cfg, ecfg.layout)    # before any device work
         # bucketing rides the streaming padded-tail path, so it is gated on
         # the prefix cache's predicate, as in the reference: a hybrid or an
@@ -209,6 +215,17 @@ class Engine:
             self._init_paged()
         if ecfg.prefix_cache:
             self._new_prefix_cache()
+        # the fidelity probes: an FP16 shadow prefill of sampled prompts,
+        # compared with each sampled request's guarded batch-1 tree before
+        # the splice (GEAR engines on text models only, as the reference)
+        obs_cfg = ecfg.obs
+        if (self.obs is not None and obs_cfg.fidelity_every_n > 0
+                and not ecfg.policy.is_fp16 and self.cfg.modality == "text"):
+            self.obs.fidelity = FidelityProbe(
+                ref_prefill=lambda b: self.model.prefill(self.params, b, FP16, self._cap()),
+                cache_cfgs=[self._ccfg1] * self.cfg.num_layers,
+                policy=ecfg.policy, registry=self.obs.registry,
+                every_n=obs_cfg.fidelity_every_n, budget_frac=obs_cfg.fidelity_budget_frac)
 
     def _cap(self) -> int:
         nb = self.ecfg.policy.buffer_size
@@ -216,10 +233,13 @@ class Engine:
 
     @property
     def attend_path(self) -> str:
-        """Decode-attend path of this engine's attention layers: "fused" (the
-        ``gear_decode`` kernels), or "xla" when no layer has a GEAR attention
-        cache (RWKV6), as the reference reports."""
-        return "xla" if self._ccfg is None else "fused"
+        """Decode-attend path of this engine's attention layers, by the
+        reference's rule: "fused" (the ``gear_decode`` kernels) when a layer
+        has the kernel layout and ``fused`` is not "off", else "xla" (the
+        portable ``cache.attend``: ``fused="off"``, the fp16 policy,
+        per-token K stats, or no attention cache at all, as RWKV6)."""
+        fused_any = self._ccfg is not None and kernel_ops.fused_supported(self._ccfg)
+        return "fused" if fused_any and self.ecfg.fused != "off" else "xla"
 
     # -- paged layout -----------------------------------------------------
     def _init_paged(self) -> None:
@@ -302,13 +322,16 @@ class Engine:
             return contextlib.nullcontext()
         return self.obs.tracer.span_bound(name)
 
-    def _obs_prefill(self, plen: int, n_hit: int = 0, pages_reserved: int | None = None) -> None:
+    def _obs_prefill(self, batch1: dict, logits, one: list, n_hit: int = 0,
+                     pages_reserved: int | None = None) -> None:
         """Per-prefill telemetry on the guarded batch-1 tree, before the
         splice: annotates the scheduler's open prefill span (prefix hit,
-        bucket, pages) and feeds the bucket histogram."""
+        bucket, pages), feeds the bucket histogram and hands the tree,
+        read only, to the fidelity probe."""
         o = self.obs
         if o is None:
             return
+        plen = int(np.asarray(batch1["tokens"]).shape[-1])
         nb = self.ecfg.policy.buffer_size
         bucket = (plen + nb - 1) // nb * nb if self._can_bucket else plen
         o.observe_bucket(bucket)
@@ -316,6 +339,8 @@ class Engine:
         if pages_reserved is not None:
             ann["pages_reserved"] = pages_reserved
         o.tracer.annotate(**ann)
+        if o.fidelity is not None:
+            o.fidelity.maybe_probe(batch1, logits, one)
 
     # ------------------------------------------------------------------
     def _cold_prefill(self, batch1: dict):
@@ -354,7 +379,7 @@ class Engine:
         with profiler_span("gear.decode", self._prof):
             return self.model.decode_step(self.params, token_batch, caches, pos,
                                           self.ecfg.policy, self._cap(),
-                                          block_tables=self.block_tables)
+                                          block_tables=self.block_tables, fused=self.ecfg.fused)
 
     def prefill_slot(self, batch1: dict, caches: list, slot: int, admit: bool = True,
                      reserve_tokens: int | None = None):
@@ -422,7 +447,7 @@ class Engine:
             except BaseException:
                 abort()
                 raise
-            self._obs_prefill(n, n_hit, pages_reserved)
+            self._obs_prefill(batch1, logits, one, n_hit, pages_reserved)
             with self._span("splice"):
                 commit(one, n_hit, reservation)
             if self.prefix_cache is not None and admit and n // nb > n_hit:
@@ -646,8 +671,9 @@ class Engine:
 
     @staticmethod
     def cache_nbytes(caches: list) -> int:
-        """Bytes of every tensor of a cache tree (a hybrid's SSM states and
-        an RWKV6 model's recurrent states included)."""
+        """Bytes of every tensor of a cache tree of any kind (FP16 caches, a
+        hybrid's SSM states and an RWKV6 model's recurrent states
+        included)."""
         return sum(t.numel() * t.element_size() for layer in caches
                    for part in cache_lib._parts(layer) for t in part.tensors().values())
 

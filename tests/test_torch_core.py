@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite runs in several worker processes: one thread each,
+                           # not torch's default of one per core in every worker
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -281,9 +283,18 @@ def test_splice_reset_and_numeric_guard():
 
 
 def test_cache_config_rejects_unported_kinds():
-    with pytest.raises(NotImplementedError, match="queue item 7"):
-        cache.CacheConfig(batch=1, kv_heads=1, head_dim=64, capacity=64,
-                          policy=named_policy("gear_kcvt4"), kind="window")
+    """Every kind of the reference is ported now (the name is kept from when
+    the window and FP16 kinds raised): each builds as the reference's does,
+    and only a GEAR capacity off the chunk grid raises, as in the reference."""
+    pol = named_policy("gear_kcvt4")
+    for kind, extra in (("window", dict(window=16)), ("fp16", {})):
+        cfg = cache.CacheConfig(batch=1, kv_heads=1, head_dim=64, capacity=40, policy=pol,
+                                kind=kind, **extra)
+        jcfg = jcache.CacheConfig(batch=1, kv_heads=1, head_dim=64, capacity=40,
+                                  policy=jnamed("gear_kcvt4"), kind=kind, **extra)
+        assert dataclasses.astuple(cfg)[:4] == dataclasses.astuple(jcfg)[:4]
+    with pytest.raises(ValueError, match="not a multiple of chunk"):
+        cache.CacheConfig(batch=1, kv_heads=1, head_dim=64, capacity=40, policy=pol)
 
 
 # ---------------------------------------------------------------------------

@@ -757,3 +757,108 @@ def test_wave_prefill_row_matches_batch1_prefill(dev):
         one, _ = eng.prefill({"tokens": padded[i:i + 1]})
         err = float((one[0].float() - wave[i].float()).abs().max())
         assert torch.equal(one[0], wave[i]), (i, err)
+
+
+# ---------------------------------------------------------------------------
+# served output across devices
+
+
+CROSS_PREFILL_ATOL = 0.1             # PREFILL_LOGIT_ATOL of tests/test_torch_wave.py
+CROSS_GAP = 0.25                     # that file's teacher-forced gap bound
+CROSS_CASES = {                      # id: (arch, policy, head_dim, EngineConfig overrides)
+    "llama2-gear_kcvt4-streaming-paged": ("llama2-7b", "gear_kcvt4", 64,
+                                          dict(prefill_mode="streaming", layout="paged")),
+    "llama2-gear_kcvt4-monolithic-dense": ("llama2-7b", "gear_kcvt4", 64, {}),
+    "llama2-gear_kivi2-streaming-paged": ("llama2-7b", "gear_kivi2", 64,
+                                          dict(prefill_mode="streaming", layout="paged")),
+    "llama2-gear_kivi2-monolithic-dense": ("llama2-7b", "gear_kivi2", 64, {}),
+    "hymba-gear_kcvt4": ("hymba-1.5b", "gear_kcvt4", 64, {}),
+    "rwkv6-gear_kcvt4": ("rwkv6-3b", "gear_kcvt4", None, {}),
+    "llama2-fp16": ("llama2-7b", "fp16", 64, {}),
+    "llama2-per_token_q4": ("llama2-7b", "per_token_q4", 64, {}),
+}
+
+
+def serve_across(case, dev, lengths=(120, 190), gen=12):
+    """Serve one case's requests on the CPU and on ``dev`` with the same
+    weights (seeded on the CPU, then copied), then teacher-force both
+    devices' batch-1 engines along ``dev``'s tokens.  The default prompts
+    close chunks in prefill and, 8 and 2 tokens in, during decode.  Returns (CPU results,
+    ``dev`` results, per-request (CPU logits, ``dev`` logits) [T, V])."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Engine, EngineConfig, Request, Scheduler
+
+    import copy
+
+    arch, polname, head_dim, over = CROSS_CASES[case]
+    cfg = smoke_config(arch)
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    model = build_model(cfg)
+    params = {"cpu": model.init(seed=0, device="cpu")}
+    params["dev"] = copy.deepcopy(params["cpu"]).to(dev)       # Module.to moves in place
+    devices = {"cpu": torch.device("cpu"), "dev": dev}
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32) for n in lengths]
+    cap = 256
+    results = {}
+    for side in ("cpu", "dev"):
+        eng = Engine(model, params[side], EngineConfig(
+            batch=2, capacity=cap, policy=named_policy(polname), **over), device=devices[side])
+        sched = Scheduler(eng)
+        for rid, p in enumerate(prompts):
+            sched.submit(Request(rid=rid, tokens=p, max_new_tokens=gen))
+        results[side] = {r.rid: r for r in sched.run_continuous()}
+    along = {}
+    for rid, p in enumerate(prompts):
+        toks = np.asarray(results["dev"][rid].tokens)
+        rows = {}
+        for side in ("cpu", "dev"):
+            eng = Engine(model, params[side], EngineConfig(
+                batch=1, capacity=cap, policy=named_policy(polname), **over),
+                device=devices[side])
+            view = eng.new_view()
+            logits = view.prefill_slot({"tokens": p[None]}, 0, reserve_tokens=len(p) + gen)
+            out = [logits[0, -1].float().cpu().numpy()]
+            for i, tok in enumerate(toks[:-1]):
+                logits = view.decode({"tokens": np.array([[tok]], np.int32)},
+                                     np.array([len(p) + i]))
+                out.append(logits[0, -1].float().cpu().numpy())
+            rows[side] = np.stack(out)
+        along[rid] = (rows["cpu"], rows["dev"])
+    return results["cpu"], results["dev"], along
+
+
+@pytest.mark.parametrize("case", list(CROSS_CASES))
+def test_served_output_matches_the_cpu_port(dev, case):
+    """The smoke configs at head_dim 64 (the kernels' builds) served on the
+    card and on the CPU (where the kernels' plain versions run) with the same
+    seeded weights: statuses equal; prefill logits within
+    ``CROSS_PREFILL_ATOL``; every token the card served is the card's argmax
+    when both devices are teacher-forced along the card's stream, the
+    devices' logit gap stays within ``CROSS_GAP``, and the CPU's tokens leave
+    the card's only where the CPU's top-2 margin is within twice the gap.
+    The CPU port is held against the reference elsewhere, so this closes the
+    chain from the card to the reference."""
+    import numpy as np
+
+    cpu, card, along = serve_across(case, dev)
+    assert {r: str(x.status) for r, x in card.items()} == {r: str(x.status)
+                                                           for r, x in cpu.items()}
+    for rid, (lc, ld) in along.items():
+        toks, want = np.asarray(card[rid].tokens), np.asarray(cpu[rid].tokens)
+        gaps = np.abs(lc - ld).max(-1)
+        print(f"{case} rid {rid}: prefill gap {gaps[0]:.4f}, largest gap {gaps.max():.4f}")
+        assert gaps[0] <= CROSS_PREFILL_ATOL, (rid, gaps[0])
+        assert (gaps <= CROSS_GAP).all(), (rid, gaps)
+        np.testing.assert_array_equal(toks, ld.argmax(-1))
+        m = min(len(toks), len(want))
+        diff = np.flatnonzero(toks[:m] != want[:m])
+        if diff.size:
+            top2 = np.sort(lc[diff[0]])[-2:]
+            assert top2[1] - top2[0] <= 2 * gaps[diff[0]], (rid, toks, want)

@@ -6,8 +6,8 @@ JAX reference's.
   give equal snapshots, JSON, Prometheus text and Chrome traces, and the
   catalog holds the same metric names, kinds, labels and buckets.
 * ``EngineConfig.obs`` coercion and ``sync_counter`` deltas as in the
-  reference; ``ObsConfig(fidelity_every_n > 0)`` raises, naming ROADMAP
-  queue 1, item 7 (the probes are not ported).
+  reference; ``ObsConfig(fidelity_every_n > 0)`` builds and wires a
+  fidelity probe (its reports: ``tests/test_torch_fidelity.py``).
 * Serving: obs on ≡ obs off bit for bit (tokens and every cache tensor);
   under seeded fault schedules (the tiny model of
   ``tests/test_torch_resilience.py``) each rid has exactly one finished
@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite runs in several worker processes: one thread each,
+                           # not torch's default of one per core in every worker
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -224,8 +226,18 @@ def test_engineconfig_obs_coercion():
                                                          obs={"fidelity_every_n": 4})],
                          ids=["ObsConfig", "EngineConfig-dict"])
 def test_fidelity_probes_raise_naming_item_7(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        make()
+    """The fidelity probes are ported (the name is kept from when they
+    raised): the config builds, and an engine built on it holds a probe with
+    the configured sampling."""
+    cfg = make()
+    obs = cfg if isinstance(cfg, PO.ObsConfig) else cfg.obs
+    assert obs.fidelity_every_n in (1, 4)
+    tcfg = ModelConfig(**TINY)
+    model = build_model(tcfg)
+    eng = P.Engine(model, model.init(seed=0, device="cpu"),
+                   P.EngineConfig(batch=1, capacity=32, policy=small(named_policy), obs=obs),
+                   device="cpu")
+    assert eng.obs.fidelity is not None and eng.obs.fidelity.every_n == obs.fidelity_every_n
 
 
 def test_sync_counter_delta_and_reset_clamp():

@@ -36,6 +36,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite runs in several worker processes: one thread each,
+                           # not torch's default of one per core in every worker
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

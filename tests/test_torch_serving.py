@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite runs in several worker processes: one thread each,
+                           # not torch's default of one per core in every worker
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -111,26 +113,34 @@ def test_engine_runs_on_cuda_unless_the_cpu_is_named(pair):
 STREAM_PAGED = dict(prefill_mode="streaming", layout="paged")
 
 
+# The ids keep their names from before the portable attend path and the
+# fidelity probes were ported: "fused-off" and "obs-True" now assert that the
+# option works (exc None), the others are unchanged.
 @pytest.mark.parametrize("options,exc", [
-    (dict(fused="off"), NotImplementedError), (dict(fused="interpret"), NotImplementedError),
+    (dict(fused="off"), None), (dict(fused="interpret"), NotImplementedError),
     (dict(STREAM_PAGED, prefix_cache=True), None),
     (dict(pool_pages=8), ValueError),
-    # obs=True is ported; an obs config that asks for the fidelity probes
-    # (ROADMAP queue 1, item 7) is what still raises
     (dict(prefix_cache=True), ValueError),
-    (dict(obs={"fidelity_every_n": 1}), NotImplementedError),
+    (dict(obs={"fidelity_every_n": 1}), None),
     (dict(fused="bogus"), ValueError),
 ], ids=["fused-off-NotImplementedError", "fused-interpret-NotImplementedError",
         "prefix_cache-streaming-paged-accepted", "pool_pages-dense-ValueError",
         "prefix_cache-monolithic-ValueError", "obs-True-NotImplementedError",
         "fused-bogus-ValueError"])
 def test_engine_config_rejects_unported_options(options, exc):
-    """Options not ported yet raise ``NotImplementedError``, invalid ones the
-    reference's ``ValueError`` (the prefix cache needs streaming prefill);
-    the prefix cache with streaming prefill is accepted on either layout,
-    and so is telemetry without the fidelity probes."""
+    """``fused="interpret"`` raises ``NotImplementedError`` (CUDA has no
+    interpret mode), invalid options the reference's ``ValueError`` (the
+    prefix cache needs streaming prefill); the prefix cache with streaming
+    prefill is accepted on either layout, ``fused="off"`` decodes through
+    the portable attend path (``attend_path`` "xla", as the reference
+    reports it), and telemetry with the fidelity probes builds a probe."""
     if exc is None:
-        EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **options)
+        ecfg = EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **options)
+        if "fused" in options or "obs" in options:
+            model = build_model(smoke_config("llama2-7b"))
+            eng = Engine(model, model.init(seed=0, device="cpu"), ecfg, device="cpu")
+            assert eng.attend_path == ("xla" if "fused" in options else "fused")
+            assert (eng.obs is not None and eng.obs.fidelity is not None) == ("obs" in options)
     else:
         with pytest.raises(exc):
             EngineConfig(batch=1, capacity=CAP, policy=named_policy(POLICY), **options)

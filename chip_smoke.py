@@ -19,9 +19,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``gear_decode_history`` over request 0's 14 in-flight blocks in one
    launch (its layer-0 history work), against its plain version and, bit
    for bit, the 14 per-block calls, timed (``ms_history_per_layer_synthetic``);
+   head_dim 256: gemma-2b's live shape (4 slots x 1 kv head, G = 8) for both
+   policies, timed (``ms_gemma``, ``ms_gemma_kivi2``), and gemma3's G = 2;
+   starcoder2-3b's G = 12 at head_dim 128 (the decode regime's 16-row
+   build, ``ms_starcoder2``) beside the same operands through the
+   tensor-core history body (``ms_starcoder2_history``); the history scorer
+   at head_dim 256 (one kv head, 14 blocks x 512 query rows) with 1 and 4 V
+   stat groups (gear_kcvt4, gear_kivi2), against plain and per-block calls;
 4. ``flash_prefill`` against its plain version (S = 1024, a ragged S = 1000,
    kv_repeat = 4, window + softcap, a bidirectional prefix, and hymba's
-   25 query heads over 5 kv heads at head_dim 64), with
+   25 query heads over 5 kv heads at head_dim 64; head_dim 256 at gemma-2b's
+   kv_repeat 8, also with window + softcap and a 256-token prefix; and
+   starcoder2-3b's kv_repeat 12), with
    ``torch.nn.functional.scaled_dot_product_attention`` timed beside it;
 5. ``gear_compress`` against its plain version, bit for bit (packed codes,
    stats, outlier values and indices, residual; two calls bitwise equal),
@@ -41,7 +50,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    calls;
 7. ``gear_decode_paged`` against its plain version, and bit for bit against
    ``gear_decode`` on the gathered operands, over a shuffled pool of the
-   main path's shapes whose tables name the zero page past each extent;
+   main path's shapes whose tables name the zero page past each extent, and
+   of gemma-2b's (1 kv head of 256, G = 8);
 8. ``linear_scan_chunked`` against its plain version (y and final state):
    hymba's SSM heads (25 rows, Dk 16, Dv 64, one decay per head) at an
    aligned S = 1024 in chunks of 64, at the live S = chunk = 859, per-Dk
@@ -180,7 +190,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
     in continuous + paged mode with ``--obs``, ``--metrics-json`` and
     ``--trace-out`` under ``build/serve/``; each must exit 0 and print the
     reference launcher's lines, and both JSON files must parse;
-22. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
+22. serving, path 12: gemma-2b at its published widths (18 layers, d_model
+    2048, 8 heads over 1 kv head of 256, d_ff 16384, GeGLU, vocab 256000
+    tied and scaled by sqrt(d_model)), gear_kcvt4, monolithic prefill, dense
+    layout, the path-1 requests (ids from its vocab), 96 new tokens: every
+    request ``OK``, exactly 18 ``flash_prefill`` (head_dim 256, kv_repeat 8)
+    per prefill and 18 ``gear_decode`` (G = 8, head_dim 256) per step and
+    no other kernel; request 0's live layer-0 ``flash_prefill`` call (beside
+    SDPA) and a live decode step held against their plain versions and
+    timed; profiler windows over one prefill and 8 decode steps;
+23. serving, path 13: the same gemma-2b, gear_kivi2 (4 V stat groups),
+    streaming prefill into a paged pool of two thirds of the dense pages, 16
+    new tokens (cut from 96, as on paths 14 and 15, for time; no profiler
+    windows on paths 13-15): per prefill exactly 18 ``flash_prefill_block`` (kv_repeat
+    8), 18 history and 36 ``gear_compress`` launches ([64, 256] tiles) and
+    no ``flash_prefill``, 18 ``gear_decode_paged`` per step; the live K and
+    V compression events bit for bit, the in-flight blocks (beside the
+    efficient-attention yardstick), the history call (gv 4) and a paged step
+    held against their plain versions and timed;
+24. serving, path 14: starcoder2-3b at its published widths (30 layers,
+    d_model 3072, 24 heads over 2 kv heads of 128, LayerNorm with bias,
+    GELU MLP d_ff 12288, vocab 49152), as path 12 with 16 new tokens:
+    ``flash_prefill`` at kv_repeat 12 and ``gear_decode`` at G = 12 in the
+    decode regime;
+25. serving, path 15: minicpm-2b at its published widths (40 layers,
+    d_model 2304, 36 heads = 36 kv heads of 64, d_ff 5760, tied vocab
+    122753), as path 14;
+26. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
     by path), the card's name and power limit, and the final
     ``{"ok": true, "device": {...}}`` line.
 
@@ -388,7 +424,14 @@ def pol_half(idx: torch.Tensor) -> int:
 
 
 def decode_case(policy_name: str, flush, report: dict, H: int = 32, Dh: int = 128,
-                G: int = 1) -> None:
+                G: int = 1, timed: str | None = None) -> None:
+    """``gear_decode`` against its plain version on a 4-slot cache of ``H``
+    kv heads, ``G`` query rows per row and head_dim ``Dh`` (ragged extents, a
+    duplicated outlier index).  With ``timed`` (a key suffix), the kernel,
+    the plain version and the call's bound are timed and reported; for
+    8 < G <= 16 (the decode regime's 16-row build) the same operands also go
+    through the tensor-core history body (``tensor_cores=True``), held
+    against the plain version and timed (``ms<suffix>_history``)."""
     from repro_torch.core import cache as cache_lib
     from repro_torch.core.policy import named_policy
     from repro_torch.kernels import gear_decode as gd
@@ -435,6 +478,32 @@ def decode_case(policy_name: str, flush, report: dict, H: int = 32, Dh: int = 12
     if not err <= DECODE_TOL:
         fail(f"gear_decode {policy_name} disagrees with its plain version: {err}")
     report["err"] = max(report.get("err", 0.0), err)
+    if timed is None:
+        return
+    ms = time_ms(lambda: gd.gear_decode(qf, *arrays, n_comp, **kw), 50, flush)
+    plain = time_ms(lambda: gear_decode_ref(qf, *arrays, n_comp, **kw), 5, flush)
+    nbytes, flops = decode_bytes_flops(dict(zip(DECODE_NAMES[1:7], arrays), q=qf) | lr | sp,
+                                       n_comp, cfg.chunk)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    report.update({f"ms{timed}": ms, f"plain_ms{timed}": plain,
+                   f"bound_ms{timed}": max(t_bytes, t_ops),
+                   f"bound_by{timed}": "bytes" if t_bytes >= t_ops else "operations"})
+    line = (f"    kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+            f"({report[f'bound_by{timed}']}, {nbytes / 1e6:.2f} MB)")
+    if G > 8:
+        triple_h = gd.gear_decode(qf, *arrays, n_comp, tensor_cores=True, **kw)
+        out_h = ops._merge_buffer(cfg, cache, qf, *triple_h, len_bh - n_comp, Dh ** -0.5)
+        err_h = float((out_h - out_p).abs().max())
+        if not err_h <= DECODE_TOL:
+            fail(f"gear_decode {policy_name} G={G} through the history body disagrees with "
+                 f"its plain version: {err_h}")
+        report["err"] = max(report["err"], err_h)
+        ms_h = time_ms(lambda: gd.gear_decode(qf, *arrays, n_comp, tensor_cores=True, **kw),
+                       50, flush)
+        report[f"ms{timed}_history"] = ms_h
+        line += (f"; the same operands through the tensor-core history body: max_abs_err="
+                 f"{err_h:.3e}, {ms_h:.4f} ms")
+    print(line)
 
 
 # ---------------------------------------------------------------------------
@@ -449,10 +518,16 @@ FLASH_CASES = [
     (1000, 32, 1, 256, 0, 30.0, 128),
     (777, 16, 2, 0, 100, 0.0, 128),
     (1000, 25, 5, 0, 0, 0.0, 64),
+    (1000, 8, 8, 0, 0, 0.0, 256),
+    (1000, 8, 8, 300, 0, 50.0, 256),
+    (777, 8, 8, 0, 256, 0.0, 256),
+    (1000, 24, 12, 0, 0, 0.0, 128),
 ]
 # timed cases: S = 1000 lies in the serving paths' prompt range; llama2-7b
-# (path 1) reports as "ms", hymba (path 3) as "ms_hymba"
-TIMED_FLASH_CASES = {1: "", 5: "_hymba"}
+# (path 1) reports as "ms", hymba (path 3) as "ms_hymba", gemma-2b (path 12:
+# 8 query heads over one KV head of 256) as "ms_gemma", starcoder2-3b (path
+# 14: 24 over 2 of 128) as "ms_starcoder2"
+TIMED_FLASH_CASES = {1: "", 5: "_hymba", 6: "_gemma", 9: "_starcoder2"}
 
 
 def flash_bytes_flops(S: int, BH: int, rep: int, Dh: int):
@@ -504,29 +579,31 @@ def flash_case(case, flush, report: dict, suffix) -> None:
 # gear_decode at the streaming history scorer's shape
 
 
-def history_case(flush, report: dict) -> None:
+def history_case(flush, report: dict, H: int = 32, Dh: int = 128, G: int = 1,
+                 policy_name: str = "gear_kcvt4", suffix: str = "") -> None:
     """``gear_decode`` as the streaming prefill's history scorer: a batch-1
-    cache of llama2-7b's 32 kv heads, G * T = 64 query rows per row (the
-    tensor-core regime), one extent n_comp = c * 64 shared by all rows; then
-    ``gear_decode_history`` over request 0's 14 in-flight blocks in one
-    launch, against its plain version and the per-block calls, timed."""
+    cache of ``H`` kv heads (llama2-7b's 32 by default), G * T = 64 G query
+    rows per row (the tensor-core regime), one extent n_comp = c * 64 shared
+    by all rows; then ``gear_decode_history`` over request 0's 14 in-flight
+    blocks in one launch, against its plain version and the per-block calls,
+    timed (``ms_history_per_layer_synthetic<suffix>``)."""
     from repro_torch.core import cache as cache_lib
     from repro_torch.core.policy import named_policy
     from repro_torch.kernels import gear_decode as gd
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import gear_decode_history_ref, gear_decode_ref
 
-    H, Dh = 32, 128
-    pol = named_policy("gear_kcvt4")
+    pol = named_policy(policy_name)
     cfg = cache_lib.CacheConfig(batch=1, kv_heads=H, head_dim=Dh, capacity=CAP_SERVE,
                                 policy=pol)
+    R = 64 * G
     gen = torch.Generator(device=DEV).manual_seed(2)
     k = torch.randn(1, H, CAP_SERVE, Dh, generator=gen, device=DEV).to(torch.bfloat16)
     v = torch.randn(1, H, CAP_SERVE, Dh, generator=gen, device=DEV).to(torch.bfloat16)
     cache = cache_lib.prefill_layer_cache(
         cfg, cache_lib.init_layer_cache(cfg, torch.bfloat16, DEV), k, v)
     arrays, lr, sp = ops._gear_operands(cfg, cache, H)
-    q = torch.randn(H, 64, Dh, generator=gen, device=DEV)
+    q = torch.randn(H, R, Dh, generator=gen, device=DEV)
     kw = dict(bits=pol.bits, chunk=cfg.chunk, scale_factor=Dh ** -0.5, **lr, **sp)
     for c in (1, 7, 13):
         acc_k, m_k, l_k = gd.gear_decode(q, *arrays, c * cfg.chunk, **kw)
@@ -534,17 +611,17 @@ def history_case(flush, report: dict) -> None:
         torch.cuda.synchronize()
         err = max(float((acc_k / l_k[..., None] - acc_p / l_p[..., None]).abs().max()),
                   float((m_k - m_p).abs().max()))
-        print(f"  gear_decode G*T=64, n_comp={c * cfg.chunk}: max_abs_err={err:.3e} "
-              f"(tol {DECODE_TOL})")
+        print(f"  gear_decode {policy_name} H={H} Dh={Dh} G*T={R}, n_comp={c * cfg.chunk}: "
+              f"max_abs_err={err:.3e} (tol {DECODE_TOL})")
         if not err <= DECODE_TOL:
-            fail(f"gear_decode at 64 query rows disagrees with its plain version: {err}")
+            fail(f"gear_decode at {R} query rows disagrees with its plain version: {err}")
         report["err"] = max(report.get("err", 0.0), err)
 
     # request 0's layer-0 history work in one launch: its 859 tokens bucket
     # to 14 blocks of 64 query rows; block i sees the i * 64 tokens before it
     n_blocks = -(-PROMPT_LENGTHS[0] // cfg.chunk)
     extents = [i * cfg.chunk for i in range(n_blocks)]
-    qb = torch.randn(H, n_blocks, 64, Dh, generator=gen, device=DEV)
+    qb = torch.randn(H, n_blocks, R, Dh, generator=gen, device=DEV)
     gd.gear_decode.launches = 0
     acc_k, m_k, l_k = gd.gear_decode_history(qb, *arrays, extents, **kw)
     launches = gd.gear_decode.launches
@@ -561,7 +638,8 @@ def history_case(flush, report: dict) -> None:
     plain = time_ms(lambda: gear_decode_history_ref(qb, *arrays, extents, **kw), 3, flush)
     nbytes, flops = history_bytes_flops(qb, dict(zip(DECODE_NAMES[1:7], arrays)) | lr | sp,
                                         extents, cfg.chunk)
-    print(f"  gear_decode_history, request 0's layer-0 shape ({n_blocks} blocks x 64 query rows, "
+    print(f"  gear_decode_history {policy_name} (H={H}, Dh={Dh}, {pol_groups(arrays)} V stat "
+          f"groups), request 0's layer-0 shape ({n_blocks} blocks x {R} query rows, "
           f"extents 0..{extents[-1]}): {launches} launch, max_abs_err={err:.3e} (tol "
           f"{DECODE_TOL}), equal to {n_blocks} per-block gear_decode calls bit for bit = "
           f"{bitwise} | kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
@@ -569,7 +647,12 @@ def history_case(flush, report: dict) -> None:
     if launches != 1 or not err <= DECODE_TOL or not bitwise:
         fail("gear_decode_history disagrees with its plain version or its per-block calls")
     report["err"] = max(report.get("err", 0.0), err)
-    report["ms_history_per_layer_synthetic"] = ms
+    report["ms_history_per_layer_synthetic" + suffix] = ms
+
+
+def pol_groups(arrays) -> int:
+    """V stat groups of a cache's operands (the last dim of ``v_scale``)."""
+    return int(arrays[4].shape[-1])
 
 
 def history_bytes_flops(q, operands: dict, extents, chunk: int):
@@ -883,18 +966,19 @@ def block_case(T: int, rep: int, flush, report: dict) -> None:
 # gear_decode_paged
 
 
-def paged_case(policy_name: str, report: dict) -> None:
-    """A 4-slot cache of the main path's shapes scattered into a shuffled
-    pool; table entries past each slot's extent name the zero page.  The
-    paged kernel must equal ``gear_decode`` on the gathered operands bit for
-    bit and its plain version within DECODE_TOL."""
+def paged_case(policy_name: str, report: dict, H: int = 32, Dh: int = 128, G: int = 1) -> None:
+    """A 4-slot cache of the main path's shapes (or of ``H`` kv heads of
+    ``Dh`` with ``G`` query rows each) scattered into a shuffled pool; table
+    entries past each slot's extent name the zero page.  The paged kernel
+    must equal ``gear_decode`` on the gathered operands bit for bit and its
+    plain version within DECODE_TOL."""
     from repro_torch.core import cache as cache_lib
     from repro_torch.core.policy import named_policy
     from repro_torch.kernels import gear_decode as gd
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import gather_paged_operands, gear_decode_paged_ref
 
-    B, H, Dh = B_SERVE, 32, 128
+    B = B_SERVE
     pol = named_policy(policy_name)
     cfg = cache_lib.CacheConfig(batch=B, kv_heads=H, head_dim=Dh, capacity=CAP_SERVE, policy=pol)
     cfg1 = cache_lib.CacheConfig(batch=1, kv_heads=H, head_dim=Dh, capacity=CAP_SERVE, policy=pol)
@@ -920,7 +1004,7 @@ def paged_case(policy_name: str, report: dict) -> None:
     bt = bt.to(DEV)
     BH = B * H
     n_comp = torch.tensor(lengths, dtype=torch.int32, device=DEV).repeat_interleave(H) // nb * nb
-    q = torch.randn(BH, 1, Dh, generator=gen, device=DEV)
+    q = torch.randn(BH, G, Dh, generator=gen, device=DEV)
     arrays, lr, sp = ops._paged_operands(cfg, pool)
     kw = dict(bits=pol.bits, chunk=nb, scale_factor=Dh ** -0.5)
     paged = gd.gear_decode_paged(q, *arrays, n_comp, bt, **kw, **lr, **sp)
@@ -934,7 +1018,7 @@ def paged_case(policy_name: str, report: dict) -> None:
     rows = n_comp > 0
     err = max(float((paged[0] / paged[2][..., None] - plain[0] / plain[2][..., None])[rows]
                     .abs().max()), float((paged[1] - plain[1])[rows].abs().max()))
-    print(f"  gear_decode_paged {policy_name}: {n_pages} pages, n_comp per slot "
+    print(f"  gear_decode_paged {policy_name} H={H} Dh={Dh} G={G}: {n_pages} pages, n_comp per slot "
           f"{[int(x) for x in n_comp[::H]]}: bitwise equal to gear_decode on gathered operands "
           f"= {bitwise}; vs plain max_abs_err={err:.3e} (tol {DECODE_TOL})")
     if not bitwise:
@@ -2097,7 +2181,7 @@ def serving_wave(model, params, cfg, layers: int, flush, reports: dict) -> dict:
     layout, lockstep decode."""
     from repro_torch.core.policy import named_policy
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import flash_prefill_ref, gear_decode_ref
+    from repro_torch.kernels.ref import gear_decode_ref
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.scheduler import Request, Scheduler, _pad
 
@@ -2157,32 +2241,11 @@ def serving_wave(model, params, cfg, layers: int, flush, reports: dict) -> dict:
 
     # the live BHq-128 flash_prefill call against its plain version, timed beside SDPA
     c = caps["flash_prefill"]
-    (q, k, v), kw = c.args, c.kwargs
-    BH, S, Dh = q.shape
-    rep = reports["flash_prefill"]
+    BH, S, Dh = c.args[0].shape
     if (BH, S) != (B_SERVE * cfg.num_heads, pads[0]):
         fail(f"the captured flash_prefill call is [{BH}, {S}, {Dh}], not wave 0's layer 0")
-    o_k, o_p = c.real(q, k, v, **kw), flash_prefill_ref(q, k, v, **kw)
-    torch.cuda.synchronize()
-    err = float((o_k.float() - o_p.float()).abs().max())
-    print(f"  flash_prefill live wave layer-0 call (BHq {BH}, S {S}, Dh {Dh}, {kw}): kernel vs "
-          f"plain max_abs_err={err:.3e} (tol {PREFILL_TOL})")
-    if not err <= PREFILL_TOL:
-        fail(f"live wave flash_prefill disagrees with its plain version: {err}")
-    rep["err"] = max(rep.get("err", 0.0), err)
-    rep_k = kw.get("kv_repeat", 1)
-    qs, ks, vs = q[None], k[None].repeat_interleave(rep_k, 1), v[None].repeat_interleave(rep_k, 1)
-    ms = time_ms(lambda: c.real(q, k, v, **kw), 20, flush)
-    plain = time_ms(lambda: flash_prefill_ref(q, k, v, **kw), 3, flush)
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True), 20, flush)
-    nbytes, flops = flash_bytes_flops(S, BH, rep_k, Dh)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-    rep.update(ms_wave=ms, plain_ms_wave=plain, library_ms_wave=lib,
-               bound_ms_wave=max(t_bytes, t_ops),
-               bound_by_wave="operations" if t_ops >= t_bytes else "bytes")
-    print(f"  flash_prefill live wave call: kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
-          f"{lib:.4f} ms, bound {rep['bound_ms_wave']:.4f} ms ({rep['bound_by_wave']})")
+    flash_live(c, "flash_prefill live wave layer-0 call", flush, reports["flash_prefill"],
+               "_wave")
 
     # the live decode step's layer-0 cache against the plain version
     c = caps["gear_decode"]
@@ -2526,6 +2589,189 @@ def launcher_runs(extra: tuple = ()) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# paths 12-15: gemma-2b, starcoder2-3b and minicpm-2b (ROADMAP queue 1, items 8.1-8.3)
+
+
+FAMILY_TOKENS = 16           # paths 13-15's budget per request, cut from 96 for time
+
+
+def flash_live(c, label: str, flush, rep: dict, suffix: str) -> None:
+    """A captured live ``flash_prefill`` call against its plain version
+    (PREFILL_TOL), then the kernel, the plain version and SDPA (GQA expanded
+    to the query heads) timed beside the call's bound, as ``<key><suffix>``."""
+    from repro_torch.kernels.ref import flash_prefill_ref
+
+    (q, k, v), kw = c.args, c.kwargs
+    BH, S, Dh = q.shape
+    o_k, o_p = c.real(q, k, v, **kw), flash_prefill_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((o_k.float() - o_p.float()).abs().max())
+    print(f"  {label} (BHq {BH}, S {S}, Dh {Dh}, {kw}): kernel vs plain max_abs_err={err:.3e} "
+          f"(tol {PREFILL_TOL})")
+    if not err <= PREFILL_TOL:
+        fail(f"live {label} disagrees with its plain version: {err}")
+    rep["err"] = max(rep.get("err", 0.0), err)
+    rep_k = kw.get("kv_repeat", 1)
+    qs, ks, vs = q[None], k[None].repeat_interleave(rep_k, 1), v[None].repeat_interleave(rep_k, 1)
+    ms = time_ms(lambda: c.real(q, k, v, **kw), 20, flush)
+    plain = time_ms(lambda: flash_prefill_ref(q, k, v, **kw), 3, flush)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True), 20, flush)
+    nbytes, flops = flash_bytes_flops(S, BH, rep_k, Dh)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    rep.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain, f"library_ms{suffix}": lib,
+                f"bound_ms{suffix}": max(t_bytes, t_ops),
+                f"bound_by{suffix}": "operations" if t_ops >= t_bytes else "bytes"})
+    print(f"  {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+          f"{max(t_bytes, t_ops):.4f} ms ({rep[f'bound_by{suffix}']})")
+
+
+def serving_family(model, params, cfg, layers: int, flush, reports: dict, path: str,
+                   suffix: str, new_tokens: int, profiled: bool) -> dict:
+    """Paths 12, 14 and 15: one dense family (gemma-2b, starcoder2-3b,
+    minicpm-2b), gear_kcvt4, monolithic prefill, dense layout: every request
+    ``OK`` with its full budget of in-vocab tokens, exactly ``layers``
+    ``flash_prefill`` launches per prefill and ``gear_decode`` launches per
+    decode step (the decode regime: G query rows per row up to
+    ``DECODE_ROWS``), no other kernel; request 0's live layer-0
+    ``flash_prefill`` call (kv_repeat G) and the live layer-0 decode step
+    held against their plain versions and timed; with ``profiled``, profiler
+    windows over one prefill and 8 decode steps (path 12 only: the windows
+    cost more of the run's time than the rest of a path)."""
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import gear_decode as gd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gear_decode_ref
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = named_policy("gear_kcvt4")
+    G = cfg.num_heads // cfg.num_kv_heads
+    if G > gd.DECODE_ROWS:
+        fail(f"{cfg.name}: G = {G} is past the decode regime's {gd.DECODE_ROWS} rows")
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=CAP_SERVE, policy=pol),
+                 device=DEV)
+    # request 0's layer-0 attention; layer 0 of decode step 20 (all 4 slots live)
+    caps = {"flash_prefill": Capture(ops, "flash_prefill", 0),
+            "gear_decode": Capture(ops, "gear_decode", 20 * layers)}
+    summary = drive(eng, cfg, requests(cfg), list(caps.values()), new_tokens=new_tokens)
+    launches, steps = summary["launches"], summary["decode_steps"]
+    want = {"flash_prefill": N_REQUESTS * layers, "gear_decode": steps * layers}
+    others = {k: n for k, n in launches.items() if k not in want and n}
+    if {k: launches[k] for k in want} != want or others:
+        fail(f"{cfg.name} launches {launches} != {want} and no other kernel")
+    print(f"  per prefill {layers} flash_prefill (kv_repeat {G}), per decode step {layers} "
+          f"gear_decode ({launches['gear_decode']} = {steps} x {layers})")
+    flash_live(caps["flash_prefill"], f"flash_prefill live {cfg.name} layer-0 call", flush,
+               reports["flash_prefill"], suffix)
+    c = caps["gear_decode"]
+    _, Gq, Dh = c.args[0].shape
+    if (Gq, Dh) != (G, cfg.head_dim):
+        fail(f"the captured gear_decode call has q {tuple(c.args[0].shape)}")
+    print(f"  live {cfg.name} layer-0 step: q {tuple(c.args[0].shape)} (the decode regime), "
+          f"n_comp per slot {[int(x) for x in c.args[7][::cfg.num_kv_heads]]}")
+    rep = reports["gear_decode"]
+    rep[f"ms{suffix}_live"], rep[f"plain_ms{suffix}_live"], rep[f"bound_ms{suffix}_live"], _ = \
+        live_check(c, gear_decode_ref, f"gear_decode live {cfg.name} decode step (G = {G}, "
+                   f"Dh = {Dh})", flush, rep, decode_call_bytes_flops, rows_of=lambda a: a[7] > 0)
+    record_launches(reports, path, launches)
+    summary["layers"] = layers
+    if profiled:
+        profile(eng, cfg, HERE / "build" / "profile", path)
+    return summary
+
+
+def serving_gemma_paged(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 13: gemma-2b, gear_kivi2 (4 V stat groups at head_dim 256),
+    streaming prefill into a paged pool of two thirds of the dense pages:
+    per prefill ``layers`` ``flash_prefill_block`` (kv_repeat 8), history
+    and 2 x ``layers`` ``gear_compress`` launches ([64, 256] tiles), no
+    ``flash_prefill``; ``layers`` ``gear_decode_paged`` per decode step; the
+    live layer-0 K and V compression events bit for bit, the in-flight
+    blocks, the history call and a paged step held against their plain
+    versions and timed."""
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gear_decode_history_ref, gear_decode_paged_ref
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = named_policy("gear_kivi2")
+    dense_pages = B_SERVE * (CAP_SERVE // pol.buffer_size)
+    pool_pages = dense_pages * 2 // 3 + 1
+    eng = Engine(model, params, EngineConfig(
+        batch=B_SERVE, capacity=CAP_SERVE, policy=pol, prefill_mode="streaming", layout="paged",
+        pool_pages=pool_pages), device=DEV)
+    prompts = requests(cfg)
+    print(f"  pool: {pool_pages - 1} allocatable pages of {eng.pool.page_bytes / 1e6:.3f} MB "
+          f"(the dense layout holds {dense_pages})")
+    caps = {"gear_compress": Capture(cache_lib, "gear_compress", 0, 1),
+            "flash_prefill_block": Capture(ops, "flash_prefill_block", 0),
+            "gear_decode": Capture(ops, "gear_decode_history", 0),
+            "gear_decode_paged": Capture(ops, "gear_decode_paged", 10 * layers)}
+    rec = watch_prefills(eng, keep_index=-1)
+    summary = drive(eng, cfg, prompts, list(caps.values()), new_tokens=FAMILY_TOKENS)
+    launches, steps = summary["launches"], summary["decode_steps"]
+    want = {"flash_prefill_block": layers, "gear_decode": layers, "gear_compress": 2 * layers,
+            "flash_prefill": 0}
+    for i, got_all in enumerate(rec["launches"]):
+        got = {name: got_all[name] for name in want}
+        if got != want:
+            fail(f"gemma-2b streaming prefill {i} launched {got} != {want}")
+    if launches["gear_decode_paged"] != steps * layers:
+        fail(f"gear_decode_paged launches {launches['gear_decode_paged']} != {steps} steps x "
+             f"{layers}")
+    print(f"  per prefill: {want}; per decode step: {layers} gear_decode_paged; "
+          f"{summary['waited_for_pages']} requests waited for pages over "
+          f"{summary['page_wait_steps']} decode steps; pool {summary['pool']}")
+    eng.pool.check()
+    c = caps["gear_compress"]
+    rep = reports["gear_compress"]
+    for index, kind, scheme in ((0, "K", "per_channel"), (1, "V", "per_token")):
+        (x, *_), kw = c.seen[index]
+        print(f"  live gemma-2b gear_compress {kind} call: {tuple(x.shape)} tiles, {kw}")
+        if kw["scheme"] != scheme or tuple(x.shape[1:]) != (64, cfg.head_dim):
+            fail(f"gemma-2b gear_compress call {index} is not the {kind} event on [64, "
+                 f"{cfg.head_dim}] tiles ({kw['scheme']}, {tuple(x.shape)})")
+        label = f"live gemma-2b layer-0 {kind} event ([64, {x.shape[-1]}] tiles)"
+        compress_check(x, kw, label, rep)
+        row = compress_time(x, kw, label, flush, rep)
+        key = "_gemma_k" if kind == "K" else "_gemma_v"
+        rep.update({f"ms{key}": row["ms_c1"], f"plain_ms{key}": row["plain_ms"],
+                    f"bound_ms{key}": row["bound_ms"]})
+    c = caps["flash_prefill_block"]
+    row = block_check(c.real, c.args, c.kwargs, "flash_prefill_block live gemma-2b layer-0 "
+                      f"blocks (q {tuple(c.args[0].shape)}, kv_repeat {c.kwargs['kv_repeat']})",
+                      flush, reports["flash_prefill_block"], library=True)
+    reports["flash_prefill_block"].update(
+        ms_gemma=row["ms_c1"], plain_ms_gemma=row["plain_ms"], bound_ms_gemma=row["bound_ms"],
+        library_ms_gemma=row["library_ms"])
+    c = caps["gear_decode"]
+    BH, NB, R, Dh = c.args[0].shape
+    gv = c.args[5].shape[-1]
+    print(f"  live gemma-2b history call: q {tuple(c.args[0].shape)}, {gv} V stat groups, "
+          f"extents {list(c.args[7])}")
+    if gv != 4 or Dh != 256:
+        fail(f"the captured history call is not gear_kivi2 at head_dim 256 ({gv} groups, Dh {Dh})")
+    rep = reports["gear_decode"]
+    (rep["ms_history_gemma"], rep["plain_ms_history_gemma"], rep["bound_ms_history_gemma"],
+     _) = live_check(c, gear_decode_history_ref, f"gear_decode_history live gemma-2b layer-0 "
+                     f"history ({NB} blocks x {R} query rows, Dh {Dh}, gv {gv})", flush, rep,
+                     history_call_bytes_flops,
+                     rows_of=lambda a: (torch.as_tensor(list(a[7]), device=DEV) > 0)[
+                         None, :, None].expand(BH, NB, R), ops_rate=BF16_FLOPS)
+    c = caps["gear_decode_paged"]
+    rep = reports["gear_decode_paged"]
+    print(f"  live gemma-2b paged layer-0 step: q {tuple(c.args[0].shape)}, n_comp per slot "
+          f"{[int(x) for x in c.args[7][::cfg.num_kv_heads]]}")
+    rep["ms_gemma"], rep["plain_ms_gemma"], rep["bound_ms_gemma"], _ = live_check(
+        c, gear_decode_paged_ref, "gear_decode_paged live gemma-2b decode step", flush, rep,
+        decode_call_bytes_flops, rows_of=lambda a: a[7] > 0)
+    record_launches(reports, "gemma_streaming_paged", launches)
+    summary.update(layers=layers, prefill_ms_by_admission=rec["ms"][:N_REQUESTS])
+    return summary
+
+
 def profile_warm(eng, prompts: list, out_dir: pathlib.Path, tag: str) -> None:
     """A ``torch.profiler`` window over one warm prefill: a new view (fresh
     pool and trie), request 0 seeds the trie, and request 1's prefill (its
@@ -2670,7 +2916,17 @@ def main() -> int:
     for pol in ("gear_kcvt4", "gear_kivi2"):
         decode_case(pol, flush, reports["gear_decode"])
         decode_case(pol, flush, reports["gear_decode"], H=5, Dh=64, G=5)     # hymba
+        # gemma-2b's live shape: 4 slots x 1 kv head, G 8, head_dim 256
+        decode_case(pol, flush, reports["gear_decode"], H=1, Dh=256, G=8,
+                    timed="_gemma" if pol == "gear_kcvt4" else "_gemma_kivi2")
+    decode_case("gear_kcvt4", flush, reports["gear_decode"], H=8, Dh=256, G=2)  # gemma3's G
+    # starcoder2-3b: 24 query heads over 2 kv heads (G = 12, the 16-row build)
+    decode_case("gear_kcvt4", flush, reports["gear_decode"], H=2, Dh=128, G=12,
+                timed="_starcoder2")
     history_case(flush, reports["gear_decode"])
+    for pol, suffix in (("gear_kcvt4", "_gemma"), ("gear_kivi2", "_gemma_kivi2")):
+        history_case(flush, reports["gear_decode"], H=1, Dh=256, G=8, policy_name=pol,
+                     suffix=suffix)
     phase("[4] flash_prefill vs plain")
     for i, case in enumerate(FLASH_CASES):
         flash_case(case, flush, reports["flash_prefill"], TIMED_FLASH_CASES.get(i))
@@ -2683,6 +2939,7 @@ def main() -> int:
     phase("[7] gear_decode_paged vs plain and vs gear_decode")
     for pol in ("gear_kcvt4", "gear_kivi2"):
         paged_case(pol, reports["gear_decode_paged"])
+        paged_case(pol, reports["gear_decode_paged"], H=1, Dh=256, G=8)   # gemma-2b
 
     phase("[8] linear_scan_chunked vs plain")
     for case in SCAN_CASES:
@@ -2780,7 +3037,30 @@ def main() -> int:
     phase("[21] the launcher, python -m repro_torch.launch.serve, llama2-7b at full width")
     summaries["launcher"] = launcher_runs()
 
-    phase("[22] summary")
+    gemma = get_config("gemma-2b")
+    phase(f"[22] serving gemma-2b, gear_kcvt4, monolithic prefill, dense layout, depth "
+          f"{gemma.num_layers}")
+    built_gemma = build(gemma, gemma.num_layers)
+    summaries["gemma_dense"] = serving_family(*built_gemma, gemma.num_layers, flush, reports,
+                                              "gemma_dense", "_gemma", NEW_TOKENS, True)
+    phase(f"[23] serving gemma-2b, gear_kivi2, streaming prefill, paged pool, depth "
+          f"{gemma.num_layers}, {FAMILY_TOKENS} new tokens per request")
+    summaries["gemma_streaming_paged"] = serving_gemma_paged(*built_gemma, gemma.num_layers,
+                                                             flush, reports)
+    del built_gemma
+    gc.collect()
+    torch.cuda.empty_cache()
+    for num, arch, key, suffix in ((24, "starcoder2-3b", "starcoder2_dense", "_starcoder2"),
+                                   (25, "minicpm-2b", "minicpm_dense", "_minicpm")):
+        fam = get_config(arch)
+        phase(f"[{num}] serving {arch}, gear_kcvt4, monolithic prefill, dense layout, depth "
+              f"{fam.num_layers}, {FAMILY_TOKENS} new tokens per request")
+        summaries[key] = serving_family(*build(fam, fam.num_layers), fam.num_layers, flush,
+                                        reports, key, suffix, FAMILY_TOKENS, False)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    phase("[26] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for rep in reports.values():

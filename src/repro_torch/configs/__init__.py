@@ -1,8 +1,9 @@
 """Config registry: ``get_config("llama2-7b")`` and reduced smoke variants.
 
-Only the architectures the port serves are registered (llama2-7b, the
-hybrid hymba-1.5b and the attention-free rwkv6-3b); the reference's other
-families arrive with ROADMAP queue item 8.
+Only the architectures the port serves are registered: the dense
+llama2-7b, minicpm-2b, starcoder2-3b and gemma-2b, the hybrid hymba-1.5b
+and the attention-free rwkv6-3b; the reference's other families arrive with
+ROADMAP queue 1, item 8.4 onward.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ _MODULES = {
     "llama2-7b": "llama2_7b",
     "hymba-1.5b": "hymba_1p5b",
     "rwkv6-3b": "rwkv6_3b",
+    "minicpm-2b": "minicpm_2b",
+    "starcoder2-3b": "starcoder2_3b",
+    "gemma-2b": "gemma_2b",
 }
 
 

@@ -7,9 +7,9 @@
 // broadcast copy of K/V).
 //
 // What bounds it on the H100: at the serving paths' shapes (S of a few hundred
-// to ~1000, head_dim 64 or 128) the least time is set by bytes (Q, K, V read
-// once, O written once), but only tensor-core work at close to the card's
-// rate gets near it: the causal products are ~4 S^2/2 Dh flops per head.
+// to ~1000, head_dim 64, 128 or 256) the least time is set by bytes (Q, K, V
+// read once, O written once), but only tensor-core work at close to the
+// card's rate gets near it: the causal products are ~4 S^2/2 Dh flops per head.
 //
 // What the design does about it (one CTA per (64-query tile, row)):
 // * a ring of K/V tiles in shared memory (STAGES deep), filled by TMA
@@ -31,6 +31,23 @@
 //   the window's lower edge, a prefix, or the end of the sequence;
 // * the heaviest q-tiles (the last ones, with the longest causal range) are
 //   launched first: blockIdx.y counts tiles from the end.
+//
+// Head_dim 256 (gemma): one warpgroup's O accumulator would be 128 f32
+// registers a thread beside two 32-register score tiles, past the 255 limit
+// (ptxas already serializes the Dh-128 wgmmas for lack of registers, C7512).
+// So the Dh-256 build runs TWO consumer warpgroups on the same 64 query rows:
+// each owns one 128-column half of O and holds exactly the Dh-128
+// accumulator.  Both run the whole Q.K^T over all 256 channels: the scores
+// are computed twice, by the same wgmma sequence on the same tiles, so both
+// warpgroups hold the same bits of S, m and l and no exchange is needed (the
+// duplicated products are accepted: the card has the tensor-core rate to
+// spare at these shapes; the second copy costs operations, not bytes).
+// Each runs P.V against its own two 64-column boxes of V.  The ring is 2
+// stages deep (Q + 2 x (K, V) tiles of 32 KB: ~161 KB of shared memory, one
+// CTA per SM), and the launch bounds are (2 x 128 + 32, 1).
+// ptxas -v (sm_90a, nvcc 12.9, printed by chip_smoke.py phase 2): the Dh-256
+// build 168 registers and 244 bytes of spill stores; Dh 128 168 / 24; Dh 64
+// 168 / none.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -42,15 +59,19 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BQ = 64;                    // query rows of the consumer warpgroup
 constexpr int BK = 64;                    // keys per K/V tile
-constexpr int CONSUMERS = 128;            // one warpgroup
-constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
+constexpr int WG = 128;                   // threads of one consumer warpgroup
 constexpr int BOX_BYTES = 64 * 64 * 2;    // one [64 rows][64 cols] bf16 box (128-byte rows)
 
 template <int DH>
 struct Cfg {
   static constexpr int BOXES = DH / 64;                 // 128-byte column boxes per tile
   static constexpr int TILE_BYTES = BOXES * BOX_BYTES;  // a 64-row tile of Q, K or V
-  static constexpr int STAGES = DH == 128 ? 2 : 3;
+  static constexpr int STAGES = DH == 64 ? 3 : 2;
+  static constexpr int GROUPS = DH == 256 ? 2 : 1;      // consumer warpgroups, one O half each
+  static constexpr int OCOLS = DH / GROUPS;             // O columns of one warpgroup
+  static constexpr int CONSUMERS = GROUPS * WG;
+  static constexpr int THREADS = CONSUMERS + 32;        // + the producer warp
+  static constexpr int MIN_BLOCKS = GROUPS == 1 ? 2 : 1;
   static constexpr int SMEM = TILE_BYTES * (1 + 2 * STAGES) + 1024 + 8 * (1 + 4 * STAGES);
 };
 
@@ -211,7 +232,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uin
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS, 2) flash_prefill_kernel(
+__global__ void __launch_bounds__(Cfg<DH>::THREADS, Cfg<DH>::MIN_BLOCKS) flash_prefill_kernel(
     const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
     const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
     int S, int kv_repeat, float scale, float scale_log2, int window, int prefix_len,
@@ -248,16 +269,16 @@ __global__ void __launch_bounds__(THREADS, 2) flash_prefill_kernel(
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(k_full + s, 1);
       mbar_init(v_full + s, 1);
-      mbar_init(k_empty + s, CONSUMERS);
-      mbar_init(v_empty + s, CONSUMERS);
+      mbar_init(k_empty + s, C::CONSUMERS);
+      mbar_init(v_empty + s, C::CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= CONSUMERS) {
+  if (threadIdx.x >= C::CONSUMERS) {
     // ---- producer warp: one lane keeps the ring full -----------------------
-    if (threadIdx.x == CONSUMERS) {
+    if (threadIdx.x == C::CONSUMERS) {
       mbar_expect_tx(q_full, C::TILE_BYTES);
 #pragma unroll
       for (int b = 0; b < C::BOXES; ++b)
@@ -283,17 +304,20 @@ __global__ void __launch_bounds__(THREADS, 2) flash_prefill_kernel(
     return;
   }
 
-  // ---- consumer warpgroup: 64 query rows, 16 per warp ----------------------
+  // ---- consumer warpgroup(s): 64 query rows, 16 per warp ------------------
   // Pipelined within the warpgroup: tile j + 1's Q.K^T runs on the tensor
   // cores while tile j's softmax runs on the CUDA cores, and tile j's P.V
   // while tile j + 1's scores are read.  A stage's K is released once its
-  // Q.K^T is done, its V once its P.V is done.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // Q.K^T is done, its V once its P.V is done (by every consumer thread).
+  // Warpgroup `grp` owns O columns [grp * OCOLS, (grp + 1) * OCOLS).
+  constexpr int OCOLS = C::OCOLS;
+  const int grp = threadIdx.x / WG;
+  const int warp = (threadIdx.x % WG) / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = qs + warp * 16 + g;                   // this thread's rows r0, r0 + 8
-  float acc[DH / 2];                                   // O: n8 block i at acc[4i .. 4i+3]
+  float acc[OCOLS / 2];                                // O: n8 block i at acc[4i .. 4i+3]
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < OCOLS / 2; ++i) acc[i] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF};                 // running max, log2 units
   float l_run[2] = {0.f, 0.f};                         // this thread's share of the row sums
   const uint32_t q_addr = smem_u32(q_s);
@@ -373,24 +397,26 @@ __global__ void __launch_bounds__(THREADS, 2) flash_prefill_kernel(
 
   // O = corr * O + P V of tile j: V's tile is [keys][head_dim], N-contiguous
   // (MN-major B): 8-key groups 1024 bytes apart, 64-column boxes BOX_BYTES
-  // apart.  O may be touched only after the previous P.V has retired.
+  // apart; this warpgroup's columns start OCOLS / 64 boxes in.  O may be
+  // touched only after the previous P.V has retired.
   auto issue_pv = [&](int j, const uint32_t (&pa)[4][4], const float (&corr)[2]) {
     const int s = j % C::STAGES;
     fence_regs(acc);
 #pragma unroll
-    for (int i = 0; i < DH / 8; ++i) {
+    for (int i = 0; i < OCOLS / 8; ++i) {
       acc[4 * i + 0] *= corr[0];
       acc[4 * i + 1] *= corr[0];
       acc[4 * i + 2] *= corr[1];
       acc[4 * i + 3] *= corr[1];
     }
-    const uint32_t v_addr = smem_u32(v_s + s * C::TILE_BYTES);
+    const uint32_t v_addr =
+        smem_u32(v_s + s * C::TILE_BYTES + grp * (OCOLS / 64) * BOX_BYTES);
     mbar_wait(v_full + s, (j / C::STAGES) & 1);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t db = sw128_desc(v_addr + kk * 16 * 128, BOX_BYTES, 1024);
-      if constexpr (DH == 128) {
+      if constexpr (OCOLS == 128) {
         wgmma_m64n128k16_rs_tb(acc, pa[kk], db);
       } else {
         wgmma_m64n64k16_rs_tb(acc, pa[kk], db);
@@ -448,8 +474,8 @@ __global__ void __launch_bounds__(THREADS, 2) flash_prefill_kernel(
   }
   __nv_bfloat16* ob = o + static_cast<long>(row) * S * DH;
 #pragma unroll
-  for (int i = 0; i < DH / 8; ++i) {
-    const int col = 8 * i + 2 * t4;
+  for (int i = 0; i < OCOLS / 8; ++i) {
+    const int col = grp * OCOLS + 8 * i + 2 * t4;
     if (r0 < S)
       *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long>(r0) * DH + col) =
           __floats2bfloat162_rn(acc[4 * i + 0] * l_run[0], acc[4 * i + 1] * l_run[0]);
@@ -513,7 +539,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bhq, int S,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<DH>::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bhq, (S + BQ - 1) / BQ);
-  flash_prefill_kernel<DH><<<grid, THREADS, Cfg<DH>::SMEM, st>>>(
+  flash_prefill_kernel<DH><<<grid, Cfg<DH>::THREADS, Cfg<DH>::SMEM, st>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, kv_repeat, scale, scale * LOG2E, window,
       prefix_len, softcap);
   return static_cast<int>(cudaGetLastError());
@@ -525,6 +551,8 @@ extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
                                     int bhq, int S, int Dh, int kv_repeat, float scale,
                                     int window, int prefix_len, float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dh == 256) return launch<256>(q, k, v, o, bhq, S, kv_repeat, scale, window, prefix_len,
+                                    softcap, st);
   if (Dh == 128) return launch<128>(q, k, v, o, bhq, S, kv_repeat, scale, window, prefix_len,
                                     softcap, st);
   if (Dh == 64) return launch<64>(q, k, v, o, bhq, S, kv_repeat, scale, window, prefix_len,

@@ -17,18 +17,21 @@
 // PAGED layouts (only the chunk's row addresses differ), so the paged
 // triple equals the dense one on gathered operands bit for bit.
 //
-// (a) Decode (G <= 8 query rows per row: llama2's G = 1, hymba's G = 5).
+// (a) Decode (G <= 16 query rows per row: llama2's G = 1, hymba's G = 5,
+//     gemma's G = 8, starcoder2's G = 12; built for G = 1, G <= 8 and
+//     8 < G <= 16, so a row's registers hold only the rows it can have).
 //     Bound by bytes: each live chunk's fields are read once, in 16-byte
 //     cp.async copies into a double-buffered stage, the next chunk's copy in
 //     flight while the current one is scored.  Scores and P.V run on CUDA
-//     cores straight from the packed words.  Outliers are added as 2^-24
+//     cores straight from the packed words; a thread owns Dh / 128 channels
+//     of the per-channel terms (two at head_dim 256).  Outliers are added as 2^-24
 //     fixed-point shared-memory atomics: integer sums do not depend on their
 //     order, so every run and both layouts give the same bits, and an index
 //     stored twice adds twice.  Each block takes a run of one row's chunks
 //     (flash-decoding splits, sized by the wrapper so the grid covers the
 //     card); the last block of a row, found by an atomic ticket, merges the
 //     row's splits in split order in the same launch.
-// (b) History scorer (more than 8 query rows: the streaming prefill's
+// (b) History scorer (more than 16 query rows: the streaming prefill's
 //     64-row blocks).  Bound by operations, so both products run on the
 //     tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate).  The codes
 //     are small integers, exact in bf16; the f32 operand on the other side
@@ -39,6 +42,21 @@
 //     One CTA per (row, in-flight block, 64 query rows) walks the chunks
 //     under the block's extent with an online softmax in registers, so one
 //     launch scores every in-flight block of a layer, heaviest blocks first.
+//     At head_dim 256 a warp's 16 x 256 f32 O tile and its Q fragments would
+//     take ~290 registers, so the channels are split across warps instead:
+//     8 warps, warps w and w + 4 own the same 16 query rows and one 128-
+//     channel half each (Q fragments and O columns).  Each scores its half;
+//     the two partial score tiles meet in shared memory (the K code tile's
+//     space, free once the products that read it are done) and both warps
+//     sum them in the same order, lower half + upper half, so they hold the
+//     same scores, softmax and P bit for bit and each runs P.V for its own
+//     O columns.  Its tiles take ~152 KB of shared memory beside the two
+//     stage buffers: one CTA of 256 threads per SM.
+// ptxas -v (sm_90a, nvcc 12.9, printed by chip_smoke.py phase 2): history
+// bodies 255 registers (Dh 256: 28-60 bytes of spill stores; Dh 128: 14-30;
+// Dh 64: 236 registers, none); decode builds 64-255 registers, with spills
+// of up to ~200 bytes, but 772-3,456 bytes for 2-bit codes at 8 < G <= 16
+// (16 rows x 16 codes of accumulators a thread; no serving path runs it).
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -49,7 +67,8 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int GMAX = 8;                    // most query rows of the decode regime
+constexpr int GMAX = 16;                   // most query rows of the decode regime
+constexpr int GMID = 8;                    // its middle build: 1 < G <= GMID
 constexpr float FIX = 16777216.f;          // 2^24: outlier fixed point
 constexpr float INV_FIX = 1.f / 16777216.f;
 
@@ -138,13 +157,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // copy `bytes` (a multiple of 4) from global to shared, 16 bytes a thread
-// where the source allows it
+// where the source allows it, spread over the block's threads
 __device__ __forceinline__ void stage_copy(uint8_t* dst, const void* src, int bytes) {
   const uint8_t* s = static_cast<const uint8_t*>(src);
+  const int nt = blockDim.x;
   if ((reinterpret_cast<uintptr_t>(s) & 15) == 0 && (bytes & 15) == 0) {
-    for (int i = threadIdx.x * 16; i < bytes; i += THREADS * 16) cp_async16(dst + i, s + i);
+    for (int i = threadIdx.x * 16; i < bytes; i += nt * 16) cp_async16(dst + i, s + i);
   } else {
-    for (int i = threadIdx.x * 4; i < bytes; i += THREADS * 4) cp_async4(dst + i, s + i);
+    for (int i = threadIdx.x * 4; i < bytes; i += nt * 4) cp_async4(dst + i, s + i);
   }
 }
 
@@ -269,7 +289,8 @@ __global__ void __launch_bounds__(THREADS) gear_decode_split(
   constexpr int HALF_W = L / 2;            // words of one score thread
   constexpr int TG = THREADS / L;          // token groups of the P.V pass
   constexpr uint32_t MASK = (1u << BITS) - 1u;
-  static_assert(L % 2 == 0 && THREADS % L == 0 && PER % 4 == 0 && DH <= THREADS,
+  constexpr int XC = (DH + THREADS - 1) / THREADS;  // channels of a thread's per-channel terms
+  static_assert(L % 2 == 0 && THREADS % L == 0 && PER % 4 == 0 && DH <= XC * THREADS,
                 "unsupported shape");
   constexpr int QS_ROW = DH + 8;           // halves DH / 2 + 4 apart: no bank conflict
   constexpr int QS_HALF = DH / 2 + 4;
@@ -313,10 +334,11 @@ __global__ void __launch_bounds__(THREADS) gear_decode_split(
   const int w = tid % L, tg = tid / L;     // P.V pass: word w of every TG-th token
   const int grp = (w * PER) / (DH / p.gv); // this thread's V stat group
   float acc[GM][PER];
-  float xacc[GM];                          // channel tid's per-channel terms (tid < DH)
+  float xacc[XC][GM];                      // per-channel terms of channels tid + x * THREADS
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    xacc[g] = 0.f;
+#pragma unroll
+    for (int x = 0; x < XC; ++x) xacc[x][g] = 0.f;
 #pragma unroll
     for (int j = 0; j < PER; ++j) acc[g][j] = 0.f;
   }
@@ -481,16 +503,20 @@ __global__ void __launch_bounds__(THREADS) gear_decode_split(
         }
       }
     }
-    // the per-channel terms, one thread per channel: p.z_V, (p.A_v).B_v, outliers
-    for (int d = tid; d < DH; d += THREADS) {
-      const int gd = d / (DH / p.gv);
+    // the per-channel terms, XC channels a thread: p.z_V, (p.A_v).B_v, outliers
 #pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        if (g < G) {
-          float x = pz[g * p.gv + gd];
-          for (int rr = 0; rr < r; ++rr) x += pa[g * r + rr] * bfv(buf, st.vb, d * r + rr);
-          if (sparse) x += static_cast<float>(vout[g * DH + d]) * INV_FIX;
-          xacc[g] = xacc[g] * corr[g] + x;
+    for (int xc = 0; xc < XC; ++xc) {
+      const int d = tid + xc * THREADS;
+      if (d < DH) {
+        const int gd = d / (DH / p.gv);
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          if (g < G) {
+            float x = pz[g * p.gv + gd];
+            for (int rr = 0; rr < r; ++rr) x += pa[g * r + rr] * bfv(buf, st.vb, d * r + rr);
+            if (sparse) x += static_cast<float>(vout[g * DH + d]) * INV_FIX;
+            xacc[xc][g] = xacc[xc][g] * corr[g] + x;
+          }
         }
       }
     }
@@ -512,10 +538,14 @@ __global__ void __launch_bounds__(THREADS) gear_decode_split(
     }
     __syncthreads();
   }
-  for (int d = tid; d < DH; d += THREADS) {
 #pragma unroll
-    for (int g = 0; g < GM; ++g)
-      if (g < G) red[g * DH + d] += xacc[g];
+  for (int xc = 0; xc < XC; ++xc) {
+    const int d = tid + xc * THREADS;
+    if (d < DH) {
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+        if (g < G) red[g * DH + d] += xacc[xc][g];
+    }
   }
   __syncthreads();
   const long out0 = static_cast<long>(bh) * G;
@@ -634,22 +664,41 @@ struct HistTiles {
   static constexpr int BYTES = BV3 + DH * 8 * 2;
 };
 
+// channel halves of the history kernel: 1, or 2 at head_dim 256 (warps w and
+// w + 4 share query rows, one 128-channel half each)
+template <int DH>
+struct HistSplit {
+  static constexpr int CH = DH > 128 ? 2 : 1;
+  static constexpr int THREADS = CH * 128;
+  static constexpr int MIN_BLOCKS = CH == 1 ? 2 : 1;
+};
+
 // grid (BH, NB * ceil(R / 64)): one CTA per (row bh, in-flight block, 64
 // query rows), the last blocks first (the streaming extents grow with the
 // block index).  Block `blk` of row bh sees the first ext[bh * ext_row +
 // blk * ext_blk] tokens.  q [BH, NB, R, Dh] f32 -> acc [BH, NB, R, Dh],
-// m, l [BH, NB, R].  Each warp owns 16 query rows.
+// m, l [BH, NB, R].  Each warp owns 16 query rows (and, at head_dim 256,
+// one half of the channels).
 template <bool PAGED, int DH, int GV>
-__global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
+__global__ void __launch_bounds__(HistSplit<DH>::THREADS, HistSplit<DH>::MIN_BLOCKS)
+gear_history_mma(
     Operands p, Stage st, const float* __restrict__ q, const int32_t* __restrict__ ext,
     int ext_row, int ext_blk, float* __restrict__ out_acc, float* __restrict__ out_m,
     float* __restrict__ out_l, int NB, int R, float scale) {
   using T = HistTiles<DH>;
+  constexpr int CH = HistSplit<DH>::CH;
+  constexpr int NT = HistSplit<DH>::THREADS;
+  constexpr int DHH = DH / CH;             // channels of one warp
   constexpr int KP = T::KP, TP = T::TP;
-  constexpr int KK = DH / 16;              // k16 steps over channels
-  constexpr int NTD = DH / 8;              // n8 tiles over channels
+  constexpr int KK = DHH / 16;             // k16 steps over a warp's channels
+  constexpr int NTD = DHH / 8;             // n8 tiles over a warp's channels
   constexpr int NT_PER_GROUP = DH / GV / 8;
+  constexpr int NT_RUN = NT_PER_GROUP < NTD ? NT_PER_GROUP : NTD;  // tiles sharing a V group
   static_assert((DH / GV) % 8 == 0, "V stat groups must span whole n8 tiles");
+  static_assert(NT_PER_GROUP % NTD == 0 || NTD % NT_PER_GROUP == 0,
+                "V stat groups must not straddle a channel half");
+  static_assert(CH == 1 || 2 * WARPS * 32 * 32 * 4 <= HT * KP * 2,
+                "the score exchange must fit in the K code tile");
 
   const int bh = blockIdx.x;
   const int n_qt = (R + 63) / 64;
@@ -669,8 +718,11 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
   bf16* ka2 = reinterpret_cast<bf16*>(tiles + T::KA2);
   bf16* bv2 = reinterpret_cast<bf16*>(tiles + T::BV2);
   bf16* bv3 = reinterpret_cast<bf16*>(tiles + T::BV3);
+  float* xsc = reinterpret_cast<float*>(tiles + T::KC);   // CH == 2: [half][warp][32][lane]
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = (tid / 32) % WARPS, lane = tid % 32;
+  const int half = tid / 128;              // this warp's channel half (0 when CH == 1)
+  const int ch0 = half * DHH;              // its first channel
   const int g = lane >> 2, t4 = lane & 3;
   const bool sparse = p.k_sp_val != nullptr;
   const int r = p.r;                       // 0 without low-rank factors
@@ -678,9 +730,9 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
   const uint32_t mask = (1u << p.bits) - 1u;
 
   // this warp's 16 query rows as f32 A fragments: rows g, g + 8; columns
-  // 16 kk + 2 t4 + {0, 1} and + {8, 9}
+  // ch0 + 16 kk + 2 t4 + {0, 1} and + {8, 9}
   const int rq = qt * 64 + warp * 16 + g;
-  const float* qb = q + (static_cast<long>(bh) * NB + blk) * R * DH;
+  const float* qb = q + (static_cast<long>(bh) * NB + blk) * R * DH + ch0;
   float qf[KK][8];
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk) {
@@ -697,7 +749,6 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
     qf[kk][0] = v00.x; qf[kk][1] = v00.y; qf[kk][2] = v10.x; qf[kk][3] = v10.y;
     qf[kk][4] = v01.x; qf[kk][5] = v01.y; qf[kk][6] = v11.x; qf[kk][7] = v11.y;
   }
-
   float acc[NTD][4];
 #pragma unroll
   for (int nt = 0; nt < NTD; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
@@ -715,14 +766,14 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
     // ---- build the chunk's bf16 operand tiles ------------------------------
     const uint32_t* kw = reinterpret_cast<const uint32_t*>(buf + st.kp);
     const uint32_t* vw = reinterpret_cast<const uint32_t*>(buf + st.vp);
-    for (int i = tid; i < HT * L; i += THREADS) {
+    for (int i = tid; i < HT * L; i += NT) {
       const int t = i / L, w = i % L;      // K: token-major, a row's words side by side
       const uint32_t word = kw[t * L + w];
       for (int j = 0; j < per; j += 2)
         *reinterpret_cast<__nv_bfloat162*>(kc + t * KP + w * per + j) = __floats2bfloat162_rn(
             code_f((word >> (p.bits * j)) & mask), code_f((word >> (p.bits * (j + 1))) & mask));
     }
-    for (int i = tid; i < HT * L; i += THREADS) {
+    for (int i = tid; i < HT * L; i += NT) {
       const int t = i % HT, w = i / HT;    // V: channel-major, neighbours on neighbouring tokens
       const uint32_t word = vw[t * L + w];
       for (int j = 0; j < per; ++j)
@@ -731,7 +782,7 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
     if (sparse) {
       // one thread per K channel / V token adds its outliers in slot order
       const int32_t* kidx = reinterpret_cast<const int32_t*>(buf + st.ksi);
-      for (int d = tid; d < DH; d += THREADS) {
+      for (int d = tid; d < DH; d += NT) {
         for (int t = 0; t < HT; ++t) ksp[t * KP + d] = to_bf(0.f);
         for (int j = 0; j < p.ks; ++j) {
           const int t = kidx[d * p.ks + j];
@@ -741,7 +792,7 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
         }
       }
       const int32_t* vidx = reinterpret_cast<const int32_t*>(buf + st.vsi);
-      for (int t = tid; t < HT; t += THREADS) {
+      for (int t = tid; t < HT; t += NT) {
         for (int d = 0; d < DH; ++d) vsp[d * TP + t] = to_bf(0.f);
         for (int j = 0; j < p.kv; ++j) {
           const int d = vidx[t * p.kv + j];
@@ -751,7 +802,7 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
         }
       }
     }
-    for (int i = tid; i < 8 * DH; i += THREADS) {
+    for (int i = tid; i < 8 * DH; i += NT) {
       const int n = i / DH, d = i % DH;    // [k_b | k_z]^T
       bx[n * KP + d] = n < r ? to_bf(bfv(buf, st.kb, d * r + n))
                              : (n == r ? to_bf(bfv(buf, st.kzr, d)) : to_bf(0.f));
@@ -760,7 +811,7 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
       bv3[dd * 8 + k] = k < r ? to_bf(bfv(buf, st.vb, dd * r + k))
                               : to_bf(gk == dd / (DH / GV) ? 1.f : 0.f);
     }
-    for (int i = tid; i < 8 * HT; i += THREADS) {
+    for (int i = tid; i < 8 * HT; i += NT) {
       const int t = i / 8, k = i % 8;      // [k_a | 1]
       ka2[t * 8 + k] = k < r ? to_bf(bfv(buf, st.ka, t * r + k)) : to_bf(k == r ? 1.f : 0.f);
       const int n = i / HT, tt = i % HT;   // [v_a | v_z]^T
@@ -771,6 +822,7 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
     __syncthreads();
 
     // ---- scores: (q s_K) . codes + q . sp + (q [k_b | k_z]) . [k_a | 1] ----
+    // (over this warp's channels: at head_dim 256 a partial sum)
     float sc[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
@@ -778,7 +830,7 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
     const bf16* ksc = reinterpret_cast<const bf16*>(buf + st.ksc);
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk) {
-      const int c0 = kk * 16 + 2 * t4;
+      const int c0 = ch0 + kk * 16 + 2 * t4;
       const float2 s01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ksc + c0));
       const float2 s89 =
           __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ksc + c0 + 8));
@@ -814,6 +866,26 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
         mma_bf16(sc[nt], ehi, b0, 0u);
         mma_bf16(sc[nt], elo, b0, 0u);
       }
+    }
+    if constexpr (CH == 2) {
+      // the two halves' partial scores meet in the K code tile (free once
+      // every warp has passed the barrier); both warps of a row group add
+      // them lower + upper, so they hold the same bits
+      __syncthreads();
+      float* mine = xsc + ((half * WARPS + warp) * 32) * 32 + lane;
+      const float* other = xsc + (((1 - half) * WARPS + warp) * 32) * 32 + lane;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(nt * 4 + e) * 32] = sc[nt][e];
+      __syncthreads();
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float o = other[(nt * 4 + e) * 32];
+          sc[nt][e] = half == 0 ? sc[nt][e] + o : o + sc[nt][e];
+        }
     }
 
     // ---- scale, mask past the extent, online softmax -----------------------
@@ -854,6 +926,7 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
     }
 
     // ---- acc += (p s_V) . codes + p . sp + (p [v_a | v_z]) . [v_b | 1] -----
+    // (this warp's O columns ch0 .. ch0 + DHH: its tile n is channel tile ch0 / 8 + n)
     float f[4] = {0.f, 0.f, 0.f, 0.f};
     const bf16* vsc = reinterpret_cast<const bf16*>(buf + st.vsc);
 #pragma unroll
@@ -864,32 +937,31 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
                            sc[2 * kk + 1][3]};
       uint32_t phi[4], plo[4];
       split_hi_lo(pv, phi, plo);
+      uint32_t shi[4], slo[4];
 #pragma unroll
-      for (int gi = 0; gi < GV; ++gi) {
-        const float v0 = __bfloat162float(vsc[tk * GV + gi]);
-        const float v1 = __bfloat162float(vsc[(tk + 1) * GV + gi]);
-        const float v8 = __bfloat162float(vsc[(tk + 8) * GV + gi]);
-        const float v9 = __bfloat162float(vsc[(tk + 9) * GV + gi]);
-        const float xv[8] = {pv[0] * v0, pv[1] * v1, pv[2] * v0, pv[3] * v1,
-                             pv[4] * v8, pv[5] * v9, pv[6] * v8, pv[7] * v9};
-        uint32_t shi[4], slo[4];
-        split_hi_lo(xv, shi, slo);
-#pragma unroll
-        for (int n = 0; n < NT_PER_GROUP; ++n) {
-          const int nt = gi * NT_PER_GROUP + n;
-          const bf16* b = vt + (nt * 8 + g) * TP + tk;
-          const uint32_t b0 = ld32(b), b1 = ld32(b + 8);
-          mma_bf16(acc[nt], shi, b0, b1);
-          mma_bf16(acc[nt], slo, b0, b1);
+      for (int n = 0; n < NTD; ++n) {
+        if (n % NT_RUN == 0) {             // first tile of a V stat group within the half
+          const int gi = (ch0 / 8 + n) / NT_PER_GROUP;
+          const float v0 = __bfloat162float(vsc[tk * GV + gi]);
+          const float v1 = __bfloat162float(vsc[(tk + 1) * GV + gi]);
+          const float v8 = __bfloat162float(vsc[(tk + 8) * GV + gi]);
+          const float v9 = __bfloat162float(vsc[(tk + 9) * GV + gi]);
+          const float xv[8] = {pv[0] * v0, pv[1] * v1, pv[2] * v0, pv[3] * v1,
+                               pv[4] * v8, pv[5] * v9, pv[6] * v8, pv[7] * v9};
+          split_hi_lo(xv, shi, slo);
         }
+        const bf16* b = vt + (ch0 + n * 8 + g) * TP + tk;
+        const uint32_t b0 = ld32(b), b1 = ld32(b + 8);
+        mma_bf16(acc[n], shi, b0, b1);
+        mma_bf16(acc[n], slo, b0, b1);
       }
       if (sparse) {
 #pragma unroll
-        for (int nt = 0; nt < NTD; ++nt) {
-          const bf16* b = vsp + (nt * 8 + g) * TP + tk;
+        for (int n = 0; n < NTD; ++n) {
+          const bf16* b = vsp + (ch0 + n * 8 + g) * TP + tk;
           const uint32_t b0 = ld32(b), b1 = ld32(b + 8);
-          mma_bf16(acc[nt], phi, b0, b1);
-          mma_bf16(acc[nt], plo, b0, b1);
+          mma_bf16(acc[n], phi, b0, b1);
+          mma_bf16(acc[n], plo, b0, b1);
         }
       }
       const bf16* b = bv2 + g * TP + tk;
@@ -900,10 +972,10 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
       uint32_t fhi[4], flo[4];
       tile_as_a(f, fhi, flo);
 #pragma unroll
-      for (int nt = 0; nt < NTD; ++nt) {
-        const uint32_t b0 = ld32(bv3 + (nt * 8 + g) * 8 + 2 * t4);
-        mma_bf16(acc[nt], fhi, b0, 0u);
-        mma_bf16(acc[nt], flo, b0, 0u);
+      for (int n = 0; n < NTD; ++n) {
+        const uint32_t b0 = ld32(bv3 + (ch0 + n * 8 + g) * 8 + 2 * t4);
+        mma_bf16(acc[n], fhi, b0, 0u);
+        mma_bf16(acc[n], flo, b0, 0u);
       }
     }
   }
@@ -919,12 +991,12 @@ __global__ void __launch_bounds__(THREADS, 2) gear_history_mma(
   for (int h = 0; h < 2; ++h) {
     const int row = rq + 8 * h;
     if (row >= R) continue;
-    float* dst = out_acc + (o0 + row) * DH;
+    float* dst = out_acc + (o0 + row) * DH + ch0;
 #pragma unroll
-    for (int nt = 0; nt < NTD; ++nt)
-      *reinterpret_cast<float2*>(dst + nt * 8 + 2 * t4) =
-          make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
-    if (t4 == 0) {
+    for (int n = 0; n < NTD; ++n)
+      *reinterpret_cast<float2*>(dst + n * 8 + 2 * t4) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+    if (t4 == 0 && half == 0) {
       out_m[o0 + row] = m_run[h];
       out_l[o0 + row] = l_run[h];
     }
@@ -984,16 +1056,18 @@ template <bool PAGED>
 int dispatch_decode(const Operands& p, const float* q, const int32_t* n_comp, float* part_acc,
                     float* part_m, float* part_l, int* tickets, float* acc, float* m, float* l,
                     int BH, int G, int cps, float scale, cudaStream_t st) {
+#define GEAR_DECODE_GM(B, D, GM) \
+  launch_decode<PAGED, B, D, GM>(p, q, n_comp, part_acc, part_m, part_l, tickets, acc, m, l, \
+                                 BH, G, cps, scale, st)
 #define GEAR_DECODE_CASE(B, D)                                                                \
   if (p.bits == B && p.Dh == D)                                                               \
-    return G == 1 ? launch_decode<PAGED, B, D, 1>(p, q, n_comp, part_acc, part_m, part_l,    \
-                                                  tickets, acc, m, l, BH, G, cps, scale, st)  \
-                  : launch_decode<PAGED, B, D, GMAX>(p, q, n_comp, part_acc, part_m, part_l, \
-                                                     tickets, acc, m, l, BH, G, cps, scale,   \
-                                                     st);
+    return G == 1 ? GEAR_DECODE_GM(B, D, 1)                                                   \
+                  : (G <= GMID ? GEAR_DECODE_GM(B, D, GMID) : GEAR_DECODE_GM(B, D, GMAX));
   GEAR_DECODE_CASE(2, 64) GEAR_DECODE_CASE(4, 64) GEAR_DECODE_CASE(8, 64)
   GEAR_DECODE_CASE(2, 128) GEAR_DECODE_CASE(4, 128) GEAR_DECODE_CASE(8, 128)
+  GEAR_DECODE_CASE(2, 256) GEAR_DECODE_CASE(4, 256) GEAR_DECODE_CASE(8, 256)
 #undef GEAR_DECODE_CASE
+#undef GEAR_DECODE_GM
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1007,7 +1081,8 @@ int launch_history(const Operands& p, const float* q, const int32_t* ext, int ex
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, NB * ((R + 63) / 64));
-  kern<<<grid, THREADS, smem, st>>>(p, stage, q, ext, ext_row, ext_blk, acc, m, l, NB, R, scale);
+  kern<<<grid, HistSplit<DH>::THREADS, smem, st>>>(p, stage, q, ext, ext_row, ext_blk, acc, m, l,
+                                                   NB, R, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1021,6 +1096,7 @@ int dispatch_history(const Operands& p, const float* q, const int32_t* ext, int 
     return launch_history<PAGED, D, V>(p, q, ext, ext_row, ext_blk, acc, m, l, BH, NB, R,   \
                                        scale, st);
   GEAR_HISTORY_CASE(64, 1) GEAR_HISTORY_CASE(128, 1) GEAR_HISTORY_CASE(128, 2)
+  GEAR_HISTORY_CASE(256, 1) GEAR_HISTORY_CASE(256, 4)
 #undef GEAR_HISTORY_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

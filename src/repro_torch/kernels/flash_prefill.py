@@ -21,7 +21,7 @@ from repro_torch.kernels.ref import flash_block_ref, flash_prefill_ref
 
 __all__ = ["flash_prefill", "flash_prefill_block", "HEAD_DIMS", "BLOCK_HEAD_DIMS", "BLOCK_T"]
 
-HEAD_DIMS = (64, 128)            # template instantiations in flash_prefill.cu
+HEAD_DIMS = (64, 128, 256)       # template instantiations in flash_prefill.cu
 BLOCK_HEAD_DIMS = (64, 128, 256)  # template instantiations in flash_prefill_block.cu
 BLOCK_T = 64                     # most queries per row-group flash_prefill_block takes
 

@@ -12,8 +12,11 @@ layout artifact).
 
 The kernel has two regimes: up to ``DECODE_ROWS`` query rows per row run
 the byte-lean decode body (CUDA cores, chunks split across blocks so the
-grid covers the card, the splits merged in the same launch); more run the
-tensor-core history body.  All three entries count under
+grid covers the card, the splits merged in the same launch; built for G = 1,
+G <= 8 and 8 < G <= 16); more run the tensor-core history body, as does a
+:func:`gear_decode` call with ``tensor_cores=True``.  Both are built at
+head_dim 64, 128 and 256; the history body for the (head_dim, V stat
+groups) pairs of ``HISTORY_BUILDS``.  All three entries count under
 ``gear_decode.launches`` and ``gear_decode_paged.launches``, one per launch.
 """
 
@@ -28,9 +31,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (gear_decode_history_ref, gear_decode_paged_ref,
                                      gear_decode_ref)
 
-__all__ = ["gear_decode", "gear_decode_paged", "gear_decode_history", "DECODE_ROWS"]
+__all__ = ["gear_decode", "gear_decode_paged", "gear_decode_history", "DECODE_ROWS",
+           "HEAD_DIMS", "HISTORY_BUILDS"]
 
-DECODE_ROWS = 8            # most query rows per row of the decode regime (GMAX in the source)
+DECODE_ROWS = 16           # most query rows per row of the decode regime (GMAX in the source)
+HEAD_DIMS = (64, 128, 256)
+# (head_dim, V stat groups) of the history body's instantiations: gear_kcvt4's
+# one group at every head_dim, gear_kivi2's 64-channel groups (Dh / 64)
+HISTORY_BUILDS = ((64, 1), (128, 1), (128, 2), (256, 1), (256, 4))
 BLOCKS_PER_SM = 32         # decode splits: aim for this many blocks per SM
 
 _P = ctypes.c_void_p
@@ -108,8 +116,8 @@ def _checked_operands(who, q, k_packed, k_scale, k_zero, v_packed, v_scale, v_ze
     dev = q.device
     BH, G, Dh = q.shape
     per = 32 // bits
-    if bits not in (2, 4, 8) or Dh not in (64, 128):
-        raise ValueError(f"{who}: bits={bits}, Dh={Dh} not built (bits 2/4/8, Dh 64/128)")
+    if bits not in (2, 4, 8) or Dh not in HEAD_DIMS:
+        raise ValueError(f"{who}: bits={bits}, Dh={Dh} not built (bits 2/4/8, Dh {HEAD_DIMS})")
     L, gv = Dh // per, v_scale.shape[-1]
     if Dh % gv or (Dh // gv) % per:
         raise ValueError(f"{who}: {gv} V stat groups do not split Dh={Dh} into whole words")
@@ -152,10 +160,11 @@ def _checked_operands(who, q, k_packed, k_scale, k_zero, v_packed, v_scale, v_ze
         tensor_cores = G > DECODE_ROWS
     if tensor_cores:
         nb = tok_rows // chk_rows
-        if nb != 64 or r + 1 > 8 or r + gv > 8 or (Dh == 64 and gv != 1) or gv > 2:
+        if nb != 64 or r + 1 > 8 or r + gv > 8 or (Dh, gv) not in HISTORY_BUILDS:
             raise ValueError(f"{who}: {G} query rows take the history regime, built for "
-                             f"64-token chunks, rank + 1 <= 8 and 1 or 2 V stat groups "
-                             f"(got chunk {nb}, rank {r}, {gv} groups at Dh={Dh})")
+                             f"64-token chunks, rank + V stat groups <= 8 and (Dh, groups) "
+                             f"in {HISTORY_BUILDS} (got chunk {nb}, rank {r}, {gv} groups "
+                             f"at Dh={Dh})")
     return n_comp, r, ks, kv, gv
 
 
@@ -164,8 +173,11 @@ def _ptr(x):
 
 
 def _decode_launch(who, q, arrays, n_comp, bt, lr, sp, *, H, C, chunk, bits, r, ks, kv, gv,
-                   scale_factor):
-    """One ``gear_decode_launch``: (acc [BH, G, Dh], m [BH, G], l [BH, G])."""
+                   scale_factor, tensor_cores=False):
+    """One ``gear_decode_launch`` (or, for ``tensor_cores`` on the dense
+    layout, one ``gear_history_launch`` with one extent per row, what the
+    C entry does for more than ``DECODE_ROWS`` rows): (acc [BH, G, Dh],
+    m [BH, G], l [BH, G])."""
     BH, G, Dh = q.shape
     dev = q.device
     f32 = torch.float32
@@ -174,6 +186,14 @@ def _decode_launch(who, q, arrays, n_comp, bt, lr, sp, *, H, C, chunk, bits, r, 
     acc = torch.empty((BH, G, Dh), dtype=f32, device=dev)
     m = torch.empty((BH, G), dtype=f32, device=dev)
     l = torch.empty((BH, G), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if tensor_cores and bt is None:
+        code = _launcher("history")(
+            _ptr(q), *map(_ptr, arrays), *map(_ptr, lr), *map(_ptr, sp), _ptr(n_comp), 1, 0,
+            _ptr(acc), _ptr(m), _ptr(l), BH, 1, G, C, chunk, Dh, bits, gv, r, ks, kv,
+            float(scale_factor), stream)
+        _build.check(code, who)
+        return acc, m, l
     cps = _splits(BH, C, dev)
     n_splits = -(-C // cps)
     parts = [None, None, None]
@@ -185,8 +205,7 @@ def _decode_launch(who, q, arrays, n_comp, bt, lr, sp, *, H, C, chunk, bits, r, 
     code = _launcher("dense" if bt is None else "paged")(
         _ptr(q), *map(_ptr, arrays), *map(_ptr, lr), *map(_ptr, sp), _ptr(n_comp), _ptr(bt),
         *map(_ptr, parts), _ptr(tickets), _ptr(acc), _ptr(m), _ptr(l),
-        BH, H, G, C, chunk, Dh, bits, gv, r, ks, kv, cps, float(scale_factor),
-        torch.cuda.current_stream(dev).cuda_stream)
+        BH, H, G, C, chunk, Dh, bits, gv, r, ks, kv, cps, float(scale_factor), stream)
     _build.check(code, who)
     return acc, m, l
 
@@ -194,11 +213,14 @@ def _decode_launch(who, q, arrays, n_comp, bt, lr, sp, *, H, C, chunk, bits, r, 
 def gear_decode(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, n_comp,
                 k_a=None, k_b=None, v_a=None, v_b=None,
                 k_sp_val=None, k_sp_idx=None, v_sp_val=None, v_sp_idx=None,
-                *, bits: int, chunk: int, scale_factor: float):
+                *, bits: int, chunk: int, scale_factor: float, tensor_cores: bool = False):
     """Unnormalized decode attention over the compressed history.
 
     Returns (acc [BH, G, Dh] f32, m [BH, G] f32, l [BH, G] f32); see
     :func:`repro_torch.kernels.ref.gear_decode_ref` for the contract.
+    ``tensor_cores=True`` sends up to ``DECODE_ROWS`` query rows through
+    the history body too (the same function; it times that body on decode
+    operands), where they would take the decode body.
     """
     kw = dict(bits=bits, chunk=chunk, scale_factor=scale_factor, k_a=k_a, k_b=k_b,
               v_a=v_a, v_b=v_b, k_sp_val=k_sp_val, k_sp_idx=k_sp_idx,
@@ -215,10 +237,13 @@ def gear_decode(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, n_comp,
     C = S // chunk
     arrays = (k_packed, k_scale, k_zero, v_packed, v_scale, v_zero)
     lr, sp = [k_a, k_b, v_a, v_b], [k_sp_val, k_sp_idx, v_sp_val, v_sp_idx]
+    tensor_cores = tensor_cores or q.shape[1] > DECODE_ROWS
     n_comp, r, ks, kv, gv = _checked_operands(
-        "gear_decode", q, *arrays, n_comp, lr, sp, bits=bits, rows=BH, tok_rows=S, chk_rows=C)
+        "gear_decode", q, *arrays, n_comp, lr, sp, bits=bits, rows=BH, tok_rows=S, chk_rows=C,
+        tensor_cores=tensor_cores)
     out = _decode_launch("gear_decode", q, arrays, n_comp, None, lr, sp, H=1, C=C, chunk=chunk,
-                         bits=bits, r=r, ks=ks, kv=kv, gv=gv, scale_factor=scale_factor)
+                         bits=bits, r=r, ks=ks, kv=kv, gv=gv, scale_factor=scale_factor,
+                         tensor_cores=tensor_cores)
     gear_decode.launches += 1
     return out
 

@@ -1,12 +1,13 @@
-"""Shared model components: device choice, RMSNorm, LayerNorm, SiLU, RoPE
-(port of ``repro.models.common``)."""
+"""Shared model components: device choice, RMSNorm, LayerNorm, SiLU, the
+tanh GELU, RoPE (port of ``repro.models.common``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "rmsnorm", "layernorm", "silu", "rope_freqs", "rope_tables",
-           "rotate", "apply_rope", "MIN_GEMM_ROWS", "rowwise"]
+__all__ = ["resolve_device", "rmsnorm", "layernorm", "apply_norm", "silu", "gelu_tanh",
+           "rope_freqs", "rope_tables", "rotate", "apply_rope", "MIN_GEMM_ROWS", "rowwise"]
 
 # cuBLAS chooses a GEMM's kernel, and with it the order of its sums, by the
 # row count: on the H100 a token's row of a 64-row [64, 11008] x [11008,
@@ -59,10 +60,34 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None,
+               kind: str) -> torch.Tensor:
+    """The config's norm: ``"rmsnorm"`` (``bias`` unused) or ``"layernorm"``."""
+    if kind == "rmsnorm":
+        return rmsnorm(x, scale)
+    if kind == "layernorm":
+        return layernorm(x, scale, bias)
+    raise ValueError(f"unknown norm {kind!r}")
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` in x's dtype, as ``jax.nn.silu`` (in bf16 the
     sigmoid is rounded before the product, unlike ``F.silu``)."""
     return x * torch.sigmoid(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` in x's dtype and in its order of
+    operations: ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x**3))))`` with
+    ``c = sqrt(2 / pi)`` and every constant and intermediate in x's dtype (in
+    bf16 each product and sum is rounded, unlike ``F.gelu``, which rounds
+    once).  ``x**3`` is ``x * x * x``, as XLA expands the integer power."""
+    def const(v):
+        return torch.tensor(v, dtype=torch.float32, device=x.device).to(x.dtype)
+    cube = x * x * x
+    inner = const(np.sqrt(2 / np.pi)) * (x + const(0.044715) * cube)
+    cdf = const(0.5) * (const(1.0) + torch.tanh(inner))
+    return x * cdf
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -5,7 +5,8 @@ numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a
 :class:`~repro_torch.models.transformer.Transformer`.  The reference stacks
 each pattern position's layers over repeats (``blocks[p][...][r]``); layer
 ``r * len(pattern) + p`` of the port is that slice.  Matrices become
-``dtype`` (bf16: what the reference casts them to at use), norm scales f32.
+``dtype`` (bf16: what the reference casts them to at use), norm scales and
+(LayerNorm) biases f32; a non-gated MLP (``gelu_mlp``) has no ``w_gate``.
 A hybrid block's ``ssm`` subtree comes across the same way: its matrices in
 bf16, ``conv_w`` and the per-head ``a_log`` / ``dt_bias`` / ``d_skip`` in
 f32 (see :mod:`repro_torch.models.transformer`).  An RWKV6 block's ``tm`` /
@@ -46,6 +47,8 @@ def params_from_reference(np_tree: dict, cfg: ModelConfig, device=None,
     if model.lm_head is not None:
         put(model.lm_head, np_tree["lm_head"])
     put(model.final_norm, np_tree["final_norm"]["scale"])
+    if model.final_norm_bias is not None:
+        put(model.final_norm_bias, np_tree["final_norm"]["bias"])
     for i, blk in enumerate(model.blocks):
         stacked = np_tree["blocks"][i % unit]
         r = i // unit
@@ -57,12 +60,15 @@ def params_from_reference(np_tree: dict, cfg: ModelConfig, device=None,
                 for name, p in getattr(blk, sub).named_parameters():
                     put(p, stacked[sub][name][r])
             continue
-        put(blk.ln1, stacked["ln1"]["scale"][r])
-        put(blk.ln2, stacked["ln2"]["scale"][r])
+        for n in ("ln1", "ln2"):
+            put(getattr(blk, n), stacked[n]["scale"][r])
+            if getattr(blk, f"{n}_bias") is not None:
+                put(getattr(blk, f"{n}_bias"), stacked[n]["bias"][r])
         for name in _ATTN:
             put(getattr(blk, name), stacked["attn"][name][r])
         for name in _MLP:
-            put(getattr(blk, name), stacked["mlp"][name][r])
+            if getattr(blk, name) is not None:
+                put(getattr(blk, name), stacked["mlp"][name][r])
         if "ssm" in stacked:
             for name in _SSM:
                 put(getattr(blk, name), stacked["ssm"][name][r])

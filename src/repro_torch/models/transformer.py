@@ -1,8 +1,10 @@
 """Decoder stack: weights, monolithic or streaming prefill and one decode
 step over dense or paged caches (port of ``repro.models.transformer`` for
-global-attention RMSNorm/SwiGLU text decoders: dense llama2 and the hybrid
-hymba, whose blocks run Mamba-2 SSM heads beside attention; and for the
-attention-free RWKV6, whose blocks are time mix + channel mix).
+global-attention text decoders: the dense llama2, minicpm (RMSNorm +
+SwiGLU), starcoder2 (LayerNorm + GELU MLP) and gemma (RMSNorm + GeGLU, its
+embedding scaled by sqrt(d_model)), and the hybrid hymba, whose blocks run
+Mamba-2 SSM heads beside attention; and for the attention-free RWKV6,
+whose blocks are time mix + channel mix).
 
 Where the reference stacks per-layer parameters and caches over repeats and
 drives them with ``lax.scan``, the port holds one :class:`Block` and one
@@ -11,7 +13,7 @@ pair ``(GEARLayerCache, SSMState)``, as the reference's; an RWKV6 layer's
 is its :class:`~repro_torch.models.rwkv.RWKVState`.  Activations run in
 bf16 (``COMPUTE_DTYPE``, as the reference); weight matrices are stored in
 bf16, which is what the reference computes with after its cast at use, and
-norm scales and the SSM's per-head vectors stay f32.  The SSM's ``conv_w``
+norm scales and biases and the SSM's per-head vectors stay f32.  The SSM's ``conv_w``
 stays f32 too: the reference's prefill casts it to bf16 at use, its decode
 uses it in f32.
 """
@@ -28,11 +30,13 @@ from repro_torch.core.policy import CompressionPolicy
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import layernorm, resolve_device, rmsnorm, rope_tables, rowwise
-from repro_torch.models.mlp import mlp_apply
+from repro_torch.models.common import (apply_norm, layernorm, resolve_device, rope_tables,
+                                      rowwise)
+from repro_torch.models.mlp import GATED_KINDS, MLP_KINDS, mlp_apply
 
 __all__ = ["COMPUTE_DTYPE", "Block", "RWKVBlock", "Transformer", "check_supported",
            "check_serving", "is_hybrid", "cache_cfg_for", "init_caches", "embed_tokens",
+           "final_norm",
            "logits_from_hidden", "forward_prefill", "decode_tokens"]
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -57,27 +61,46 @@ def check_serving(cfg: ModelConfig, layout: str = "dense") -> None:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves text decoders with global RMSNorm/SwiGLU attention
-    blocks, dense (llama2) or hybrid with parallel SSM heads (hymba), and
-    attention-free RWKV6 stacks; other families raise."""
-    attn_ok = (((cfg.family == "dense" and not cfg.ssm)
-                or (cfg.family == "hybrid" and is_hybrid(cfg)))
-               and not cfg.rwkv and cfg.layer_pattern == ("global",)
-               and cfg.mlp_kind == "swiglu" and not cfg.qk_norm)
-    rwkv_ok = cfg.family == "ssm" and cfg.rwkv and cfg.mlp_kind == "rwkv_cm"
-    if (not (attn_ok or rwkv_ok) or cfg.moe or cfg.modality != "text"
-            or cfg.norm != "rmsnorm"):
+    """The port serves text decoders with global attention blocks, dense
+    (llama2, minicpm, starcoder2, gemma: SwiGLU / GeGLU / GELU MLP under
+    RMSNorm or LayerNorm) or hybrid with parallel SSM heads (hymba, RMSNorm /
+    SwiGLU), and attention-free RWKV6 stacks; other families raise."""
+    dense_ok = (cfg.family == "dense" and not cfg.ssm and cfg.mlp_kind in MLP_KINDS
+                and cfg.norm in ("rmsnorm", "layernorm"))
+    hybrid_ok = (cfg.family == "hybrid" and is_hybrid(cfg) and cfg.mlp_kind == "swiglu"
+                 and cfg.norm == "rmsnorm")
+    attn_ok = ((dense_ok or hybrid_ok) and not cfg.rwkv
+               and cfg.layer_pattern == ("global",) and not cfg.qk_norm)
+    rwkv_ok = (cfg.family == "ssm" and cfg.rwkv and cfg.mlp_kind == "rwkv_cm"
+               and cfg.norm == "rmsnorm")
+    if not (attn_ok or rwkv_ok) or cfg.moe or cfg.modality != "text":
         raise NotImplementedError(
-            f"{cfg.name}: only dense or hybrid (parallel SSM) global-attention RMSNorm/SwiGLU "
-            "text decoders and RWKV6 are ported (other families: ROADMAP queue item 8)")
+            f"{cfg.name}: only dense global-attention text decoders (SwiGLU / GeGLU / GELU "
+            "MLP, RMSNorm / LayerNorm, no QK-norm), hybrid (parallel SSM) RMSNorm/SwiGLU ones "
+            "and RWKV6 are ported (local:global attention, QK-norm, VLM, audio and MoE "
+            "families: ROADMAP queue 1, item 8.4 onward)")
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(x, requires_grad=False)
 
 
+def _norm_params(cfg: ModelConfig, device):
+    """(scale, bias) of one norm at the reference's init (``norm_params``):
+    RMSNorm's gemma-style ``(1 + scale)`` gain has scale 0 and no bias;
+    LayerNorm has scale 1 and bias 0, in f32."""
+    d = cfg.d_model
+    if cfg.norm == "layernorm":
+        return (_param(torch.ones(d, dtype=torch.float32, device=device)),
+                _param(torch.zeros(d, dtype=torch.float32, device=device)))
+    return _param(torch.zeros(d, dtype=torch.float32, device=device)), None
+
+
 class Block(nn.Module):
-    """One decoder layer's weights (``[d_in, d_out]`` matrices, as the reference)."""
+    """One decoder layer's weights (``[d_in, d_out]`` matrices, as the
+    reference): norms ``ln1`` / ``ln2`` (scales; ``ln1_bias`` / ``ln2_bias``
+    for LayerNorm, else None), attention, and the MLP (``w_gate`` for the
+    gated kinds only, else None)."""
 
     def __init__(self, cfg: ModelConfig, device, dtype=COMPUTE_DTYPE):
         super().__init__()
@@ -86,10 +109,12 @@ class Block(nn.Module):
         def mat(*shape):
             return _param(torch.zeros(shape, dtype=dtype, device=device))
 
-        self.ln1 = _param(torch.zeros(d, dtype=torch.float32, device=device))
-        self.ln2 = _param(torch.zeros(d, dtype=torch.float32, device=device))
+        self.norm, self.mlp_kind = cfg.norm, cfg.mlp_kind
+        self.ln1, self.ln1_bias = _norm_params(cfg, device)
+        self.ln2, self.ln2_bias = _norm_params(cfg, device)
         self.wq, self.wk, self.wv, self.wo = mat(d, qd), mat(d, kvd), mat(d, kvd), mat(qd, d)
-        self.w_gate, self.w_up, self.w_down = mat(d, ff), mat(d, ff), mat(ff, d)
+        self.w_gate = mat(d, ff) if cfg.mlp_kind in GATED_KINDS else None
+        self.w_up, self.w_down = mat(d, ff), mat(ff, d)
         if is_hybrid(cfg):
             H, dinner = cfg.num_heads, cfg.q_dim
 
@@ -102,6 +127,15 @@ class Block(nn.Module):
                                               device=device))
             # the reference's init (ssm.ssm_params): exp(a_log) = 1, softplus(-1) decay
             self.a_log, self.dt_bias, self.d_skip = vec(0.0), vec(-1.0), vec(1.0)
+
+    def norm1(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_norm(x, self.ln1, self.ln1_bias, self.norm)
+
+    def norm2(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_norm(x, self.ln2, self.ln2_bias, self.norm)
+
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp_apply(self, x, self.mlp_kind)
 
 
 class RWKVBlock(nn.Module):
@@ -141,7 +175,7 @@ class Transformer(nn.Module):
         self.embed = _param(torch.zeros(v, d, dtype=dtype, device=device))
         self.lm_head = (None if cfg.tie_embeddings
                         else _param(torch.zeros(d, v, dtype=dtype, device=device)))
-        self.final_norm = _param(torch.zeros(d, dtype=torch.float32, device=device))
+        self.final_norm, self.final_norm_bias = _norm_params(cfg, device)
         block = RWKVBlock if cfg.rwkv else Block
         self.blocks = nn.ModuleList(block(cfg, device, dtype) for _ in range(cfg.num_layers))
 
@@ -154,7 +188,9 @@ class Transformer(nn.Module):
         """Random weights from a seeded ``torch.Generator`` on the target
         device: normal draws scaled by ``fan_in ** -0.5`` as the reference's
         init (untruncated; ``fan_in`` is the input dim, the LoRA rank 32 for
-        RWKV6's ``mix_lora_b [5, 32, d]``); norm scales zero, i.e. unit gain.
+        RWKV6's ``mix_lora_b [5, 32, d]``); norms at the reference's
+        ``norm_params``: RMSNorm scales zero (unit gain), LayerNorm scales 1
+        and biases 0.
         Everything else keeps the reference's constants, set by the modules:
         the SSM's per-head vectors (``a_log`` 0, ``dt_bias`` -1, ``d_skip``
         1), RWKV6's mixes (0.5), ``w0`` (-2), ``u`` (0) and its norms' scale
@@ -216,8 +252,19 @@ def init_caches(cfg: ModelConfig, policy: CompressionPolicy, batch: int, capacit
     return [cache_lib.init_layer_cache(ccfg, dtype, device) for _ in range(cfg.num_layers)]
 
 
+def final_norm(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    return apply_norm(x, model.final_norm, model.final_norm_bias, model.cfg.norm)
+
+
 def embed_tokens(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    return model.embed[tokens.to(torch.int64)].to(COMPUTE_DTYPE)
+    """Rows of the embedding table in ``COMPUTE_DTYPE``; a GeGLU model
+    (gemma) scales them by ``sqrt(d_model)`` in f32 first, as the reference
+    (whose table is f32: on the port's bf16 table the scaled embedding may
+    differ from the reference's by one bf16 ulp)."""
+    x = model.embed[tokens.to(torch.int64)]
+    if model.cfg.mlp_kind == "geglu":
+        x = x.to(torch.float32) * (model.cfg.d_model ** 0.5)
+    return x.to(COMPUTE_DTYPE)
 
 
 def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
@@ -269,7 +316,7 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
             x = x + h
             caches.append(rwkv_lib.RWKVState(shift_tm=shift_tm.to(torch.bfloat16),
                                              shift_cm=shift_cm.to(torch.bfloat16), wkv=wkv))
-        return logits_from_hidden(model, rmsnorm(x, model.final_norm)[:, -1:, :]), caches
+        return logits_from_hidden(model, final_norm(model, x)[:, -1:, :]), caches
     hybrid = is_hybrid(cfg)
     B, S, _ = x.shape
     positions = torch.arange(start_pos, start_pos + S, dtype=torch.int32, device=x.device)
@@ -285,7 +332,7 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
         raise ValueError(f"{len(init_caches)} initial caches for {len(model.blocks)} layers")
     caches = []
     for i, blk in enumerate(model.blocks):
-        xin = rmsnorm(x, blk.ln1)
+        xin = blk.norm1(x)
         if stream:
             h, cache = attn_lib.attention_prefill_streaming(
                 cfg, blk, xin, rope, ccfg, start_pos=start_pos, padded_tail=padded_tail,
@@ -299,10 +346,10 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
             h = (h + h2) * 0.5
             cache = (cache, ssm_state)
         x = x + h
-        xin2 = rmsnorm(x, blk.ln2)
-        x = x + (rowwise(lambda t: mlp_apply(blk, t), xin2) if stream else mlp_apply(blk, xin2))
+        xin2 = blk.norm2(x)
+        x = x + (rowwise(blk.mlp, xin2) if stream else blk.mlp(xin2))
         caches.append(cache)
-    x = rmsnorm(x, model.final_norm)
+    x = final_norm(model, x)
     last = S if true_len is None else int(true_len)
     return logits_from_hidden(model, x[:, last - 1:last, :]), caches
 
@@ -330,7 +377,7 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
             x = x + h
             for name, t in new.tensors().items():
                 getattr(st, name).copy_(t)
-        return logits_from_hidden(model, rmsnorm(x, model.final_norm))
+        return logits_from_hidden(model, final_norm(model, x))
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).reshape(-1).expand(B)
     rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)      # [B, 1, Dh/2]
@@ -343,7 +390,7 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
     ccfg = cache_cfg_for(cfg, policy, B, capacity)
     for blk, cache in zip(model.blocks, caches):
         gear, st = cache if hybrid else (cache, None)
-        xin = rmsnorm(x, blk.ln1)
+        xin = blk.norm1(x)
         h = attn_lib.attention_decode(cfg, blk, xin, rope, gear, ccfg, lengths, block_tables,
                                       fused)
         if hybrid:
@@ -352,6 +399,6 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
             st.state.copy_(new.state)
             h = (h + h2) * 0.5
         x = x + h
-        x = x + mlp_apply(blk, rmsnorm(x, blk.ln2))
-    x = rmsnorm(x, model.final_norm)
+        x = x + blk.mlp(blk.norm2(x))
+    x = final_norm(model, x)
     return logits_from_hidden(model, x)

@@ -31,13 +31,17 @@ bitwise equal, also on non-finite input (NaN, +-inf, an all-NaN tile).  Hymba's 
 G = 5, head_dim 64 and ``flash_prefill`` at kv_repeat 5, head_dim 64.
 
 The redesigned kernels, with the same tolerances: ``flash_prefill`` (TMA +
-wgmma) at S in {1, 63, 64, 65, 127, 129, 1000}, head_dim 64 and 128, under
-every mask; ``gear_decode`` in both regimes (G = 1 and 5 on CUDA cores with
-one or several chunks per block, G = 64 on tensor cores) over 18 chunks
-with an empty row and duplicated outlier indices; ``gear_decode_history``
-against its plain version and, bit for bit, one ``gear_decode`` call per
-block; ``gear_decode_paged`` bit for bit against the dense body in both
-regimes.
+wgmma) at S in {1, 63, 64, 65, 127, 129, 1000}, head_dim 64, 128 and 256
+(two consumer warpgroups), under every mask, and at gemma-2b's MQA
+(kv_repeat 8, head_dim 256) with a ragged S, window + softcap and a
+256-token prefix; ``gear_decode`` in both regimes (G = 1, 2, 5, 8 and 12 on
+CUDA cores with one or several chunks per block, G = 64 on tensor cores) at
+head_dim 64, 128 and 256 over 18 chunks with an empty row and duplicated
+outlier indices, and G = 12 also through the tensor-core body
+(``tensor_cores=True``); ``gear_decode_history`` against its plain version
+and, bit for bit, one ``gear_decode`` call per block, at head_dim 128 and
+256 (gear_kivi2's 4 V stat groups there); ``gear_decode_paged`` bit for bit
+against the dense body in both regimes, at head_dim 128 and 256.
 """
 
 import pytest
@@ -585,12 +589,13 @@ FLASH_MASKS = {"causal": dict(), "window_softcap": dict(window=48, softcap=30.0)
 
 
 @pytest.mark.parametrize("mask", list(FLASH_MASKS))
-@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("Dh", [64, 128, 256])
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129, 1000])
 def test_flash_prefill_kernel_ragged_lengths(dev, S, Dh, mask):
     """Every sequence length class around the 64-token tiles (TMA zero-fills
-    the ragged tail of the 3-D map), both head dims (one or two 128-byte
-    swizzled boxes per tile row), every mask."""
+    the ragged tail of the 3-D map), every head dim (one, two or four
+    128-byte swizzled boxes per tile row; two consumer warpgroups at 256),
+    every mask."""
     kw = FLASH_MASKS[mask]
     rep = kw.get("kv_repeat", 1)
     g = torch.Generator(device=dev).manual_seed(S * Dh)
@@ -602,6 +607,25 @@ def test_flash_prefill_kernel_ragged_lengths(dev, S, Dh, mask):
     assert fp.flash_prefill.launches == before + 1
     torch.testing.assert_close(got.float(), flash_prefill_ref(q, k, v, **kw).float(),
                                rtol=0, atol=3e-2)
+
+
+GEMMA_FLASH = {"causal": dict(), "window_softcap": dict(window=300, softcap=50.0),
+               "prefix": dict(prefix_len=256)}
+
+
+@pytest.mark.parametrize("mask", list(GEMMA_FLASH))
+@pytest.mark.parametrize("S", [1000, 333])
+def test_flash_prefill_kernel_at_gemma_shape(dev, S, mask):
+    """Head_dim 256 at gemma-2b's MQA: 4 slots x 8 query heads over one KV
+    head each (kv_repeat 8), a ragged S, window + softcap, and a 256-token
+    bidirectional prefix (paligemma's)."""
+    kw = dict(GEMMA_FLASH[mask], kv_repeat=8)
+    g = torch.Generator(device=dev).manual_seed(S)
+    q = torch.randn(32, S, 256, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(4, S, 256, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(4, S, 256, generator=g, device=dev).to(torch.bfloat16)
+    torch.testing.assert_close(fp.flash_prefill(q, k, v, **kw).float(),
+                               flash_prefill_ref(q, k, v, **kw).float(), rtol=0, atol=3e-2)
 
 
 def dup_fixture(dev, polname, B, H, Dh, S, seed):
@@ -623,11 +647,14 @@ def dup_fixture(dev, polname, B, H, Dh, S, seed):
 
 @pytest.mark.parametrize("blocks_per_sm", [1, gd.BLOCKS_PER_SM])
 @pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
-@pytest.mark.parametrize("G,Dh", [(1, 128), (5, 64), (64, 128)])
+@pytest.mark.parametrize("G,Dh", [(1, 128), (5, 64), (64, 128), (12, 128), (12, 64),
+                                  (8, 256), (2, 256), (1, 256), (64, 256)])
 def test_gear_decode_regimes_match_plain(dev, polname, G, Dh, blocks_per_sm, monkeypatch):
-    """G = 1 and 5 take the decode regime (split chunks merged by the last
-    block; a small ``BLOCKS_PER_SM`` gives each block several chunks, the
-    next one prefetched), G = 64 the tensor-core regime; C = 18 chunks,
+    """G = 1, 2, 5, 8 and 12 take the decode regime (split chunks merged by
+    the last block; a small ``BLOCKS_PER_SM`` gives each block several
+    chunks, the next one prefetched; G = 12 its 16-row build), G = 64 the
+    tensor-core regime; head_dim 64, 128 and 256 (two channels a thread of
+    the per-channel terms, gear_kivi2's 4 V stat groups); C = 18 chunks,
     ragged extents including 0, duplicated outlier indices."""
     monkeypatch.setattr(gd, "BLOCKS_PER_SM", blocks_per_sm)
     B, H, S = 4, 4, 1152
@@ -647,15 +674,40 @@ def test_gear_decode_regimes_match_plain(dev, polname, G, Dh, blocks_per_sm, mon
 
 
 @pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
-def test_gear_decode_history_matches_plain_and_per_block_calls(dev, polname):
+def test_gear_decode_twelve_rows_take_the_decode_body_and_match_the_history_body(dev, polname):
+    """starcoder2-3b's G = 12 (24 query heads over 2 KV heads, head_dim 128):
+    the decode regime's 16-row build, and the same operands through the
+    tensor-core body (``tensor_cores=True``), both within 1e-3 of the plain
+    version; one launch each."""
+    B, H, S = 4, 2, 1152
+    cfg, arrays, extra, g = dup_fixture(dev, polname, B, H, 128, S, seed=12)
+    n_comp = torch.tensor([0, 64, 640, 1152], dtype=torch.int32, device=dev).repeat_interleave(H)
+    q = torch.randn(B * H, 12, 128, generator=g, device=dev)
+    kw = dict(bits=cfg.policy.bits, chunk=64, scale_factor=128 ** -0.5, **extra)
+    acc_p, m_p, l_p = gear_decode_ref(q, *arrays, n_comp, **kw)
+    live = n_comp > 0
+    for tensor_cores in (False, True):
+        before = gd.gear_decode.launches
+        acc_k, m_k, l_k = gd.gear_decode(q, *arrays, n_comp, tensor_cores=tensor_cores, **kw)
+        assert gd.gear_decode.launches == before + 1
+        torch.testing.assert_close((acc_k / l_k[..., None])[live],
+                                   (acc_p / l_p[..., None])[live], rtol=0, atol=1e-3)
+        torch.testing.assert_close(m_k[live], m_p[live], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("Dh", [128, 256])
+@pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
+def test_gear_decode_history_matches_plain_and_per_block_calls(dev, polname, Dh):
     """The batched history entry (one launch for every in-flight block of a
     layer) against its plain version and against one ``gear_decode`` call
-    per block; it counts one ``gear_decode`` launch."""
+    per block; it counts one ``gear_decode`` launch.  At head_dim 256 the
+    body splits the channels across two warps per row group (gear_kivi2:
+    4 V stat groups)."""
     H, S, NB = 8, 1152, 14
-    cfg, arrays, extra, g = dup_fixture(dev, polname, 1, H, 128, S, seed=11)
-    q = torch.randn(H, NB, 64, 128, generator=g, device=dev)
+    cfg, arrays, extra, g = dup_fixture(dev, polname, 1, H, Dh, S, seed=11)
+    q = torch.randn(H, NB, 64, Dh, generator=g, device=dev)
     extents = [64 * i for i in range(NB)]
-    kw = dict(bits=cfg.policy.bits, chunk=64, scale_factor=128 ** -0.5, **extra)
+    kw = dict(bits=cfg.policy.bits, chunk=64, scale_factor=Dh ** -0.5, **extra)
     before = gd.gear_decode.launches
     acc, m, l = gd.gear_decode_history(q, *arrays, extents, **kw)
     assert gd.gear_decode.launches == before + 1
@@ -671,12 +723,13 @@ def test_gear_decode_history_matches_plain_and_per_block_calls(dev, polname):
 
 
 @pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
-@pytest.mark.parametrize("G", [1, 5, 64])
-def test_gear_decode_paged_equals_dense_every_regime(dev, polname, G):
+@pytest.mark.parametrize("G,Dh", [(1, 128), (5, 128), (64, 128), (12, 128), (8, 256),
+                                  (64, 256)])
+def test_gear_decode_paged_equals_dense_every_regime(dev, polname, G, Dh):
     """Paged ≡ dense bit for bit under both regimes, over a shuffled pool of
-    18-chunk slots (several decode splits per row)."""
+    18-chunk slots (several decode splits per row), at head_dim 128 and 256."""
     B, H, S, nb = 2, 4, 1152, 64
-    cfg, arrays, extra, g = dup_fixture(dev, polname, B, H, 128, S, seed=5)
+    cfg, arrays, extra, g = dup_fixture(dev, polname, B, H, Dh, S, seed=5)
     C = S // nb
     names = ("k_packed", "k_scale", "k_zero", "v_packed", "v_scale", "v_zero")
     dense = dict(zip(names, arrays)) | extra
@@ -700,8 +753,8 @@ def test_gear_decode_paged_equals_dense_every_regime(dev, polname, G):
                 pool[p * H:(p + 1) * H] = x[b * H:(b + 1) * H, c * rpc:(c + 1) * rpc]
         pools[name] = pool
     gathered = gather_paged_operands(bt, B * H, pools)
-    q = torch.randn(B * H, G, 128, generator=g, device=dev)
-    kw = dict(bits=cfg.policy.bits, chunk=nb, scale_factor=128 ** -0.5)
+    q = torch.randn(B * H, G, Dh, generator=g, device=dev)
+    kw = dict(bits=cfg.policy.bits, chunk=nb, scale_factor=Dh ** -0.5)
     paged = gd.gear_decode_paged(q, *[pools[n] for n in names], n_comp, bt, **kw,
                                  **{n: pools[n] for n in extra})
     flat = gd.gear_decode(q, *[gathered[n] for n in names], n_comp, **kw,
@@ -776,6 +829,12 @@ CROSS_CASES = {                      # id: (arch, policy, head_dim, EngineConfig
     "rwkv6-gear_kcvt4": ("rwkv6-3b", "gear_kcvt4", None, {}),
     "llama2-fp16": ("llama2-7b", "fp16", 64, {}),
     "llama2-per_token_q4": ("llama2-7b", "per_token_q4", 64, {}),
+    "minicpm-gear_kcvt4": ("minicpm-2b", "gear_kcvt4", 64, {}),
+    "starcoder2-gear_kcvt4": ("starcoder2-3b", "gear_kcvt4", 64, {}),
+    "gemma-gear_kcvt4": ("gemma-2b", "gear_kcvt4", 64, {}),
+    "gemma-gear_kivi2-dh256-streaming-paged": ("gemma-2b", "gear_kivi2", 256,
+                                               dict(prefill_mode="streaming", layout="paged")),
+    "gemma-gear_kcvt4-dh256": ("gemma-2b", "gear_kcvt4", 256, {}),
 }
 
 
@@ -836,8 +895,8 @@ def serve_across(case, dev, lengths=(120, 190), gen=12):
 
 @pytest.mark.parametrize("case", list(CROSS_CASES))
 def test_served_output_matches_the_cpu_port(dev, case):
-    """The smoke configs at head_dim 64 (the kernels' builds) served on the
-    card and on the CPU (where the kernels' plain versions run) with the same
+    """The smoke configs at head_dim 64 (gemma-2b also at 256: the kernels'
+    builds) served on the card and on the CPU (where the kernels' plain versions run) with the same
     seeded weights: statuses equal; prefill logits within
     ``CROSS_PREFILL_ATOL``; every token the card served is the card's argmax
     when both devices are teacher-forced along the card's stream, the

@@ -197,9 +197,9 @@ def emulate_gear_decode(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero,
 
 
 @pytest.mark.parametrize("polname", ["gear_kcvt4", "gear_kivi2"])
-@pytest.mark.parametrize("G", [1, 5, 64])
+@pytest.mark.parametrize("G", [1, 5, 12, 64])
 def test_gear_decode_emulation_matches_reference_kernel(polname, G):
-    """Both regimes' arithmetic (G = 1 and 5 decode, G = 64 history) against
+    """Both regimes' arithmetic (G = 1, 5 and 12 decode, G = 64 history) against
     the reference's Pallas kernel in interpret mode: ragged extents with an
     empty row, duplicated outlier indices."""
     B, H, Dh, S = 2, 2, 64, 512

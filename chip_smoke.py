@@ -20,7 +20,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    launch (its layer-0 history work), against its plain version and, bit
    for bit, the 14 per-block calls, timed (``ms_history_per_layer_synthetic``);
    head_dim 256: gemma-2b's live shape (4 slots x 1 kv head, G = 8) for both
-   policies, timed (``ms_gemma``, ``ms_gemma_kivi2``), and gemma3's G = 2;
+   policies, timed (``ms_gemma``, ``ms_gemma_kivi2``), and gemma3-12b's G = 2;
    starcoder2-3b's G = 12 at head_dim 128 (the decode regime's 16-row
    build, ``ms_starcoder2``) beside the same operands through the
    tensor-core history body (``ms_starcoder2_history``); the history scorer
@@ -216,7 +216,37 @@ Phases, each of which fails the run (non-zero exit) on any error:
 25. serving, path 15: minicpm-2b at its published widths (40 layers,
     d_model 2304, 36 heads = 36 kv heads of 64, d_ff 5760, tied vocab
     122753), as path 14;
-26. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
+26. serving, path 16: gemma3-12b at its published widths (48 layers in
+    units of 5 local + 1 global, d_model 3840, 16 heads over 8 kv heads of
+    256, QK-norm, RoPE base 10,000 on local layers and 1e6 on global ones,
+    local window 1024, GeGLU d_ff 15360, tied vocab 262144), gear_kcvt4,
+    monolithic prefill, dense layout, batch 4, capacity 2048, 8 requests of
+    1,100-1,900 tokens (numpy seed 0), 16 new tokens: every request ``OK``,
+    per prefill exactly 48 ``flash_prefill`` (the 40 local ones with window
+    1024) and no other kernel, per decode step exactly 8 ``gear_decode`` (G 2,
+    head_dim 256; the 40 window rings decode through the portable
+    ``cache.attend``); request 0's live layer-0 call (local, past its window)
+    held against its plain version and timed beside SDPA with the window as a
+    boolean mask, and a live global decode step against its plain version;
+    profiler windows over one 1,100-token prefill and 8 decode steps;
+27. serving, path 17: the same gemma3-12b, streaming prefill into a paged
+    pool of two thirds of the dense pages, the first 4 of path 16's requests:
+    8 pooled global layers beside 40 dense rings, a clean pool check and
+    audit, per prefill 40 windowed ``flash_prefill`` (the local layers'
+    monolithic fallback), 8 ``flash_prefill_block``, 8 history and 16
+    ``gear_compress`` launches (the live K and V events on [64, 256] tiles
+    bit for bit, timed), per step 8 ``gear_decode_paged``, and greedy tokens equal
+    to a dense streaming engine's bit for bit;
+28. serving, path 18: paligemma-3b at its published widths (18 layers,
+    d_model 2048, 8 heads over 1 kv head of 256, GeGLU d_ff 16384, vocab
+    257216, 256 image positions), gear_kcvt4, monolithic prefill, dense
+    layout, capacity 1,280: (a) one wave through ``Engine.generate`` of 4
+    seeded 600-token prompts behind seeded bf16 image embeddings [4, 256,
+    2048], (b) path 1's 8 prompts through ``run_continuous`` (text only); in
+    both 18 ``flash_prefill`` (prefix 256) per prefill and 18 ``gear_decode``
+    (G 8) per step and no other kernel; the wave's live layer-0 prefix call
+    held against its plain version and timed beside SDPA with the mask;
+29. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
     by path), the card's name and power limit, and the final
     ``{"ok": true, "device": {...}}`` line.
 
@@ -530,11 +560,36 @@ FLASH_CASES = [
 TIMED_FLASH_CASES = {1: "", 5: "_hymba", 6: "_gemma", 9: "_starcoder2"}
 
 
-def flash_bytes_flops(S: int, BH: int, rep: int, Dh: int):
-    """Bytes (q, k, v read once, o written once, bf16) and causal operations
-    of one ``flash_prefill`` call."""
-    pairs = S * (S + 1) // 2
-    return 2.0 * Dh * S * (2 * BH + 2 * BH // rep), 4.0 * pairs * Dh * BH
+def flash_pairs(S: int, window: int = 0, prefix: int = 0) -> int:
+    """(query, key) pairs one row of ``flash_prefill`` attends: causal, at
+    most ``window`` keys back with a window, and the prefix's pairs above
+    the diagonal (both positions below ``prefix``)."""
+    i = np.arange(S, dtype=np.int64)
+    seen = np.minimum(i + 1, window) if window else i + 1
+    if prefix:
+        seen = np.where(i < prefix, np.maximum(seen, min(prefix, S)), seen)
+    return int(seen.sum())
+
+
+def flash_bytes_flops(S: int, BH: int, rep: int, Dh: int, window: int = 0, prefix: int = 0):
+    """Bytes (q, k, v read once, o written once, bf16) and operations of one
+    ``flash_prefill`` call over the pairs its mask keeps."""
+    return (2.0 * Dh * S * (2 * BH + 2 * BH // rep),
+            4.0 * flash_pairs(S, window, prefix) * Dh * BH)
+
+
+def flash_mask(S: int, window: int, prefix: int):
+    """The boolean [S, S] mask (True: attend) of a window and a prefix, as
+    ``scaled_dot_product_attention`` takes it; None for the causal mask."""
+    if not (window or prefix):
+        return None
+    i = torch.arange(S, device=DEV)
+    ok = i[:, None] >= i[None, :]
+    if window:
+        ok &= i[:, None] - i[None, :] < window
+    if prefix:
+        ok |= (i[:, None] < prefix) & (i[None, :] < prefix)
+    return ok
 
 
 def flash_case(case, flush, report: dict, suffix) -> None:
@@ -1524,7 +1579,7 @@ def kernel_fns() -> dict:
 
 def drive(eng, cfg, prompts: list, captures: list, new_tokens: int = NEW_TOKENS,
           keep: dict | None = None) -> dict:
-    """Serve the 8 requests through ``Scheduler.run_continuous`` with every
+    """Serve ``prompts`` through ``Scheduler.run_continuous`` with every
     launch counter set to 0 just before and read just after (``keep``, when
     given, receives the results by rid)."""
     from repro_torch.serving.scheduler import Request, Scheduler
@@ -1547,8 +1602,8 @@ def drive(eng, cfg, prompts: list, captures: list, new_tokens: int = NEW_TOKENS,
             c.restore()
     stats = sched.last_stats
     peak = torch.cuda.max_memory_allocated()
-    if len(results) != N_REQUESTS or any(str(r.status) != "ok" or len(r.tokens) != new_tokens
-                                         for r in results):
+    if len(results) != len(prompts) or any(str(r.status) != "ok" or len(r.tokens) != new_tokens
+                                           for r in results):
         fail(f"serving results: {[(r.rid, str(r.status), len(r.tokens)) for r in results]}")
     for r in results:
         if r.tokens.min() < 0 or r.tokens.max() >= cfg.vocab_size:
@@ -2599,7 +2654,8 @@ FAMILY_TOKENS = 16           # paths 13-15's budget per request, cut from 96 for
 def flash_live(c, label: str, flush, rep: dict, suffix: str) -> None:
     """A captured live ``flash_prefill`` call against its plain version
     (PREFILL_TOL), then the kernel, the plain version and SDPA (GQA expanded
-    to the query heads) timed beside the call's bound, as ``<key><suffix>``."""
+    to the query heads; a window or prefix as a boolean mask) timed beside
+    the call's bound, as ``<key><suffix>``."""
     from repro_torch.kernels.ref import flash_prefill_ref
 
     (q, k, v), kw = c.args, c.kwargs
@@ -2613,12 +2669,14 @@ def flash_live(c, label: str, flush, rep: dict, suffix: str) -> None:
         fail(f"live {label} disagrees with its plain version: {err}")
     rep["err"] = max(rep.get("err", 0.0), err)
     rep_k = kw.get("kv_repeat", 1)
+    window, prefix = kw.get("window", 0), kw.get("prefix_len", 0)
     qs, ks, vs = q[None], k[None].repeat_interleave(rep_k, 1), v[None].repeat_interleave(rep_k, 1)
+    mask = flash_mask(S, window, prefix)
     ms = time_ms(lambda: c.real(q, k, v, **kw), 20, flush)
     plain = time_ms(lambda: flash_prefill_ref(q, k, v, **kw), 3, flush)
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True), 20, flush)
-    nbytes, flops = flash_bytes_flops(S, BH, rep_k, Dh)
+        qs, ks, vs, attn_mask=mask, is_causal=mask is None), 20, flush)
+    nbytes, flops = flash_bytes_flops(S, BH, rep_k, Dh, window, prefix)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
     rep.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain, f"library_ms{suffix}": lib,
                 f"bound_ms{suffix}": max(t_bytes, t_ops),
@@ -2769,6 +2827,227 @@ def serving_gemma_paged(model, params, cfg, layers: int, flush, reports: dict) -
         decode_call_bytes_flops, rows_of=lambda a: a[7] > 0)
     record_launches(reports, "gemma_streaming_paged", launches)
     summary.update(layers=layers, prefill_ms_by_admission=rec["ms"][:N_REQUESTS])
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# paths 16-18: gemma3-12b and paligemma-3b (ROADMAP queue 1, items 8.4-8.5)
+
+
+GEMMA3_LENGTHS = (1100, 1900)   # paths 16-17: raw prompt lengths, past the 1024-token window
+GEMMA3_CAP = 2048
+GEMMA3_TOKENS = 16              # new tokens per request on paths 16-18
+VLM_PROMPT = 600                # path 18a: text tokens behind the 256 image rows
+VLM_CAP = 1280                  # path 18: path 1's prompts + 256 image positions + 16
+
+
+def gemma3_requests(cfg) -> list:
+    """Paths 16-17's 8 prompts: raw lengths drawn from 1,100-1,900 and token
+    ids, numpy seed 0."""
+    rng = np.random.RandomState(0)
+    lengths = rng.randint(GEMMA3_LENGTHS[0], GEMMA3_LENGTHS[1] + 1, size=N_REQUESTS)
+    return [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32) for n in lengths]
+
+
+def kinds_of(cfg) -> tuple:
+    """(local layers, global layers) of a model."""
+    from repro_torch.models.transformer import layer_kinds
+
+    kinds = layer_kinds(cfg)
+    return kinds.count("local"), kinds.count("global")
+
+
+def serving_gemma3(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 16: gemma3-12b, gear_kcvt4, monolithic prefill, dense layout,
+    batch 4, capacity 2048, 8 requests of 1,100-1,900 tokens: every request
+    ``OK``; per prefill one ``flash_prefill`` per layer (the 40 local ones
+    with window 1024), per decode step exactly one ``gear_decode`` per global
+    layer (8; the local rings decode through the portable ``cache.attend``)
+    and no other kernel; request 0's live layer-0 call (local, S > 1024)
+    and a live global decode step (G 2, Dh 256) held against their plain
+    versions and timed, the first beside SDPA with the window as a mask;
+    profiler windows over one 1,100-token prefill and 8 decode steps."""
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gear_decode_ref
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    n_local, n_global = kinds_of(cfg)
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=GEMMA3_CAP,
+                                             policy=named_policy("gear_kcvt4")), device=DEV)
+    # request 0's layer 0 (local); the first global layer of decode step 10
+    caps = {"flash_prefill": Capture(ops, "flash_prefill", 0),
+            "gear_decode": Capture(ops, "gear_decode", 10 * n_global)}
+    rec = watch_prefills(eng, keep_index=-1)
+    summary = drive(eng, cfg, gemma3_requests(cfg), list(caps.values()),
+                    new_tokens=GEMMA3_TOKENS)
+    launches, steps = summary["launches"], summary["decode_steps"]
+    for i, got in enumerate(rec["launches"]):
+        if {k: n for k, n in got.items() if n} != {"flash_prefill": layers}:
+            fail(f"gemma3 prefill {i} launched {got}, not {layers} flash_prefill alone")
+    want = {"flash_prefill": N_REQUESTS * layers, "gear_decode": steps * n_global}
+    if {k: n for k, n in launches.items() if n} != want:
+        fail(f"gemma3 launches {launches} != {want} and no other kernel")
+    print(f"  per prefill {layers} flash_prefill ({n_local} local with window "
+          f"{cfg.local_window}), per decode step {n_global} gear_decode "
+          f"({launches['gear_decode']} = {steps} x {n_global})")
+    c = caps["flash_prefill"]
+    if c.kwargs.get("window") != cfg.local_window or c.args[0].shape[1] <= cfg.local_window:
+        fail(f"the captured flash_prefill call is not a local layer past its window: "
+             f"{c.kwargs}, S {c.args[0].shape[1]}")
+    flash_live(c, "flash_prefill live gemma3-12b local layer-0 call", flush,
+               reports["flash_prefill"], "_gemma3_local")
+    c = caps["gear_decode"]
+    _, Gq, Dh = c.args[0].shape
+    print(f"  live gemma3-12b global layer-5 step: q {tuple(c.args[0].shape)}, n_comp per slot "
+          f"{[int(x) for x in c.args[7][::cfg.num_kv_heads]]}")
+    if (Gq, Dh) != (cfg.num_heads // cfg.num_kv_heads, cfg.head_dim):
+        fail(f"the captured gear_decode call has q {tuple(c.args[0].shape)}")
+    rep = reports["gear_decode"]
+    rep["ms_gemma3_live"], rep["plain_ms_gemma3_live"], rep["bound_ms_gemma3_live"], _ = \
+        live_check(c, gear_decode_ref, f"gear_decode live gemma3-12b decode step (G = {Gq}, "
+                   f"Dh = {Dh})", flush, rep, decode_call_bytes_flops,
+                   rows_of=lambda a: a[7] > 0)
+    record_launches(reports, "gemma3_dense", launches)
+    summary.update(layers=layers, prefill_ms_by_admission=rec["ms"][:N_REQUESTS])
+    # prompts past the window, so the profiled prefill and steps wrap the rings
+    profile(eng, cfg, HERE / "build" / "profile", "gemma3_dense", prompt_len=GEMMA3_LENGTHS[0])
+    return summary
+
+
+def serving_gemma3_paged(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 17: the same gemma3-12b, streaming prefill into a paged pool of
+    two thirds of the dense pages, the first 4 of path 16's requests: 8
+    pooled global layers beside 40 dense rings, a clean audit, tokens bit
+    for bit those of a dense streaming engine; per prefill a windowed
+    ``flash_prefill`` on each local layer (their monolithic fallback) and
+    one ``flash_prefill_block``, one history and two ``gear_compress``
+    launches ([64, 256] tiles, the live K and V events bit for bit, then timed)
+    on each global layer; per decode step one ``gear_decode_paged`` per global
+    layer."""
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core.policy import named_policy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    n_local, n_global = kinds_of(cfg)
+    pol = named_policy("gear_kcvt4")
+    dense_pages = B_SERVE * (GEMMA3_CAP // pol.buffer_size)
+    pool_pages = dense_pages * 2 // 3 + 1
+    ecfg = EngineConfig(batch=B_SERVE, capacity=GEMMA3_CAP, policy=pol, prefill_mode="streaming",
+                        layout="paged", pool_pages=pool_pages)
+    eng = Engine(model, params, ecfg, device=DEV)
+    prompts = gemma3_requests(cfg)[:4]
+    caches = eng.init_caches()
+    pooled = sum(isinstance(c, cache_lib.PagedGEARLayerCache) for c in caches)
+    rings = sum(isinstance(c, cache_lib.WindowLayerCache) for c in caches)
+    del caches
+    print(f"  pool: {pool_pages - 1} allocatable pages of {eng.pool.page_bytes / 1e6:.3f} MB "
+          f"(the dense layout holds {dense_pages}); {pooled} pooled layers, {rings} dense rings")
+    if (pooled, rings) != (n_global, n_local):
+        fail(f"gemma3 paged tree: {pooled} pooled layers and {rings} rings, not {n_global} and "
+             f"{n_local}")
+    caps = {"gear_compress": Capture(cache_lib, "gear_compress", 0, 1)}
+    rec = watch_prefills(eng, keep_index=-1)
+    keep = {}
+    summary = drive(eng, cfg, prompts, list(caps.values()), new_tokens=GEMMA3_TOKENS, keep=keep)
+    launches, steps = summary["launches"], summary["decode_steps"]
+    want = {"flash_prefill": n_local, "flash_prefill_block": n_global, "gear_decode": n_global,
+            "gear_compress": 2 * n_global}
+    for i, got in enumerate(rec["launches"]):
+        if {k: n for k, n in got.items() if n} != want:
+            fail(f"gemma3 streaming prefill {i} launched {got} != {want}")
+    if launches["gear_decode_paged"] != steps * n_global:
+        fail(f"gear_decode_paged launches {launches['gear_decode_paged']} != {steps} steps x "
+             f"{n_global}")
+    eng.pool.check()
+    audit = eng.audit()
+    if not audit["ok"]:
+        fail(f"gemma3 paged audit: {audit['issues']}")
+    print(f"  per prefill: {want}; per decode step: {n_global} gear_decode_paged; "
+          f"{summary['waited_for_pages']} requests waited for pages; audit clean")
+    c = caps["gear_compress"]
+    for index, kind in ((0, "K"), (1, "V")):
+        (x, *_), kw = c.seen[index]
+        if tuple(x.shape[1:]) != (64, cfg.head_dim):
+            fail(f"gemma3 gear_compress call {index} is not on [64, {cfg.head_dim}] tiles")
+        label = f"live gemma3-12b global layer-5 {kind} event ({x.shape[0]} [64, 256] tiles)"
+        compress_check(x, kw, label, reports["gear_compress"])
+        row = compress_time(x, kw, label, flush, reports["gear_compress"])
+        key = "_gemma3_k" if kind == "K" else "_gemma3_v"
+        reports["gear_compress"].update({f"ms{key}": row["ms_c1"], f"plain_ms{key}": row["plain_ms"],
+                                         f"bound_ms{key}": row["bound_ms"]})
+    dense = Engine(model, params, dc.replace(ecfg, layout="dense", pool_pages=0), device=DEV)
+    dense_keep = {}
+    drive(dense, cfg, prompts, [], new_tokens=GEMMA3_TOKENS, keep=dense_keep)
+    differ = [rid for rid, r in keep["results"].items()
+              if not np.array_equal(r.tokens, dense_keep["results"][rid].tokens)]
+    print(f"  paged tokens equal the dense streaming engine's bit for bit: {not differ}")
+    if differ:
+        fail(f"gemma3 paged tokens differ from the dense engine's for rids {differ}")
+    record_launches(reports, "gemma3_streaming_paged", launches)
+    summary.update(layers=layers, prefill_ms_by_admission=rec["ms"][:len(prompts)])
+    return summary
+
+
+def serving_vlm(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 18: paligemma-3b, gear_kcvt4, monolithic prefill, dense layout,
+    capacity 1,280: (a) one wave through ``Engine.generate``, 4 seeded
+    600-token prompts behind seeded bf16 image embeddings [4, 256, 2048];
+    (b) path 1's 8 prompts through ``run_continuous`` (text only, decoding
+    after the 256 image positions).  In both, one ``flash_prefill`` per
+    layer per prefill with the 256-position bidirectional prefix and one
+    ``gear_decode`` (G 8) per layer per step, no other kernel; the wave's
+    live layer-0 prefix call held against its plain version and timed beside
+    SDPA with the mask."""
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    P = cfg.num_prefix_tokens
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=VLM_CAP,
+                                             policy=named_policy("gear_kcvt4")), device=DEV)
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, size=(B_SERVE, VLM_PROMPT)).astype(np.int32),
+             "img_embeds": torch.from_numpy(rng.standard_normal((B_SERVE, P, cfg.d_model))
+                                            .astype(np.float32)).to(DEV, torch.bfloat16)}
+    fns = kernel_fns()
+    cap = Capture(ops, "flash_prefill", 0)
+    try:
+        for fn in fns.values():
+            fn.launches = 0
+        toks, stats = eng.generate(batch, GEMMA3_TOKENS)
+        torch.cuda.synchronize()
+        wave = {name: fn.launches for name, fn in fns.items()}
+    finally:
+        cap.restore()
+    steps = GEMMA3_TOKENS - 1
+    want = {"flash_prefill": layers, "gear_decode": steps * layers}
+    if {k: n for k, n in wave.items() if n} != want:
+        fail(f"paligemma wave launches {wave} != {want} and no other kernel")
+    if toks.shape != (B_SERVE, GEMMA3_TOKENS) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"paligemma wave tokens {toks.shape}, ids {toks.min()}..{toks.max()}")
+    q = cap.args[0]
+    if cap.kwargs.get("prefix_len") != P or q.shape[1] != P + VLM_PROMPT:
+        fail(f"the wave's flash_prefill call is not the {P}-position prefix over "
+             f"{P + VLM_PROMPT} rows: {cap.kwargs}, {tuple(q.shape)}")
+    print(f"  (a) wave: {toks.shape} tokens, prefill {stats['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{stats['decode_tok_per_s']:.1f} tok/s; launches {want}")
+    flash_live(cap, "flash_prefill live paligemma-3b wave layer-0 call", flush,
+               reports["flash_prefill"], "_paligemma")
+    first = Capture(ops, "flash_prefill", 0)
+    summary = drive(eng, cfg, requests(cfg), [first], new_tokens=GEMMA3_TOKENS)
+    launches, steps = summary["launches"], summary["decode_steps"]
+    want = {"flash_prefill": N_REQUESTS * layers, "gear_decode": steps * layers}
+    if {k: n for k, n in launches.items() if n} != want:
+        fail(f"paligemma continuous launches {launches} != {want} and no other kernel")
+    if first.kwargs.get("prefix_len") != P:
+        fail(f"paligemma continuous prefill without its prefix mask: {first.kwargs}")
+    print(f"  (b) continuous: per prefill {layers} flash_prefill (prefix {P}), per step "
+          f"{layers} gear_decode (G {cfg.num_heads // cfg.num_kv_heads})")
+    record_launches(reports, "paligemma_dense", {k: wave[k] + launches[k] for k in launches})
+    summary.update(layers=layers, wave_prefill_ms=stats["prefill_s"] * 1e3,
+                   wave_decode_tok_per_s=stats["decode_tok_per_s"],
+                   wave_cache_bytes=stats["cache_bytes"])
     return summary
 
 
@@ -3060,7 +3339,27 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    phase("[26] summary")
+    gemma3 = get_config("gemma3-12b")
+    phase(f"[26] serving gemma3-12b, gear_kcvt4, monolithic prefill, dense layout, depth "
+          f"{gemma3.num_layers}, {GEMMA3_TOKENS} new tokens per request")
+    built_gemma3 = build(gemma3, gemma3.num_layers)
+    summaries["gemma3_dense"] = serving_gemma3(*built_gemma3, gemma3.num_layers, flush, reports)
+    phase(f"[27] serving gemma3-12b, gear_kcvt4, streaming prefill, paged pool, depth "
+          f"{gemma3.num_layers}, {GEMMA3_TOKENS} new tokens per request")
+    summaries["gemma3_streaming_paged"] = serving_gemma3_paged(*built_gemma3, gemma3.num_layers,
+                                                               flush, reports)
+    del built_gemma3
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm = get_config("paligemma-3b")
+    phase(f"[28] serving paligemma-3b, gear_kcvt4, monolithic prefill, dense layout, depth "
+          f"{vlm.num_layers}: a wave with image embeddings, then continuous batching")
+    summaries["paligemma_dense"] = serving_vlm(*build(vlm, vlm.num_layers), vlm.num_layers,
+                                               flush, reports)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("[29] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for rep in reports.values():

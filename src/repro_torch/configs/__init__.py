@@ -1,9 +1,10 @@
 """Config registry: ``get_config("llama2-7b")`` and reduced smoke variants.
 
 Only the architectures the port serves are registered: the dense
-llama2-7b, minicpm-2b, starcoder2-3b and gemma-2b, the hybrid hymba-1.5b
-and the attention-free rwkv6-3b; the reference's other families arrive with
-ROADMAP queue 1, item 8.4 onward.
+llama2-7b, minicpm-2b, starcoder2-3b, gemma-2b and gemma3-12b (5:1
+local:global attention with QK-norm), the VLM paligemma-3b (a bidirectional
+image prefix), the hybrid hymba-1.5b and the attention-free rwkv6-3b; the
+reference's other families arrive with ROADMAP queue 1, item 8.6 onward.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ _MODULES = {
     "minicpm-2b": "minicpm_2b",
     "starcoder2-3b": "starcoder2_3b",
     "gemma-2b": "gemma_2b",
+    "gemma3-12b": "gemma3_12b",
+    "paligemma-3b": "paligemma_3b",
 }
 
 
@@ -35,8 +38,7 @@ def smoke_config(name: str) -> ModelConfig:
     reference's ``repro.configs.smoke_config``)."""
     cfg = get_config(name)
     unit = len(cfg.layer_pattern)
-    return dataclasses.replace(
-        cfg,
+    overrides = dict(
         num_layers=unit * 2,
         d_model=64,
         num_heads=4,
@@ -46,6 +48,9 @@ def smoke_config(name: str) -> ModelConfig:
         vocab_size=512,
         max_seq_len=512,
     )
+    if cfg.modality == "vlm":
+        overrides.update(num_prefix_tokens=8)
+    return dataclasses.replace(cfg, **overrides)
 
 
 __all__ = ["ModelConfig", "get_config", "smoke_config"]

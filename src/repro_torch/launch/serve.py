@@ -12,10 +12,13 @@ and ``--obs`` turns on telemetry (continuous mode too: traces follow the
 request lifecycle).  Weights are random, from ``Model.init(seed=0)``.
 
 The prompts come from numpy's seeded ``RandomState(1)``: wave mode draws a
-``[batch, prompt]`` block, continuous mode one mixed-length prompt per
-request (``--prompt`` is the longest, half of it the shortest).  They cannot
-equal the reference launcher's ``jax.random.randint`` draws, so the two
-launchers serve different prompts.
+``[batch, prompt]`` block (and for a VLM a ``[batch, num_prefix_tokens,
+d_model]`` block of standard-normal image embeddings, in bf16, after it),
+continuous mode one mixed-length prompt per request (``--prompt`` is the
+longest, half of it the shortest; text models only, as the reference's
+launcher).  They cannot equal the reference launcher's ``jax.random``
+draws, so the two launchers serve different prompts.  A VLM's capacity
+holds its image prefix too.
 
 ``--device`` (default ``cuda``) names the device; nothing falls back to the
 CPU when CUDA is absent.  ``--fidelity-every N`` turns on telemetry with the
@@ -30,6 +33,7 @@ import dataclasses
 import pathlib
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.policy import named_policy
@@ -83,7 +87,7 @@ def main(argv=None) -> None:
         args.mode = "continuous"   # traces span the request lifecycle
 
     params = model.init(seed=0, device=args.device)
-    cap = args.prompt + args.gen
+    cap = args.prompt + args.gen + (cfg.num_prefix_tokens if cfg.modality == "vlm" else 0)
     eng = Engine(model, params,
                  EngineConfig(batch=args.batch, capacity=cap, policy=pol,
                               temperature=args.temperature, layout=args.layout,
@@ -94,6 +98,8 @@ def main(argv=None) -> None:
     rng = np.random.RandomState(1)
 
     if args.mode == "continuous":
+        if cfg.modality != "text":
+            raise SystemExit("continuous mode drives text tokens")
         sched = Scheduler(eng)
         n_req = args.requests or 2 * args.batch
         # mixed-length raw prompts (--prompt is the longest): the engine
@@ -131,6 +137,9 @@ def main(argv=None) -> None:
 
     batch = {"tokens": rng.randint(0, cfg.vocab_size, size=(args.batch, args.prompt))
              .astype(np.int32)}
+    if cfg.modality == "vlm":
+        img = rng.standard_normal((args.batch, cfg.num_prefix_tokens, cfg.d_model))
+        batch["img_embeds"] = torch.from_numpy(img.astype(np.float32)).to(torch.bfloat16)
     toks, stats = eng.generate(batch, args.gen)
     print(f"generated {toks.shape}; prefill {stats['prefill_s']:.2f}s, "
           f"decode {stats['decode_s']:.2f}s ({stats['decode_tok_per_s']:.1f} tok/s), "

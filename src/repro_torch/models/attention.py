@@ -1,6 +1,7 @@
-"""Multi-head attention with GQA and RoPE: full-sequence prefill through
-``flash_prefill``, streaming prefill into a GEAR layer cache, and cached
-decode over a dense or paged layer cache of any kind (port of
+"""Multi-head attention with GQA, RoPE and QK-norm: full-sequence prefill
+through ``flash_prefill`` (causal, a local layer's sliding window, a VLM's
+bidirectional prefix), streaming prefill into a GEAR layer cache, and
+cached decode over a dense or paged layer cache of any kind (port of
 ``repro.models.attention``'s flash, streaming and decode paths).
 
 Monolithic prefill always takes the flash path, on the card and on the CPU —
@@ -15,54 +16,76 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cache as cache_lib
 from repro_torch.kernels import ops
-from repro_torch.models.common import rotate, rowwise
+from repro_torch.models.common import rmsnorm, rotate, rowwise
 
-__all__ = ["attention_prefill", "streaming_prefill_supported", "attention_prefill_streaming",
-           "attention_decode"]
+__all__ = ["rope_theta_for", "attention_prefill", "streaming_prefill_supported",
+           "attention_prefill_streaming", "attention_decode"]
+
+
+def rope_theta_for(cfg: ModelConfig, kind: str) -> float:
+    """gemma3-style dual RoPE: a local layer of a local:global stack rotates
+    with the short-range base 10,000, every other layer with ``rope_theta``."""
+    if kind == "local" and cfg.attn_pattern == "local_global":
+        return 10_000.0
+    return cfg.rope_theta
 
 
 def _project_qkv(cfg: ModelConfig, layer, x: torch.Tensor, rope):
     """x [B, S, d] -> q [B, S, Hq, Dh], k/v [B, S, Hkv, Dh]; ``rope`` is the
-    forward's (cos, sin) tables (``common.rope_tables``) for q and k."""
+    forward's (cos, sin) tables of this layer's kind (``common.rope_tables``)
+    for q and k.  With QK-norm, q and k are RMS-normed over each head's Dh
+    (the ``(1 + scale)`` gain) before the rotation, as the reference."""
     B, S, _ = x.shape
     dh = cfg.head_dim
     q = (x @ layer.wq).reshape(B, S, cfg.num_heads, dh)
     k = (x @ layer.wk).reshape(B, S, cfg.num_kv_heads, dh)
     v = (x @ layer.wv).reshape(B, S, cfg.num_kv_heads, dh)
+    if cfg.qk_norm:
+        q, k = rmsnorm(q, layer.q_norm), rmsnorm(k, layer.k_norm)
     return rotate(q, *rope), rotate(k, *rope), v
 
 
-def _sdpa_flash(cfg: ModelConfig, q, k, v):
+def _sdpa_flash(cfg: ModelConfig, q, k, v, kind: str, prefix_len: int):
     """q [B, S, Hq, Dh]; k, v [B, S, Hkv, Dh] -> [B, S, Hq, Dh].  Query rows
     are laid out (B, Hkv, G), so ``kv_repeat = G`` points each group at its
-    shared K/V row without a broadcast copy."""
+    shared K/V row without a broadcast copy.  The mask is the reference's:
+    causal, a local layer's sliding window of ``local_window`` keys, and the
+    first ``prefix_len`` positions attending each other both ways."""
     B, S, Hq, Dh = q.shape
     Hkv = k.shape[2]
     qh = q.transpose(1, 2).reshape(B * Hq, S, Dh).contiguous()
     kh = k.transpose(1, 2).reshape(B * Hkv, S, Dh).contiguous()
     vh = v.transpose(1, 2).reshape(B * Hkv, S, Dh).contiguous()
-    out = ops.flash_attention(qh, kh, vh, softcap=cfg.attn_logit_softcap, kv_repeat=Hq // Hkv)
+    out = ops.flash_attention(qh, kh, vh, window=cfg.local_window if kind == "local" else 0,
+                              prefix_len=prefix_len, softcap=cfg.attn_logit_softcap,
+                              kv_repeat=Hq // Hkv)
     return out.reshape(B, Hq, S, Dh).transpose(1, 2)
 
 
-def attention_prefill(cfg: ModelConfig, layer, x: torch.Tensor, rope):
-    """Full-sequence causal attention.  Returns (out [B, S, d], (k, v)) with
-    k/v laid out [B, Hkv, S, Dh] for the cache build."""
+def attention_prefill(cfg: ModelConfig, layer, x: torch.Tensor, rope, kind: str = "global",
+                      prefix_len: int = 0):
+    """Full-sequence attention of a layer of ``kind`` ("global" or "local"),
+    with a bidirectional prefix of ``prefix_len`` positions (a VLM's image
+    tokens).  Returns (out [B, S, d], (k, v)) with k/v laid out [B, Hkv, S,
+    Dh] for the cache build."""
     q, k, v = _project_qkv(cfg, layer, x, rope)
-    out = _sdpa_flash(cfg, q, k, v)
+    out = _sdpa_flash(cfg, q, k, v, kind, prefix_len)
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.q_dim).to(x.dtype) @ layer.wo
     return out, (k.transpose(1, 2), v.transpose(1, 2))
 
 
-def streaming_prefill_supported(cfg: ModelConfig, cache_cfg: cache_lib.CacheConfig) -> bool:
+def streaming_prefill_supported(cfg: ModelConfig, kind: str,
+                                cache_cfg: cache_lib.CacheConfig) -> bool:
     """Layers that can take the streaming prefill: the streaming cache layout
     (:func:`repro_torch.core.cache.streaming_supported`: not an FP16 or
     window cache, nor per-token K stats) and plain causal attention (the
-    history scorer has no logit softcap).  Other layers fall back to the
-    monolithic prefill, as in the reference (whose prefix-LM models the
-    port does not serve yet)."""
-    return cache_lib.streaming_supported(cache_cfg) and cfg.attn_logit_softcap == 0.0
+    history scorer has no sliding window, bidirectional prefix or logit
+    softcap).  Other layers fall back to the monolithic prefill inside the
+    same forward, as in the reference."""
+    return (cache_lib.streaming_supported(cache_cfg) and kind != "local"
+            and cfg.attn_logit_softcap == 0.0
+            and not (cfg.modality == "vlm" and cfg.num_prefix_tokens))
 
 
 def attention_prefill_streaming(cfg: ModelConfig, layer, x: torch.Tensor, rope,

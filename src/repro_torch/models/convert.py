@@ -4,9 +4,11 @@
 numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a
 :class:`~repro_torch.models.transformer.Transformer`.  The reference stacks
 each pattern position's layers over repeats (``blocks[p][...][r]``); layer
-``r * len(pattern) + p`` of the port is that slice.  Matrices become
-``dtype`` (bf16: what the reference casts them to at use), norm scales and
-(LayerNorm) biases f32; a non-gated MLP (``gelu_mlp``) has no ``w_gate``.
+``r * len(pattern) + p`` of the port is that slice (gemma3's 5 local + 1
+global unit: layers ``r * 6`` to ``r * 6 + 4`` are local, ``r * 6 + 5``
+global).  Matrices become ``dtype`` (bf16: what the reference casts them to
+at use), norm scales and (LayerNorm) biases f32, QK-norm's ``attn.q_norm`` /
+``attn.k_norm`` scales too; a non-gated MLP (``gelu_mlp``) has no ``w_gate``.
 A hybrid block's ``ssm`` subtree comes across the same way: its matrices in
 bf16, ``conv_w`` and the per-head ``a_log`` / ``dt_bias`` / ``d_skip`` in
 f32 (see :mod:`repro_torch.models.transformer`).  An RWKV6 block's ``tm`` /
@@ -26,7 +28,7 @@ from repro_torch.models.transformer import COMPUTE_DTYPE, Transformer
 
 __all__ = ["params_from_reference"]
 
-_ATTN = ("wq", "wk", "wv", "wo")
+_ATTN = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 _MLP = ("w_gate", "w_up", "w_down")
 _SSM = ("w_in", "conv_w", "w_bcdt", "w_out", "a_log", "dt_bias", "d_skip")
 
@@ -65,7 +67,8 @@ def params_from_reference(np_tree: dict, cfg: ModelConfig, device=None,
             if getattr(blk, f"{n}_bias") is not None:
                 put(getattr(blk, f"{n}_bias"), stacked[n]["bias"][r])
         for name in _ATTN:
-            put(getattr(blk, name), stacked["attn"][name][r])
+            if getattr(blk, name) is not None:
+                put(getattr(blk, name), stacked["attn"][name][r])
         for name in _MLP:
             if getattr(blk, name) is not None:
                 put(getattr(blk, name), stacked["mlp"][name][r])

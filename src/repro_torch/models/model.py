@@ -34,14 +34,17 @@ class Model:
     def prefill(self, params: tfm.Transformer, batch: dict, policy: CompressionPolicy,
                 capacity: int, prefill_mode: str = "monolithic", padded_tail: bool = False,
                 true_len: int | None = None):
-        """Prefill of ``batch["tokens"]`` [B, S] on the weights' device,
+        """Prefill of ``batch["tokens"]`` [B, S] on the weights' device, after
+        ``batch["img_embeds"]`` [B, P, d] for a VLM when the batch has them,
         ``prefill_mode`` "monolithic" or "streaming" (same caches; see
         :func:`repro_torch.models.transformer.forward_prefill`, also for the
         bucketing hooks ``padded_tail`` / ``true_len``).  Returns (logits
         [B, 1, V], per-layer caches)."""
         tokens = torch.as_tensor(batch["tokens"], device=params.device)
+        img = batch.get("img_embeds")
+        img = None if img is None else torch.as_tensor(img, device=params.device)
         return tfm.forward_prefill(params, tokens, policy, capacity, prefill_mode,
-                                   padded_tail, true_len)
+                                   padded_tail, true_len, img_embeds=img)
 
     @torch.inference_mode()
     def prefill_suffix(self, params: tfm.Transformer, batch: dict, caches: list, start_pos: int,

@@ -1,16 +1,20 @@
 """Decoder stack: weights, monolithic or streaming prefill and one decode
 step over dense or paged caches (port of ``repro.models.transformer`` for
-global-attention text decoders: the dense llama2, minicpm (RMSNorm +
-SwiGLU), starcoder2 (LayerNorm + GELU MLP) and gemma (RMSNorm + GeGLU, its
-embedding scaled by sqrt(d_model)), and the hybrid hymba, whose blocks run
-Mamba-2 SSM heads beside attention; and for the attention-free RWKV6,
-whose blocks are time mix + channel mix).
+the dense llama2, minicpm (RMSNorm + SwiGLU), starcoder2 (LayerNorm + GELU
+MLP) and gemma (RMSNorm + GeGLU, its embedding scaled by sqrt(d_model));
+gemma3, whose 5:1 local:global stack adds QK-norm, a RoPE base per layer
+kind and sliding-window ring caches on its local layers; the VLM
+paligemma, whose prompt is a bidirectional prefix of image embeddings
+before the text; the hybrid hymba, whose blocks run Mamba-2 SSM heads
+beside attention; and the attention-free RWKV6, whose blocks are time mix
++ channel mix).
 
 Where the reference stacks per-layer parameters and caches over repeats and
 drives them with ``lax.scan``, the port holds one :class:`Block` and one
 layer cache per layer and loops in Python.  A hybrid layer's cache is the
 pair ``(GEARLayerCache, SSMState)``, as the reference's; an RWKV6 layer's
-is its :class:`~repro_torch.models.rwkv.RWKVState`.  Activations run in
+is its :class:`~repro_torch.models.rwkv.RWKVState`; a local layer's is a
+:class:`~repro_torch.core.cache.WindowLayerCache` (:func:`cache_cfg_for`).  Activations run in
 bf16 (``COMPUTE_DTYPE``, as the reference); weight matrices are stored in
 bf16, which is what the reference computes with after its cast at use, and
 norm scales and biases and the SSM's per-head vectors stay f32.  The SSM's ``conv_w``
@@ -35,9 +39,9 @@ from repro_torch.models.common import (apply_norm, layernorm, resolve_device, ro
 from repro_torch.models.mlp import GATED_KINDS, MLP_KINDS, mlp_apply
 
 __all__ = ["COMPUTE_DTYPE", "Block", "RWKVBlock", "Transformer", "check_supported",
-           "check_serving", "is_hybrid", "cache_cfg_for", "init_caches", "embed_tokens",
-           "final_norm",
-           "logits_from_hidden", "forward_prefill", "decode_tokens"]
+           "check_serving", "is_hybrid", "layer_kinds", "cache_cfg_for", "init_caches",
+           "embed_tokens", "final_norm", "logits_from_hidden", "forward_prefill",
+           "decode_tokens"]
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -45,6 +49,13 @@ COMPUTE_DTYPE = torch.bfloat16
 def is_hybrid(cfg: ModelConfig) -> bool:
     """Blocks run SSM heads in parallel with attention (hymba)."""
     return cfg.ssm and cfg.hybrid_parallel
+
+
+def layer_kinds(cfg: ModelConfig) -> list:
+    """The kind of every layer, in order: layer ``i`` is position
+    ``i % len(layer_pattern)`` of the pattern ("global", "local" or "rwkv")."""
+    unit = cfg.layer_pattern
+    return [unit[i % len(unit)] for i in range(cfg.num_layers)]
 
 
 def check_serving(cfg: ModelConfig, layout: str = "dense") -> None:
@@ -61,24 +72,26 @@ def check_serving(cfg: ModelConfig, layout: str = "dense") -> None:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves text decoders with global attention blocks, dense
-    (llama2, minicpm, starcoder2, gemma: SwiGLU / GeGLU / GELU MLP under
-    RMSNorm or LayerNorm) or hybrid with parallel SSM heads (hymba, RMSNorm /
-    SwiGLU), and attention-free RWKV6 stacks; other families raise."""
-    dense_ok = (cfg.family == "dense" and not cfg.ssm and cfg.mlp_kind in MLP_KINDS
-                and cfg.norm in ("rmsnorm", "layernorm"))
+    """The port serves dense decoders (llama2, minicpm, starcoder2, gemma,
+    gemma3: SwiGLU / GeGLU / GELU MLP under RMSNorm or LayerNorm, global or
+    5:1 local:global attention, optional QK-norm), the VLM paligemma (a
+    dense decoder behind a bidirectional prefix of image embeddings), the
+    hybrid hymba (global attention beside parallel SSM heads, RMSNorm /
+    SwiGLU) and attention-free RWKV6 stacks; audio and MoE models raise."""
+    dense_ok = (cfg.family in ("dense", "vlm") and not cfg.ssm and cfg.mlp_kind in MLP_KINDS
+                and cfg.norm in ("rmsnorm", "layernorm")
+                and cfg.modality == ("vlm" if cfg.family == "vlm" else "text"))
     hybrid_ok = (cfg.family == "hybrid" and is_hybrid(cfg) and cfg.mlp_kind == "swiglu"
-                 and cfg.norm == "rmsnorm")
-    attn_ok = ((dense_ok or hybrid_ok) and not cfg.rwkv
-               and cfg.layer_pattern == ("global",) and not cfg.qk_norm)
+                 and cfg.norm == "rmsnorm" and cfg.layer_pattern == ("global",)
+                 and not cfg.qk_norm and cfg.modality == "text")
     rwkv_ok = (cfg.family == "ssm" and cfg.rwkv and cfg.mlp_kind == "rwkv_cm"
-               and cfg.norm == "rmsnorm")
-    if not (attn_ok or rwkv_ok) or cfg.moe or cfg.modality != "text":
+               and cfg.norm == "rmsnorm" and cfg.modality == "text")
+    if not ((dense_ok and not cfg.rwkv) or hybrid_ok or rwkv_ok) or cfg.moe:
         raise NotImplementedError(
-            f"{cfg.name}: only dense global-attention text decoders (SwiGLU / GeGLU / GELU "
-            "MLP, RMSNorm / LayerNorm, no QK-norm), hybrid (parallel SSM) RMSNorm/SwiGLU ones "
-            "and RWKV6 are ported (local:global attention, QK-norm, VLM, audio and MoE "
-            "families: ROADMAP queue 1, item 8.4 onward)")
+            f"{cfg.name}: only dense decoders (SwiGLU / GeGLU / GELU MLP, RMSNorm / "
+            "LayerNorm, global or local:global attention, optional QK-norm), the VLM prefix-LM, "
+            "hybrid (parallel SSM) RMSNorm/SwiGLU ones and RWKV6 are ported (audio and MoE "
+            "families: ROADMAP queue 1, item 8.6 onward)")
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
@@ -99,8 +112,9 @@ def _norm_params(cfg: ModelConfig, device):
 class Block(nn.Module):
     """One decoder layer's weights (``[d_in, d_out]`` matrices, as the
     reference): norms ``ln1`` / ``ln2`` (scales; ``ln1_bias`` / ``ln2_bias``
-    for LayerNorm, else None), attention, and the MLP (``w_gate`` for the
-    gated kinds only, else None)."""
+    for LayerNorm, else None), attention (``q_norm`` / ``k_norm`` with
+    QK-norm, else None), and the MLP (``w_gate`` for the gated kinds only,
+    else None)."""
 
     def __init__(self, cfg: ModelConfig, device, dtype=COMPUTE_DTYPE):
         super().__init__()
@@ -113,6 +127,12 @@ class Block(nn.Module):
         self.ln1, self.ln1_bias = _norm_params(cfg, device)
         self.ln2, self.ln2_bias = _norm_params(cfg, device)
         self.wq, self.wk, self.wv, self.wo = mat(d, qd), mat(d, kvd), mat(d, kvd), mat(qd, d)
+        # QK-norm scales over a head's Dh, f32 zeros (the (1 + scale) gain), as the reference
+        self.q_norm = self.k_norm = None
+        if cfg.qk_norm:
+            self.q_norm, self.k_norm = (
+                _param(torch.zeros(cfg.head_dim, dtype=torch.float32, device=device))
+                for _ in range(2))
         self.w_gate = mat(d, ff) if cfg.mlp_kind in GATED_KINDS else None
         self.w_up, self.w_down = mat(d, ff), mat(ff, d)
         if is_hybrid(cfg):
@@ -207,11 +227,18 @@ class Transformer(nn.Module):
         return model
 
 
-def cache_cfg_for(cfg: ModelConfig, policy: CompressionPolicy, batch: int,
+def cache_cfg_for(cfg: ModelConfig, kind: str, policy: CompressionPolicy, batch: int,
                   capacity: int) -> cache_lib.CacheConfig:
-    """The cache geometry of an attention layer: an FP16 cache under the
-    fp16 policy, a GEAR cache under any other (the reference's rule for
-    "global" layers, the only kind the ported models have)."""
+    """The cache geometry of an attention layer of ``kind``, by the
+    reference's rule: a local layer keeps a ring of its last
+    ``local_window`` tokens (``kind="window"``, capacity ``min(capacity,
+    local_window)``) whatever the policy; a global layer an FP16 cache under
+    the fp16 policy and a GEAR cache under any other."""
+    if kind == "local":
+        return cache_lib.CacheConfig(batch=batch, kv_heads=cfg.num_kv_heads,
+                                     head_dim=cfg.head_dim,
+                                     capacity=min(capacity, cfg.local_window), policy=policy,
+                                     kind="window", window=cfg.local_window)
     return cache_lib.CacheConfig(batch=batch, kv_heads=cfg.num_kv_heads,
                                  head_dim=cfg.head_dim, capacity=capacity, policy=policy,
                                  kind="fp16" if policy.is_fp16 else "gear")
@@ -219,51 +246,63 @@ def cache_cfg_for(cfg: ModelConfig, policy: CompressionPolicy, batch: int,
 
 def init_caches(cfg: ModelConfig, policy: CompressionPolicy, batch: int, capacity: int,
                 device, dtype=torch.bfloat16, layout: str = "dense", pool_pages: int = 0) -> list:
-    """One empty layer cache per layer: a dense
-    :class:`~repro_torch.core.cache.GEARLayerCache` (an
-    :class:`~repro_torch.core.cache.FP16LayerCache` under the fp16 policy),
-    or for ``layout="paged"`` a
-    :class:`~repro_torch.core.cache.PagedGEARLayerCache` whose pool holds
-    ``pool_pages`` pages (page 0 reserved).  Every layer's pool is addressed
-    by one engine-owned block table; an FP16 cache has no chunks to pool and
-    raises the reference's ``ValueError``.  A hybrid layer's cache is the
-    pair (attention cache, zero :class:`~repro_torch.models.ssm.SSMState`);
-    hybrids are dense-only.  An RWKV6 layer's is a zero
-    :class:`~repro_torch.models.rwkv.RWKVState` whatever the policy (it
-    touches no RWKV layer); RWKV6 is dense-only too."""
+    """One empty layer cache per layer, by its kind (:func:`cache_cfg_for`):
+    a dense :class:`~repro_torch.core.cache.GEARLayerCache` (an
+    :class:`~repro_torch.core.cache.FP16LayerCache` under the fp16 policy)
+    or a :class:`~repro_torch.core.cache.WindowLayerCache` ring for a local
+    layer.  With ``layout="paged"`` every layer that can be paged (a GEAR
+    cache) becomes a :class:`~repro_torch.core.cache.PagedGEARLayerCache`
+    whose pool holds ``pool_pages`` pages (page 0 reserved), all addressed
+    by one engine-owned block table, while window rings stay dense in the
+    mixed tree, as the reference's ``_unit_cache``; a model with no such
+    layer (the fp16 policy) raises the reference's ``ValueError``.  A hybrid
+    layer's cache is the pair (attention cache, zero
+    :class:`~repro_torch.models.ssm.SSMState`); hybrids are dense-only.  An
+    RWKV6 layer's is a zero :class:`~repro_torch.models.rwkv.RWKVState`
+    whatever the policy (it touches no RWKV layer); RWKV6 is dense-only
+    too."""
     if layout not in ("dense", "paged"):
         raise ValueError(f"layout must be dense/paged, got {layout!r}")
+    check_serving(cfg, layout=layout)
     if cfg.rwkv:
-        check_serving(cfg, layout=layout)
         return [rwkv_lib.init_rwkv_state(cfg, batch, dtype, device)
                 for _ in range(cfg.num_layers)]
-    check_serving(cfg, layout=layout)
-    ccfg = cache_cfg_for(cfg, policy, batch, capacity)
-    if layout == "paged" and not cache_lib.paged_supported(ccfg):
+    ccfgs = {kind: cache_cfg_for(cfg, kind, policy, batch, capacity)
+             for kind in cfg.layer_pattern}
+    pooled = {kind: layout == "paged" and cache_lib.paged_supported(c)
+              for kind, c in ccfgs.items()}
+    if layout == "paged" and not any(pooled.values()):
         raise ValueError("paged layout requires a compressed (GEAR) policy: fp16 caches "
                          "have no chunk pages to pool")
-    if layout == "paged":
-        return [cache_lib.init_paged_layer_cache(ccfg, pool_pages, dtype, device)
-                for _ in range(cfg.num_layers)]
-    if is_hybrid(cfg):
-        return [(cache_lib.init_layer_cache(ccfg, dtype, device),
-                 ssm_lib.init_ssm_state(cfg, batch, dtype, device))
-                for _ in range(cfg.num_layers)]
-    return [cache_lib.init_layer_cache(ccfg, dtype, device) for _ in range(cfg.num_layers)]
+    caches = []
+    for kind in layer_kinds(cfg):
+        if pooled[kind]:
+            caches.append(cache_lib.init_paged_layer_cache(ccfgs[kind], pool_pages, dtype,
+                                                           device))
+            continue
+        c = cache_lib.init_layer_cache(ccfgs[kind], dtype, device)
+        caches.append((c, ssm_lib.init_ssm_state(cfg, batch, dtype, device))
+                      if is_hybrid(cfg) else c)
+    return caches
 
 
 def final_norm(model: Transformer, x: torch.Tensor) -> torch.Tensor:
     return apply_norm(x, model.final_norm, model.final_norm_bias, model.cfg.norm)
 
 
-def embed_tokens(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(model: Transformer, tokens: torch.Tensor,
+                 img_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Rows of the embedding table in ``COMPUTE_DTYPE``; a GeGLU model
     (gemma) scales them by ``sqrt(d_model)`` in f32 first, as the reference
     (whose table is f32: on the port's bf16 table the scaled embedding may
-    differ from the reference's by one bf16 ulp)."""
+    differ from the reference's by one bf16 ulp).  A VLM given
+    ``img_embeds`` [B, P, d] puts them, unscaled, before the text rows: [B,
+    P + S, d]; any other model ignores them, as the reference does."""
     x = model.embed[tokens.to(torch.int64)]
     if model.cfg.mlp_kind == "geglu":
         x = x.to(torch.float32) * (model.cfg.d_model ** 0.5)
+    if model.cfg.modality == "vlm" and img_embeds is not None:
+        x = torch.cat([img_embeds.to(device=x.device, dtype=x.dtype), x], dim=1)
     return x.to(COMPUTE_DTYPE)
 
 
@@ -273,19 +312,33 @@ def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
     return h @ model.lm_head
 
 
+def _rope_by_kind(cfg: ModelConfig, positions: torch.Tensor) -> dict:
+    """One RoPE (cos, sin) table per layer kind of the call (gemma3's local
+    and global layers rotate with different bases), not one per layer."""
+    return {kind: rope_tables(positions, cfg.head_dim, attn_lib.rope_theta_for(cfg, kind))
+            for kind in set(cfg.layer_pattern)}
+
+
 def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: CompressionPolicy,
                     capacity: int, prefill_mode: str = "monolithic", padded_tail: bool = False,
-                    true_len: int | None = None, start_pos: int = 0, init_caches=None):
-    """Prefill of ``tokens`` [B, S].  Returns (logits [B, 1, V] of the last
-    real position, one filled layer cache per layer).
+                    true_len: int | None = None, start_pos: int = 0, init_caches=None,
+                    img_embeds: torch.Tensor | None = None):
+    """Prefill of ``tokens`` [B, S] (a VLM's ``img_embeds`` [B, P, d] before
+    them: :func:`embed_tokens`).  Returns (logits [B, 1, V] of the last real
+    position, one filled layer cache per layer).
 
     ``prefill_mode="monolithic"``: full-sequence attention, then one batched
-    compression event per layer.  ``"streaming"``: each layer compresses its
-    closed chunks first and attends the history in compressed form (a layer
-    that cannot stream falls back to monolithic); both build the same
-    caches.  A hybrid's streaming layer runs attention through the streaming
-    pipeline and its SSM heads on the whole normed input beside it, as the
-    reference does.
+    compression event per layer.  ``"streaming"``: each layer that can
+    (:func:`~repro_torch.models.attention.streaming_prefill_supported`)
+    compresses its closed chunks first and attends the history in compressed
+    form; any other layer (a local layer's window, a VLM's prefix) takes the
+    monolithic prefill inside the same forward, as the reference's.  Both
+    build the same caches.  A hybrid's streaming layer runs attention
+    through the streaming pipeline and its SSM heads on the whole normed
+    input beside it, as the reference does.  A VLM's first
+    ``num_prefix_tokens`` positions attend each other both ways, whether or
+    not they hold image rows (the reference's rule: a continuous-batching
+    request carries no image).
 
     ``start_pos`` > 0 is the suffix entry of the prefix cache (streaming
     only): ``tokens`` are the tokens after a chunk-aligned cached prefix,
@@ -294,9 +347,10 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
     (streaming only) are the length-bucketing hooks: ``tokens`` is
     right-padded to a chunk multiple, the padded block stays out of
     compression, lengths and the returned logits come from position
-    ``true_len - 1`` of this call's tokens.  Neither a suffix nor a padded
-    tail can resume a recurrent state, so both raise for RWKV6 and hybrid
-    models (which therefore prefill unbucketed), as in the reference."""
+    ``true_len - 1`` of this call's tokens.  Both need every layer to
+    stream, and neither can resume a recurrent state, so both raise for
+    RWKV6, hybrid, local:global and VLM models (which therefore prefill
+    unbucketed), as in the reference."""
     if prefill_mode not in ("monolithic", "streaming"):
         raise ValueError(f"prefill_mode must be monolithic/streaming, got {prefill_mode!r}")
     if start_pos and prefill_mode != "streaming":
@@ -306,7 +360,7 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
     cfg = model.cfg
     if cfg.rwkv and (start_pos or padded_tail):
         raise ValueError("suffix/bucketed prefill cannot resume an RWKV state")
-    x = embed_tokens(model, tokens)
+    x = embed_tokens(model, tokens, img_embeds)
     if cfg.rwkv:
         caches = []
         for blk in model.blocks:
@@ -320,25 +374,30 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
     hybrid = is_hybrid(cfg)
     B, S, _ = x.shape
     positions = torch.arange(start_pos, start_pos + S, dtype=torch.int32, device=x.device)
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    ccfg = cache_cfg_for(cfg, policy, B, capacity)
-    stream = prefill_mode == "streaming" and attn_lib.streaming_prefill_supported(cfg, ccfg)
-    if (start_pos or padded_tail) and not stream:
-        raise ValueError("suffix/bucketed prefill requires every layer to support the "
-                         "streaming pipeline (kind='global' does not)")
+    ropes = _rope_by_kind(cfg, positions)
+    prefix_len = cfg.num_prefix_tokens if cfg.modality == "vlm" else 0   # image rows
+    ccfgs = {kind: cache_cfg_for(cfg, kind, policy, B, capacity) for kind in cfg.layer_pattern}
+    stream = {kind: prefill_mode == "streaming"
+              and attn_lib.streaming_prefill_supported(cfg, kind, c) for kind, c in ccfgs.items()}
+    if start_pos or padded_tail:
+        for kind, ok in stream.items():
+            if not ok:
+                raise ValueError("suffix/bucketed prefill requires every layer to support the "
+                                 f"streaming pipeline (kind={kind!r} does not)")
     if hybrid and (start_pos or padded_tail):
         raise ValueError("suffix/bucketed prefill cannot resume a hybrid SSM state")
     if init_caches is not None and len(init_caches) != len(model.blocks):
         raise ValueError(f"{len(init_caches)} initial caches for {len(model.blocks)} layers")
     caches = []
-    for i, blk in enumerate(model.blocks):
+    for i, (blk, kind) in enumerate(zip(model.blocks, layer_kinds(cfg))):
+        ccfg, rope = ccfgs[kind], ropes[kind]
         xin = blk.norm1(x)
-        if stream:
+        if stream[kind]:
             h, cache = attn_lib.attention_prefill_streaming(
                 cfg, blk, xin, rope, ccfg, start_pos=start_pos, padded_tail=padded_tail,
                 true_len=true_len, cache=None if init_caches is None else init_caches[i])
         else:
-            h, (k, v) = attn_lib.attention_prefill(cfg, blk, xin, rope)
+            h, (k, v) = attn_lib.attention_prefill(cfg, blk, xin, rope, kind, prefix_len)
             cache = cache_lib.prefill_layer_cache(
                 ccfg, cache_lib.init_layer_cache(ccfg, torch.bfloat16, x.device), k, v)
         if hybrid:
@@ -347,7 +406,7 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
             cache = (cache, ssm_state)
         x = x + h
         xin2 = blk.norm2(x)
-        x = x + (rowwise(blk.mlp, xin2) if stream else blk.mlp(xin2))
+        x = x + (rowwise(blk.mlp, xin2) if stream[kind] else blk.mlp(xin2))
         caches.append(cache)
     x = final_norm(model, x)
     last = S if true_len is None else int(true_len)
@@ -361,8 +420,10 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
     """One decode step.  tokens [B, 1]; ``pos`` [B] per-slot absolute
     positions; ``lengths`` the host copy of the caches' per-slot lengths
     (read from the first layer cache, one device sync per step, when not
-    given); ``block_tables`` addresses every layer's pool for paged caches;
-    ``fused`` picks the attend path
+    given: every layer's ``length``, a window ring's included, advances by
+    one token per step); ``block_tables`` addresses the pool of every paged
+    layer (window rings in a mixed tree stay dense and ignore it); ``fused``
+    picks the attend path
     (:func:`~repro_torch.models.attention.attention_decode`).
     Updates ``caches`` in place; returns logits [B, 1, V].  An RWKV6 model
     reads neither ``pos`` nor lengths: each layer advances its
@@ -380,19 +441,19 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
         return logits_from_hidden(model, final_norm(model, x))
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).reshape(-1).expand(B)
-    rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)      # [B, 1, Dh/2]
+    ropes = _rope_by_kind(cfg, pos[:, None])                         # [B, 1, Dh/2] each
     hybrid = is_hybrid(cfg)
     if lengths is None:
         lengths = (caches[0][0] if hybrid else caches[0]).length.cpu().numpy()
     # a copy: for a CPU cache ``.cpu().numpy()`` shares the first layer's
     # ``length``, which its append advances before the next layer reads it
     lengths = np.array(lengths, dtype=np.int64)
-    ccfg = cache_cfg_for(cfg, policy, B, capacity)
-    for blk, cache in zip(model.blocks, caches):
+    ccfgs = {kind: cache_cfg_for(cfg, kind, policy, B, capacity) for kind in cfg.layer_pattern}
+    for blk, kind, cache in zip(model.blocks, layer_kinds(cfg), caches):
         gear, st = cache if hybrid else (cache, None)
         xin = blk.norm1(x)
-        h = attn_lib.attention_decode(cfg, blk, xin, rope, gear, ccfg, lengths, block_tables,
-                                      fused)
+        h = attn_lib.attention_decode(cfg, blk, xin, ropes[kind], gear, ccfgs[kind], lengths,
+                                      block_tables, fused)
         if hybrid:
             h2, new = ssm_lib.ssm_decode(cfg, blk, xin, st)
             st.conv.copy_(new.conv)

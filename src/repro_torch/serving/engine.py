@@ -38,6 +38,15 @@ batch-1 prefill into a slot (:meth:`Engine.prefill_slot`).
   state, the policy touches no layer, prefill is unbucketed in either mode,
   the layout is dense only, and ``attend_path`` reports "xla", as the
   reference's does when no layer has a GEAR attention cache.
+* Each layer has its own cache config (``cache_cfg_for`` of its kind): a
+  local:global model (gemma3) keeps a window ring on each local layer, which
+  decodes through the portable ``cache.attend`` and stays dense on the
+  paged layout (only GEAR layers are pooled), and prefills unbucketed, as
+  the reference's.
+* A VLM (paligemma) serves wave batches of ``tokens`` with ``img_embeds``
+  before them; its continuous-batching requests carry text only, yet each
+  decodes from position ``len(tokens) + num_prefix_tokens``, as in the
+  reference.
 * Telemetry (``obs``, :mod:`repro_torch.obs`): the engine owns the
   :class:`~repro_torch.obs.Observability` hub the scheduler drives, and
   annotates each prefill; with ``ObsConfig(profiler=True)`` prefill and
@@ -68,7 +77,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import cache_cfg_for, check_serving
+from repro_torch.models.transformer import cache_cfg_for, check_serving, layer_kinds
 from repro_torch.obs import FidelityProbe, Observability, ObsConfig
 from repro_torch.obs.tracing import profiler_span
 from repro_torch.prefixcache import PrefixCache, extract_tree_chunks, splice_tree_chunks
@@ -170,7 +179,8 @@ def prefix_cache_unsupported_reason(cfg, policy: CompressionPolicy,
     for kind in cfg.layer_pattern:
         if kind == "rwkv":
             return "rwkv layers carry recurrent state, not spliceable chunks"
-        if not attn_lib.streaming_prefill_supported(cfg, cache_cfg_for(cfg, policy, 1, capacity)):
+        ccfg = cache_cfg_for(cfg, kind, policy, 1, capacity)
+        if not attn_lib.streaming_prefill_supported(cfg, kind, ccfg):
             return f"layer kind {kind!r} does not support the streaming prefill pipeline"
     return None
 
@@ -195,10 +205,15 @@ class Engine:
         reason = prefix_cache_unsupported_reason(self.cfg, ecfg.policy, self._cap())
         if ecfg.prefix_cache and reason is not None:
             raise ValueError(f"prefix_cache unsupported here: {reason}")
-        # the GEAR attention layers' cache config (and its batch-1 twin, the
-        # geometry of one request's prefill); None when there are none
+        # every layer's batch-1 cache config, the geometry of one request's
+        # prefill (None for an RWKV6 layer); ``_ccfg`` / ``_ccfg1`` are the
+        # global layers' (the prefix cache's, whose models have no other
+        # kind), None without any
+        self._ccfgs1 = [None if kind == "rwkv" else
+                        cache_cfg_for(self.cfg, kind, ecfg.policy, 1, self._cap())
+                        for kind in layer_kinds(self.cfg)]
         self._ccfg = (None if self.cfg.rwkv else
-                      cache_cfg_for(self.cfg, ecfg.policy, ecfg.batch, self._cap()))
+                      cache_cfg_for(self.cfg, "global", ecfg.policy, ecfg.batch, self._cap()))
         self._ccfg1 = None if self._ccfg is None else dataclasses.replace(self._ccfg, batch=1)
         if ecfg.layout == "paged" and ecfg.policy.is_fp16:
             raise ValueError("paged layout requires a compressed (GEAR) policy: fp16 caches "
@@ -223,7 +238,7 @@ class Engine:
                 and not ecfg.policy.is_fp16 and self.cfg.modality == "text"):
             self.obs.fidelity = FidelityProbe(
                 ref_prefill=lambda b: self.model.prefill(self.params, b, FP16, self._cap()),
-                cache_cfgs=[self._ccfg1] * self.cfg.num_layers,
+                cache_cfgs=self._ccfgs1,
                 policy=ecfg.policy, registry=self.obs.registry,
                 every_n=obs_cfg.fidelity_every_n, budget_frac=obs_cfg.fidelity_budget_frac)
 
@@ -234,19 +249,23 @@ class Engine:
     @property
     def attend_path(self) -> str:
         """Decode-attend path of this engine's attention layers, by the
-        reference's rule: "fused" (the ``gear_decode`` kernels) when a layer
+        reference's rule: "fused" (the ``gear_decode`` kernels) when any layer
         has the kernel layout and ``fused`` is not "off", else "xla" (the
         portable ``cache.attend``: ``fused="off"``, the fp16 policy,
-        per-token K stats, or no attention cache at all, as RWKV6)."""
-        fused_any = self._ccfg is not None and kernel_ops.fused_supported(self._ccfg)
+        per-token K stats, window rings only, or no attention cache at all,
+        as RWKV6)."""
+        fused_any = any(c is not None and kernel_ops.fused_supported(c) for c in self._ccfgs1)
         return "fused" if fused_any and self.ecfg.fused != "off" else "xla"
 
     # -- paged layout -----------------------------------------------------
     def _init_paged(self) -> None:
         ecfg = self.ecfg
         self._n_chunks = self._cap() // ecfg.policy.buffer_size
-        # one page is one chunk of every layer
-        self._page_bytes = self.cfg.num_layers * cache_lib.page_nbytes(self._ccfg1)
+        # which layers are pooled, as ``init_caches`` decides (window rings
+        # stay dense); one page is one chunk of every pooled layer
+        self._pooled = [c is not None and cache_lib.paged_supported(c) for c in self._ccfgs1]
+        self._page_bytes = sum(cache_lib.page_nbytes(c)
+                               for c, pooled in zip(self._ccfgs1, self._pooled) if pooled)
         if ecfg.pool_pages:
             n_pages = ecfg.pool_pages
         elif ecfg.pool_bytes:
@@ -363,16 +382,18 @@ class Engine:
 
     def prefill(self, batch: dict):
         """Full-batch prefill of ``batch["tokens"]`` [B, S] (wave mode; the
-        dense layout only).  Returns (logits [B, 1, V], a fresh cache tree)."""
+        dense layout only), after ``batch["img_embeds"]`` [B, P, d] for a VLM
+        (a text model ignores them, as the reference's).  Returns (logits
+        [B, 1, V], a fresh cache tree)."""
         if self.ecfg.layout == "paged":
             raise NotImplementedError(
                 "full-batch wave prefill is dense-only; paged engines serve "
                 "through Engine.prefill_slot / Scheduler.run_continuous")
-        _check_text_batch(batch)
-        tokens = torch.as_tensor(batch["tokens"]).to(torch.int32)
+        _check_batch(batch)
+        batch = dict(batch, tokens=torch.as_tensor(batch["tokens"]).to(torch.int32))
         with profiler_span("gear.prefill", self._prof):
-            return self.model.prefill(self.params, {"tokens": tokens}, self.ecfg.policy,
-                                      self._cap(), prefill_mode=self.ecfg.prefill_mode)
+            return self.model.prefill(self.params, batch, self.ecfg.policy, self._cap(),
+                                      prefill_mode=self.ecfg.prefill_mode)
 
     def decode(self, token_batch: dict, caches: list, pos):
         """One decode step over all slots (``pos``: scalar or per-slot [B])."""
@@ -501,12 +522,15 @@ class Engine:
 
         def commit(one, n_hit, fresh):
             # only the fresh pages are written: the reserved ones zeroed, the
-            # first n_sc given the suffix's closed chunks; shared pages never
+            # first n_sc given the suffix's closed chunks; shared pages never.
+            # A dense layer of the mixed tree (a window ring) splices whole
             n_sc = n_closed - n_hit
             pages = torch.from_numpy(fresh.astype(np.int64)).to(self.device)
             zero_pages, sc_pages = pages[n_sc:], pages[:n_sc]
-            ccfg1 = self._ccfg1
-            for lyr, one_lyr in zip(caches, one):
+            for lyr, one_lyr, ccfg1, pooled in zip(caches, one, self._ccfgs1, self._pooled):
+                if not pooled:
+                    cache_lib.splice_slot(lyr, one_lyr, slot)
+                    continue
                 cache_lib.zero_pool_pages(ccfg1, lyr, zero_pages)
                 cache_lib.scatter_pool_chunks(
                     ccfg1, lyr, sc_pages,
@@ -526,6 +550,7 @@ class Engine:
         dense tree as its first chunks: the scaffold the suffix prefill runs
         over (the paged twin of splicing host payloads).  The pages are read,
         never copied into other pool pages."""
+        # the prefix cache needs every layer pooled under one config (_ccfg1)
         per_layer = [cache_lib.gather_pool_chunks(self._ccfg1, lyr, pages) for lyr in caches]
         payloads = [tuple(chunks[c] for chunks in per_layer) for c in range(len(pages))]
         return splice_tree_chunks(self._ccfg1, self._fresh_batch1(), 0, payloads)
@@ -574,11 +599,16 @@ class Engine:
     def reset_slot(self, caches: list, slot: int) -> list:
         """Return ``slot`` to the empty state in place; paged, release its
         pages (no device work for them: fresh pages are zeroed at their next
-        admission) and clear its buffer and length."""
+        admission) and clear each pooled layer's buffer and length, and reset
+        a dense layer of the mixed tree whole (a window ring's ``pos`` back to
+        -1)."""
         if self.ecfg.layout == "paged":
             self.pool.release_slot(slot)
             self._push_block_tables()
-            for lyr in caches:
+            for lyr, pooled in zip(caches, self._pooled):
+                if not pooled:
+                    cache_lib.reset_slot(lyr, slot)
+                    continue
                 for name in ("buf_k", "buf_v", "length"):
                     getattr(lyr, name)[slot].zero_()
             return caches
@@ -665,9 +695,14 @@ class Engine:
         useful_decode = int(np.maximum(n_use - 1, 0)[act].sum())   # 1st token: prefill
         return useful_decode / max(t_decode, 1e-9)
 
-    @staticmethod
-    def _prompt_len(batch: dict) -> int:
-        return int(batch["tokens"].shape[1])
+    def _prompt_len(self, batch: dict) -> int:
+        """Cache positions a prompt takes: its tokens, and a VLM's image prefix
+        (also where a continuous-batching request carries no image, as in the
+        reference)."""
+        n = int(batch["tokens"].shape[1])
+        if self.cfg.modality == "vlm":
+            n += self.cfg.num_prefix_tokens
+        return n
 
     @staticmethod
     def cache_nbytes(caches: list) -> int:
@@ -678,11 +713,12 @@ class Engine:
                    for part in cache_lib._parts(layer) for t in part.tensors().values())
 
 
-def _check_text_batch(batch: dict) -> None:
-    """Wave mode serves text token ids [B, S] only."""
-    extra = sorted(set(batch) - {"tokens"})
+def _check_batch(batch: dict) -> None:
+    """Wave mode serves token ids [B, S], with a VLM's ``img_embeds``
+    beside them; audio codebooks [B, S, K] raise."""
+    extra = sorted(set(batch) - {"tokens", "img_embeds"})
     rank = batch["tokens"].ndim
     if extra or rank != 2:
         raise NotImplementedError(
-            f"audio and VLM batches (extra keys {extra}, token rank {rank}): those model "
-            "families arrive with ROADMAP queue 1, item 8")
+            f"audio batches (extra keys {extra}, token rank {rank}): that model family "
+            "arrives with ROADMAP queue 1, item 8.6")

@@ -118,10 +118,12 @@ class Scheduler:
         self._gen = torch.Generator(device=engine.device).manual_seed(seed)
 
     def _need_tokens(self, req: Request) -> int:
-        """Cache tokens the request's lifetime holds: prompt + one appended
-        token per decode step (the first token comes from prefill).  A paged
-        admission reserves exactly these pages."""
-        return len(req.tokens) + req.max_new_tokens - 1
+        """Cache tokens the request's lifetime holds: prompt (+ a VLM's image
+        prefix, as the reference counts it) + one appended token per decode
+        step (the first token comes from prefill).  A paged admission
+        reserves exactly these pages."""
+        prompt = np.asarray(req.tokens)[None]
+        return self.engine._prompt_len({"tokens": prompt}) + req.max_new_tokens - 1
 
     def submit(self, req: Request) -> None:
         """Queue a request.  One that can never fit (engine capacity, or a
@@ -380,7 +382,9 @@ class Scheduler:
             reqs[s] = r
             toks_buf[s] = [first]
             cur[s] = first
-            pos[s] = prompt.shape[1]
+            # a VLM's first decode position follows the image prefix the request
+            # does not carry (the reference's rule)
+            pos[s] = eng._prompt_len({"tokens": prompt})
             budget[s] = r.max_new_tokens
             decode_s[s] = 0.0
             done[s] = False

@@ -628,6 +628,20 @@ def test_flash_prefill_kernel_at_gemma_shape(dev, S, mask):
                                flash_prefill_ref(q, k, v, **kw).float(), rtol=0, atol=3e-2)
 
 
+@pytest.mark.parametrize("S", [1500, 1024, 1025])
+def test_flash_prefill_kernel_at_gemma3_local_shape(dev, S):
+    """Head_dim 256 at gemma3-12b's local layers: 16 query heads over 8 KV
+    heads (kv_repeat 2) with the 1024-token sliding window, at a prompt past
+    it and at its edge."""
+    kw = dict(window=1024, kv_repeat=2)
+    g = torch.Generator(device=dev).manual_seed(S)
+    q = torch.randn(16, S, 256, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(8, S, 256, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(8, S, 256, generator=g, device=dev).to(torch.bfloat16)
+    torch.testing.assert_close(fp.flash_prefill(q, k, v, **kw).float(),
+                               flash_prefill_ref(q, k, v, **kw).float(), rtol=0, atol=3e-2)
+
+
 def dup_fixture(dev, polname, B, H, Dh, S, seed):
     """A cache whose row 0 holds a constant K channel and a constant V token,
     so top-k and bottom-k store the same outlier index twice."""
@@ -818,7 +832,7 @@ def test_wave_prefill_row_matches_batch1_prefill(dev):
 
 CROSS_PREFILL_ATOL = 0.1             # PREFILL_LOGIT_ATOL of tests/test_torch_wave.py
 CROSS_GAP = 0.25                     # that file's teacher-forced gap bound
-CROSS_CASES = {                      # id: (arch, policy, head_dim, EngineConfig overrides)
+CROSS_CASES = {    # id: (arch, policy, head_dim, EngineConfig overrides[, config overrides])
     "llama2-gear_kcvt4-streaming-paged": ("llama2-7b", "gear_kcvt4", 64,
                                           dict(prefill_mode="streaming", layout="paged")),
     "llama2-gear_kcvt4-monolithic-dense": ("llama2-7b", "gear_kcvt4", 64, {}),
@@ -835,7 +849,33 @@ CROSS_CASES = {                      # id: (arch, policy, head_dim, EngineConfig
     "gemma-gear_kivi2-dh256-streaming-paged": ("gemma-2b", "gear_kivi2", 256,
                                                dict(prefill_mode="streaming", layout="paged")),
     "gemma-gear_kcvt4-dh256": ("gemma-2b", "gear_kcvt4", 256, {}),
+    # gemma3's 5 local + 1 global units with a window below the prompts: the
+    # rings wrap in prefill and decode
+    "gemma3-gear_kcvt4-window64": ("gemma3-12b", "gear_kcvt4", 64, {}, dict(local_window=64)),
+    "gemma3-gear_kcvt4-window64-streaming-paged": (
+        "gemma3-12b", "gear_kcvt4", 64, dict(prefill_mode="streaming", layout="paged"),
+        dict(local_window=64)),
+    # text-only requests, decoding after the 8 image positions they do not carry
+    "paligemma-gear_kcvt4-continuous": ("paligemma-3b", "gear_kcvt4", 64, {}),
 }
+
+
+def cross_model(case):
+    """One cross case's smoke model, its seeded CPU weights and a copy on the card."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import build_model
+
+    arch, _, head_dim, _, *cfg_over = CROSS_CASES[case] if isinstance(case, str) else case
+    cfg = smoke_config(arch)
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    cfg = dataclasses.replace(cfg, **(cfg_over[0] if cfg_over else {}))
+    model = build_model(cfg)
+    cpu = model.init(seed=0, device="cpu")
+    return cfg, model, cpu, copy.deepcopy(cpu)
 
 
 def serve_across(case, dev, lengths=(120, 190), gen=12):
@@ -844,23 +884,13 @@ def serve_across(case, dev, lengths=(120, 190), gen=12):
     devices' batch-1 engines along ``dev``'s tokens.  The default prompts
     close chunks in prefill and, 8 and 2 tokens in, during decode.  Returns (CPU results,
     ``dev`` results, per-request (CPU logits, ``dev`` logits) [T, V])."""
-    import dataclasses
-
     import numpy as np
 
-    from repro_torch.configs import smoke_config
-    from repro_torch.models.model import build_model
     from repro_torch.serving import Engine, EngineConfig, Request, Scheduler
 
-    import copy
-
-    arch, polname, head_dim, over = CROSS_CASES[case]
-    cfg = smoke_config(arch)
-    if head_dim is not None:
-        cfg = dataclasses.replace(cfg, head_dim=head_dim)
-    model = build_model(cfg)
-    params = {"cpu": model.init(seed=0, device="cpu")}
-    params["dev"] = copy.deepcopy(params["cpu"]).to(dev)       # Module.to moves in place
+    _, polname, _, over, *_ = CROSS_CASES[case]
+    cfg, model, cpu, copy_ = cross_model(case)
+    params = {"cpu": cpu, "dev": copy_.to(dev)}                 # Module.to moves in place
     devices = {"cpu": torch.device("cpu"), "dev": dev}
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32) for n in lengths]
@@ -884,9 +914,10 @@ def serve_across(case, dev, lengths=(120, 190), gen=12):
             view = eng.new_view()
             logits = view.prefill_slot({"tokens": p[None]}, 0, reserve_tokens=len(p) + gen)
             out = [logits[0, -1].float().cpu().numpy()]
+            start = eng._prompt_len({"tokens": p[None]})         # a VLM's after its prefix
             for i, tok in enumerate(toks[:-1]):
                 logits = view.decode({"tokens": np.array([[tok]], np.int32)},
-                                     np.array([len(p) + i]))
+                                     np.array([start + i]))
                 out.append(logits[0, -1].float().cpu().numpy())
             rows[side] = np.stack(out)
         along[rid] = (rows["cpu"], rows["dev"])
@@ -921,3 +952,42 @@ def test_served_output_matches_the_cpu_port(dev, case):
         if diff.size:
             top2 = np.sort(lc[diff[0]])[-2:]
             assert top2[1] - top2[0] <= 2 * gaps[diff[0]], (rid, toks, want)
+
+
+def test_served_vlm_wave_matches_the_cpu_port(dev):
+    """paligemma's smoke config at head_dim 64 in wave mode (``Engine.generate``
+    on text behind seeded image embeddings) on the card and the CPU with the
+    same weights: every token the card served is the card's argmax when both
+    devices are teacher-forced at batch 2 along the card's tokens, and the
+    devices' logit gap stays within ``CROSS_GAP`` (prefill within
+    ``CROSS_PREFILL_ATOL``)."""
+    import numpy as np
+
+    from repro_torch.serving import Engine, EngineConfig
+
+    cfg, model, cpu, copy_ = cross_model(("paligemma-3b", "gear_kcvt4", 64, {}))
+    params = {"cpu": cpu, "dev": copy_.to(dev)}
+    devices = {"cpu": torch.device("cpu"), "dev": dev}
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, size=(2, 150)).astype(np.int32)
+    img = torch.from_numpy(rng.standard_normal((2, cfg.num_prefix_tokens, cfg.d_model))
+                           .astype(np.float32)).to(torch.bfloat16)
+    engines = {side: Engine(model, params[side], EngineConfig(
+        batch=2, capacity=256, policy=named_policy("gear_kcvt4")), device=devices[side])
+        for side in devices}
+    served, _ = engines["dev"].generate({"tokens": toks, "img_embeds": img.to(dev)}, 12)
+    rows = {}
+    for side, eng in engines.items():
+        logits, caches = eng.prefill({"tokens": toks, "img_embeds": img.to(devices[side])})
+        out = [logits[:, -1].float().cpu().numpy()]
+        start = eng._prompt_len({"tokens": toks})
+        for t in range(served.shape[1] - 1):
+            logits, caches = eng.decode({"tokens": np.ascontiguousarray(served[:, t:t + 1])},
+                                        caches, np.full(2, start + t, np.int32))
+            out.append(logits[:, -1].float().cpu().numpy())
+        rows[side] = np.stack(out, 1)
+    gaps = np.abs(rows["cpu"] - rows["dev"]).max(-1)
+    print(f"paligemma wave: prefill gap {gaps[:, 0].max():.4f}, largest gap {gaps.max():.4f}")
+    assert (gaps[:, 0] <= CROSS_PREFILL_ATOL).all(), gaps[:, 0]
+    assert (gaps <= CROSS_GAP).all(), gaps
+    np.testing.assert_array_equal(served, rows["dev"].argmax(-1))

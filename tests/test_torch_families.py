@@ -344,7 +344,8 @@ def test_run_continuous_matches_reference_engine(fam, case):
             np.testing.assert_array_equal(toks, want[r.rid])
 
 
-PORTED = ("llama2-7b", "hymba-1.5b", "rwkv6-3b", "minicpm-2b", "starcoder2-3b", "gemma-2b")
+PORTED = ("llama2-7b", "hymba-1.5b", "rwkv6-3b", "minicpm-2b", "starcoder2-3b", "gemma-2b",
+          "gemma3-12b", "paligemma-3b")
 
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "minicpm-2b", "gemma-2b", "starcoder2-3b",
@@ -354,14 +355,14 @@ PORTED = ("llama2-7b", "hymba-1.5b", "rwkv6-3b", "minicpm-2b", "starcoder2-3b", 
 def test_registry_and_check_supported_cover_the_ported_families(arch):
     """Every reference config: the port registers it, field for field, and
     builds it exactly when it is one of the ported families; the others
-    raise naming ROADMAP queue 1, item 8.4 onward."""
+    raise naming ROADMAP queue 1, item 8.6 onward."""
     from repro_torch.configs.base import ModelConfig
 
     cfg = ModelConfig(**dataclasses.asdict(ref_get_config(arch)))
     if arch not in PORTED:
         with pytest.raises(KeyError):
             get_config(arch)
-        with pytest.raises(NotImplementedError, match="item 8.4"):
+        with pytest.raises(NotImplementedError, match="item 8.6"):
             tfm.check_supported(cfg)
         return
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(cfg)

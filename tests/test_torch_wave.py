@@ -199,9 +199,14 @@ def test_prefill_raises_on_paged_engine():
         eng.generate({"tokens": np.zeros((2, 8), np.int32)}, 4)
     dense = Engine(eng.model, eng.params, dataclasses.replace(eng.ecfg, layout="dense"),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):        # a VLM batch
-        dense.prefill({"tokens": np.zeros((2, 8), np.int32),
-                       "img_embeds": np.zeros((2, 4, cfg.d_model), np.float32)})
+    # a VLM batch: a text model ignores img_embeds, as the reference's embed_tokens
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, size=(2, 8)).astype(np.int32)
+    with_img = dense.prefill({"tokens": toks,
+                              "img_embeds": np.ones((2, 4, cfg.d_model), np.float32)})
+    plain = dense.prefill({"tokens": toks})
+    assert torch.equal(with_img[0], plain[0])
+    for a, b in zip(with_img[1], plain[1], strict=True):
+        assert all(torch.equal(t, getattr(b, n)) for n, t in a.tensors().items())
     with pytest.raises(NotImplementedError, match="item 8"):        # audio codebooks
         dense.generate({"tokens": np.zeros((2, 8, 4), np.int32)}, 4)
 

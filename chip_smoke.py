@@ -23,14 +23,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    policies, timed (``ms_gemma``, ``ms_gemma_kivi2``), and gemma3-12b's G = 2;
    starcoder2-3b's G = 12 at head_dim 128 (the decode regime's 16-row
    build, ``ms_starcoder2``) beside the same operands through the
-   tensor-core history body (``ms_starcoder2_history``); the history scorer
+   tensor-core history body (``ms_starcoder2_history``); qwen3-moe's G = 16
+   over 4 kv heads at head_dim 128 for both policies (``ms_qwen3``,
+   ``ms_qwen3_kivi2``, each also through the history body) and llama4-scout's
+   G = 5 over 8 kv heads (``ms_llama4``); the history scorer
    at head_dim 256 (one kv head, 14 blocks x 512 query rows) with 1 and 4 V
    stat groups (gear_kcvt4, gear_kivi2), against plain and per-block calls;
 4. ``flash_prefill`` against its plain version (S = 1024, a ragged S = 1000,
    kv_repeat = 4, window + softcap, a bidirectional prefix, and hymba's
    25 query heads over 5 kv heads at head_dim 64; head_dim 256 at gemma-2b's
-   kv_repeat 8, also with window + softcap and a 256-token prefix; and
-   starcoder2-3b's kv_repeat 12), with
+   kv_repeat 8, also with window + softcap and a 256-token prefix;
+   starcoder2-3b's kv_repeat 12; qwen3-moe's 64 query heads over 4 kv heads
+   (kv_repeat 16) and llama4-scout's 40 over 8 (kv_repeat 5) at head_dim
+   128), with
    ``torch.nn.functional.scaled_dot_product_attention`` timed beside it;
 5. ``gear_compress`` against its plain version, bit for bit (packed codes,
    stats, outlier values and indices, residual; two calls bitwise equal),
@@ -246,7 +251,45 @@ Phases, each of which fails the run (non-zero exit) on any error:
     both 18 ``flash_prefill`` (prefix 256) per prefill and 18 ``gear_decode``
     (G 8) per step and no other kernel; the wave's live layer-0 prefix call
     held against its plain version and timed beside SDPA with the mask;
-29. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
+29. serving, path 19: musicgen-medium at its published widths and depth (48
+    layers, d_model 1536, 24 heads = 24 kv heads of 64, LayerNorm, GELU MLP
+    d_ff 6144, 4 codebooks of 2048, an untied head of 4 x 2048 logits),
+    gear_kcvt4, monolithic prefill, dense layout, capacity 704: one wave
+    through ``Engine.generate`` (the reference's only audio entry point) of 4
+    prompts of 620 frames x 4 codebook ids (numpy seed 0) and 32 new frames:
+    frames [4, 32, 4] in vocab, exactly 48 ``flash_prefill`` launches (BHq 96,
+    Dh 64) for the wave's prefill and 48 ``gear_decode`` (G 1) per step, no
+    other kernel; the live layer-0 prefill call held against its plain
+    version and timed beside SDPA, a live decode step against its plain
+    version; prefill ms, frames/s, peak memory;
+30. serving, path 20: qwen3-moe-235b-a22b at its published widths (d_model
+    4096, 64 heads over 4 kv heads of 128, QK-norm, 128 experts of 1536,
+    top-8, untied vocab 151936) and 8 of its 94 layers (memory: the weights
+    of ~15 layers fill the card; random bf16 weights, the router in f32),
+    gear_kcvt4, monolithic prefill, dense layout, path 1's 8 requests (ids
+    from its vocab), 16 new tokens: per prefill exactly 8 ``flash_prefill``
+    (kv_repeat 16) and per step 8 ``gear_decode`` (G 16, every row of the
+    16-row build), no other kernel; request 0's live layer-0 call (beside
+    SDPA) and a live decode step held against their plain versions and
+    timed; each prefill's dropped ``(token, k)`` pairs (capacity 72 at 859
+    tokens), and decode tok/s beside the step's byte floor (every expert's
+    weights are read on every step); profiler windows over one prefill and
+    8 decode steps;
+31. serving, path 21: llama4-scout-17b-a16e at its published widths
+    (d_model 5120, 40 heads over 8 kv heads of 128, 16 experts of 8192,
+    top-1, a shared expert, untied vocab 202048) and 8 of its 48 layers, as
+    path 20: ``flash_prefill`` at kv_repeat 5 and ``gear_decode`` at G 5;
+32. serving, path 22: path 21's model with streaming prefill into a paged
+    pool of two thirds of the pages path 1's first 4 requests hold over
+    their lifetimes, those 4 requests: a request waits for pages, a clean
+    pool check and audit, per prefill 8 ``flash_prefill_block`` (kv_repeat
+    5), 8 history and 16 ``gear_compress`` launches and no ``flash_prefill``,
+    per step 8 ``gear_decode_paged``; the live K and V compression events
+    bit for bit, the in-flight blocks (beside the efficient-attention
+    yardstick), the history call and a paged step held against their plain
+    versions and timed; greedy tokens equal to a dense streaming engine's
+    bit for bit;
+33. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
     by path), the card's name and power limit, and the final
     ``{"ok": true, "device": {...}}`` line.
 
@@ -552,12 +595,16 @@ FLASH_CASES = [
     (1000, 8, 8, 300, 0, 50.0, 256),
     (777, 8, 8, 0, 256, 0.0, 256),
     (1000, 24, 12, 0, 0, 0.0, 128),
+    (1000, 64, 16, 0, 0, 0.0, 128),
+    (1000, 40, 5, 0, 0, 0.0, 128),
 ]
 # timed cases: S = 1000 lies in the serving paths' prompt range; llama2-7b
 # (path 1) reports as "ms", hymba (path 3) as "ms_hymba", gemma-2b (path 12:
 # 8 query heads over one KV head of 256) as "ms_gemma", starcoder2-3b (path
-# 14: 24 over 2 of 128) as "ms_starcoder2"
-TIMED_FLASH_CASES = {1: "", 5: "_hymba", 6: "_gemma", 9: "_starcoder2"}
+# 14: 24 over 2 of 128) as "ms_starcoder2", qwen3-moe (path 20: 64 over 4 of
+# 128) as "ms_qwen3", llama4-scout (path 21: 40 over 8 of 128) as "ms_llama4"
+TIMED_FLASH_CASES = {1: "", 5: "_hymba", 6: "_gemma", 9: "_starcoder2", 10: "_qwen3",
+                     11: "_llama4"}
 
 
 def flash_pairs(S: int, window: int = 0, prefix: int = 0) -> int:
@@ -3051,6 +3098,265 @@ def serving_vlm(model, params, cfg, layers: int, flush, reports: dict) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# paths 19-22: musicgen-medium and the MoE pair (ROADMAP queue 1, items 8.6-8.7)
+
+
+MUSIC_FRAMES = 620              # path 19: frames a prompt, 44 in the buffer after prefill
+MUSIC_CAP = 704                 # path 19: 11 chunks of 64, so each row closes one in decode
+MUSIC_TOKENS = 32               # path 19: new frames a row
+MOE_LAYERS = 8                  # paths 20-22: depth; the weights of ~15 layers fill the card
+MOE_TOKENS = 16                 # paths 20-22: new tokens a request
+
+
+def serving_audio(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 19: musicgen-medium, gear_kcvt4, monolithic prefill, dense
+    layout, capacity 704: one wave through ``Engine.generate`` (the
+    reference's only audio entry point) of 4 seeded prompts of 620 frames x
+    4 codebook ids and 32 new frames: frames [4, 32, 4] in vocab, exactly
+    ``layers`` ``flash_prefill`` launches (BHq 96, Dh 64) for the wave's
+    prefill and ``layers`` ``gear_decode`` (G 1, Dh 64) per step, no other
+    kernel; the live layer-0 prefill call held against its plain version
+    and timed beside SDPA, a live decode step against its plain version."""
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gear_decode_ref
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    K = cfg.num_codebooks
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=MUSIC_CAP,
+                                             policy=named_policy("gear_kcvt4")), device=DEV)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                               size=(B_SERVE, MUSIC_FRAMES, K)).astype(np.int32)
+    fns = kernel_fns()
+    steps = MUSIC_TOKENS - 1
+    # layer 0 of the prefill; layer 0 of decode step 20 (its rows past a chunk close)
+    caps = [Capture(ops, "flash_prefill", 0), Capture(ops, "gear_decode", 20 * layers)]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for fn in fns.values():
+            fn.launches = 0
+        frames, stats = eng.generate({"tokens": prompts}, MUSIC_TOKENS)
+        torch.cuda.synchronize()
+        wave = {name: fn.launches for name, fn in fns.items()}
+    finally:
+        for c in caps:
+            c.restore()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_prefill": layers, "gear_decode": steps * layers}
+    if {k: n for k, n in wave.items() if n} != want:
+        fail(f"musicgen wave launches {wave} != {want} and no other kernel")
+    if frames.shape != (B_SERVE, MUSIC_TOKENS, K) or frames.min() < 0 \
+            or frames.max() >= cfg.vocab_size:
+        fail(f"musicgen frames {frames.shape}, ids {frames.min()}..{frames.max()}")
+    print(f"  frames {frames.shape} in vocab; prefill {stats['prefill_s'] * 1e3:.1f} ms for 4 x "
+          f"{MUSIC_FRAMES} frames, decode {stats['decode_tok_per_s']:.1f} frames/s "
+          f"({stats['decode_tok_per_s'] * K:.1f} codebook ids/s), peak memory {peak / 1e9:.2f} "
+          f"GB, cache {stats['cache_bytes'] / 1e6:.1f} MB; launches {want}")
+    flash_live(caps[0], "flash_prefill live musicgen-medium wave layer-0 call", flush,
+               reports["flash_prefill"], "_musicgen")
+    c = caps[1]
+    print(f"  live musicgen layer-0 step: q {tuple(c.args[0].shape)}, n_comp per slot "
+          f"{[int(x) for x in c.args[7][::cfg.num_kv_heads]]}")
+    rep = reports["gear_decode"]
+    rep["ms_musicgen_live"], rep["plain_ms_musicgen_live"], rep["bound_ms_musicgen_live"], _ = \
+        live_check(c, gear_decode_ref, "gear_decode live musicgen-medium decode step (G = 1, "
+                   "Dh = 64)", flush, rep, decode_call_bytes_flops, rows_of=lambda a: a[7] > 0)
+    record_launches(reports, "musicgen_wave", wave)
+    return {"layers": layers, "launches": wave, "prefill_ms": stats["prefill_s"] * 1e3,
+            "decode_frames_per_s": stats["decode_tok_per_s"], "decode_s": stats["decode_s"],
+            "cache_bytes": stats["cache_bytes"], "max_memory_allocated_gb": peak / 1e9}
+
+
+def watch_routing():
+    """Wrap ``models.moe.route``: every call's row count and kept mask, in
+    call order (counted after the run, so no call waits for the device)."""
+    from repro_torch.models import moe as moe_lib
+
+    real = moe_lib.route
+    seen = []
+
+    def spy(cfg, router, xt):
+        r = real(cfg, router, xt)
+        seen.append((xt.shape[0], r.capacity, r.keep))
+        return r
+
+    moe_lib.route = spy
+    return seen, lambda: setattr(moe_lib, "route", real)
+
+
+def dropped_pairs(seen: list, layers: int) -> tuple:
+    """Per prefill (admission order) the ``(token, k)`` pairs its layers
+    dropped and the capacity it ran at, and the decode steps' drops."""
+    prefill = [s for s in seen if s[0] > B_SERVE]
+    per = [(sum(int((~keep).sum()) for _, _, keep in prefill[i:i + layers]), prefill[i][1],
+            prefill[i][0]) for i in range(0, len(prefill), layers)]
+    decode = sum(int((~keep).sum()) for T, _, keep in seen if T <= B_SERVE)
+    return per, decode
+
+
+def moe_floor(params, cfg, layers: int) -> dict:
+    """The byte floor of one decode step: every expert's weights are read
+    (the capacity dispatch runs each expert on its C = 8 slots at batch 4),
+    and with them the attention, norms, router and head (not the embedding:
+    4 rows of it)."""
+    expert = sum(p.numel() * p.element_size() for blk in params.blocks
+                 for name, p in blk.moe.named_parameters() if name != "router")
+    step = sum(p.numel() * p.element_size() for name, p in params.named_parameters()
+               if name != "embed")
+    return {"expert_bytes": expert, "step_bytes": step,
+            "expert_floor_ms": expert / HBM_BYTES_PER_S * 1e3,
+            "step_floor_ms": step / HBM_BYTES_PER_S * 1e3,
+            "floor_tok_per_s": B_SERVE / (step / HBM_BYTES_PER_S)}
+
+
+def serving_moe(model, params, cfg, layers: int, flush, reports: dict, path: str,
+                suffix: str, profiled: bool) -> dict:
+    """Paths 20-21: an MoE model (qwen3-moe-235b-a22b: kv_repeat 16, G 16;
+    llama4-scout-17b-a16e: kv_repeat 5, G 5, top-1 with the shared expert)
+    at published widths and ``layers`` of its depth, as path 14 with path
+    1's traffic and 16 new tokens: per prefill ``layers`` ``flash_prefill``,
+    per step ``layers`` ``gear_decode``, no other kernel; each prefill's
+    dropped ``(token, k)`` pairs printed, and decode tok/s beside the step's
+    byte floor; with ``profiled``, profiler windows over one prefill and 8
+    decode steps (is the step set by its bytes or by its launches?)."""
+    seen, restore = watch_routing()
+    try:
+        summary = serving_family(model, params, cfg, layers, flush, reports, path, suffix,
+                                 MOE_TOKENS, profiled)
+    finally:
+        restore()
+    per, decode = dropped_pairs(seen, layers)
+    per = per[:N_REQUESTS]                    # drive's; a profiler window's prefills follow
+    if len(per) != N_REQUESTS or decode:
+        fail(f"{cfg.name}: {len(per)} prefills routed, {decode} pairs dropped in decode")
+    print(f"  dropped (token, k) pairs per prefill over {layers} layers (capacity at its "
+          f"length): {[f'{n} (C {c} at {t})' for n, c, t in per]}; decode steps drop none")
+    floor = moe_floor(params, cfg, layers)
+    print(f"  decode {summary['decode_tok_per_s']:.1f} tok/s against the byte floor "
+          f"{floor['floor_tok_per_s']:.1f} tok/s: a step reads {floor['step_bytes'] / 1e9:.2f} GB "
+          f"({floor['expert_bytes'] / 1e9:.2f} GB of experts), >= {floor['step_floor_ms']:.2f} ms "
+          f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    summary.update(floor, dropped_per_prefill=[n for n, _, _ in per],
+                   capacity_per_prefill=[c for _, c, _ in per])
+    return summary
+
+
+def moe_paged_pool(cfg, prompts: list, nb: int) -> int:
+    """Path 22's pool: two thirds of the pages the requests' lifetimes hold
+    (prompt + new tokens - 1 each), plus the zero page, so that the last
+    request waits for pages."""
+    from repro_torch.serving.pagedpool import pages_needed
+
+    need = sum(pages_needed(len(p) + MOE_TOKENS - 1, nb) for p in prompts)
+    return need * 2 // 3 + 1
+
+
+def serving_moe_paged(model, params, cfg, layers: int, flush, reports: dict) -> dict:
+    """Path 22: path 21's llama4-scout with streaming prefill into a paged
+    pool of two thirds of the 4 requests' lifetime pages, path 1's first 4
+    requests: a request waits for pages, a clean pool check and audit, per
+    prefill ``layers`` ``flash_prefill_block`` (kv_repeat 5), history and 2 x
+    ``layers`` ``gear_compress`` launches and no ``flash_prefill``, per step
+    ``layers`` ``gear_decode_paged``; the live K and V compression events bit
+    for bit, the in-flight blocks, the history call and a paged step held
+    against their plain versions and timed; greedy tokens equal to a dense
+    streaming engine's bit for bit."""
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.core.policy import named_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gear_decode_history_ref, gear_decode_paged_ref
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = named_policy("gear_kcvt4")
+    prompts = requests(cfg)[:4]
+    pool_pages = moe_paged_pool(cfg, prompts, pol.buffer_size)
+    ecfg = EngineConfig(batch=B_SERVE, capacity=CAP_SERVE, policy=pol, prefill_mode="streaming",
+                        layout="paged", pool_pages=pool_pages)
+    eng = Engine(model, params, ecfg, device=DEV)
+    print(f"  pool: {pool_pages - 1} allocatable pages of {eng.pool.page_bytes / 1e6:.3f} MB "
+          f"(the 4 requests' lifetimes hold {(pool_pages - 1) * 3 // 2}; dense layout "
+          f"{B_SERVE * (CAP_SERVE // pol.buffer_size)})")
+    caps = {"gear_compress": Capture(cache_lib, "gear_compress", 0, 1),
+            "flash_prefill_block": Capture(ops, "flash_prefill_block", 0),
+            "gear_decode": Capture(ops, "gear_decode_history", 0),
+            "gear_decode_paged": Capture(ops, "gear_decode_paged", 10 * layers)}
+    rec = watch_prefills(eng, keep_index=-1)
+    seen, restore = watch_routing()
+    keep = {}
+    try:
+        summary = drive(eng, cfg, prompts, list(caps.values()), new_tokens=MOE_TOKENS, keep=keep)
+    finally:
+        restore()
+    launches, steps = summary["launches"], summary["decode_steps"]
+    want = {"flash_prefill_block": layers, "gear_decode": layers, "gear_compress": 2 * layers}
+    for i, got in enumerate(rec["launches"]):
+        if {k: n for k, n in got.items() if n} != want:
+            fail(f"{cfg.name} streaming prefill {i} launched {got} != {want}")
+    if launches["gear_decode_paged"] != steps * layers:
+        fail(f"gear_decode_paged launches {launches['gear_decode_paged']} != {steps} steps x "
+             f"{layers}")
+    if summary["waited_for_pages"] < 1:
+        fail(f"{cfg.name} paged: no request waited for pages")
+    eng.pool.check()
+    audit = eng.audit()
+    if not audit["ok"]:
+        fail(f"{cfg.name} paged audit: {audit['issues']}")
+    per, _ = dropped_pairs(seen, layers)
+    print(f"  per prefill: {want}; per decode step: {layers} gear_decode_paged; "
+          f"{summary['waited_for_pages']} requests waited for pages over "
+          f"{summary['page_wait_steps']} steps; audit clean; dropped pairs per prefill "
+          f"{[n for n, _, _ in per]}")
+    c = caps["gear_compress"]
+    rep = reports["gear_compress"]
+    for index, kind, scheme in ((0, "K", "per_channel"), (1, "V", "per_token")):
+        (x, *_), kw = c.seen[index]
+        if kw["scheme"] != scheme or tuple(x.shape[1:]) != (64, cfg.head_dim):
+            fail(f"{cfg.name} gear_compress call {index} is not the {kind} event on [64, "
+                 f"{cfg.head_dim}] tiles ({kw['scheme']}, {tuple(x.shape)})")
+        label = f"live llama4-scout layer-0 {kind} event ({x.shape[0]} [64, {x.shape[-1]}] tiles)"
+        compress_check(x, kw, label, rep)
+        row = compress_time(x, kw, label, flush, rep)
+        key = "_llama4_k" if kind == "K" else "_llama4_v"
+        rep.update({f"ms{key}": row["ms_c1"], f"plain_ms{key}": row["plain_ms"],
+                    f"bound_ms{key}": row["bound_ms"]})
+    c = caps["flash_prefill_block"]
+    row = block_check(c.real, c.args, c.kwargs, "flash_prefill_block live llama4-scout layer-0 "
+                      f"blocks (q {tuple(c.args[0].shape)}, kv_repeat {c.kwargs['kv_repeat']})",
+                      flush, reports["flash_prefill_block"], library=True)
+    reports["flash_prefill_block"].update(
+        ms_llama4=row["ms_c1"], plain_ms_llama4=row["plain_ms"], bound_ms_llama4=row["bound_ms"],
+        library_ms_llama4=row["library_ms"])
+    c = caps["gear_decode"]
+    BH, NB, R, Dh = c.args[0].shape
+    rep = reports["gear_decode"]
+    (rep["ms_history_llama4"], rep["plain_ms_history_llama4"], rep["bound_ms_history_llama4"],
+     _) = live_check(c, gear_decode_history_ref, f"gear_decode_history live llama4-scout "
+                     f"layer-0 history ({NB} blocks x {R} query rows, Dh {Dh})", flush, rep,
+                     history_call_bytes_flops,
+                     rows_of=lambda a: (torch.as_tensor(list(a[7]), device=DEV) > 0)[
+                         None, :, None].expand(BH, NB, R), ops_rate=BF16_FLOPS)
+    c = caps["gear_decode_paged"]
+    rep = reports["gear_decode_paged"]
+    print(f"  live llama4-scout paged layer-0 step: q {tuple(c.args[0].shape)}, n_comp per slot "
+          f"{[int(x) for x in c.args[7][::cfg.num_kv_heads]]}")
+    rep["ms_llama4"], rep["plain_ms_llama4"], rep["bound_ms_llama4"], _ = live_check(
+        c, gear_decode_paged_ref, "gear_decode_paged live llama4-scout decode step (G = 5)",
+        flush, rep, decode_call_bytes_flops, rows_of=lambda a: a[7] > 0)
+    dense = Engine(model, params, dc.replace(ecfg, layout="dense", pool_pages=0), device=DEV)
+    dense_keep = {}
+    drive(dense, cfg, prompts, [], new_tokens=MOE_TOKENS, keep=dense_keep)
+    differ = [rid for rid, r in keep["results"].items()
+              if not np.array_equal(r.tokens, dense_keep["results"][rid].tokens)]
+    print(f"  paged tokens equal the dense streaming engine's bit for bit: {not differ}")
+    if differ:
+        fail(f"{cfg.name} paged tokens differ from the dense engine's for rids {differ}")
+    record_launches(reports, "llama4_streaming_paged", launches)
+    summary.update(layers=layers, prefill_ms_by_admission=rec["ms"][:len(prompts)],
+                   dropped_per_prefill=[n for n, _, _ in per])
+    return summary
+
+
 def profile_warm(eng, prompts: list, out_dir: pathlib.Path, tag: str) -> None:
     """A ``torch.profiler`` window over one warm prefill: a new view (fresh
     pool and trie), request 0 seeds the trie, and request 1's prefill (its
@@ -3202,6 +3508,12 @@ def main() -> int:
     # starcoder2-3b: 24 query heads over 2 kv heads (G = 12, the 16-row build)
     decode_case("gear_kcvt4", flush, reports["gear_decode"], H=2, Dh=128, G=12,
                 timed="_starcoder2")
+    # qwen3-moe: 64 query heads over 4 kv heads (G = 16, every row of the
+    # 16-row build), both policies; llama4-scout: 40 over 8 (G = 5) at Dh 128
+    decode_case("gear_kcvt4", flush, reports["gear_decode"], H=4, Dh=128, G=16, timed="_qwen3")
+    decode_case("gear_kivi2", flush, reports["gear_decode"], H=4, Dh=128, G=16,
+                timed="_qwen3_kivi2")
+    decode_case("gear_kcvt4", flush, reports["gear_decode"], H=8, Dh=128, G=5, timed="_llama4")
     history_case(flush, reports["gear_decode"])
     for pol, suffix in (("gear_kcvt4", "_gemma"), ("gear_kivi2", "_gemma_kivi2")):
         history_case(flush, reports["gear_decode"], H=1, Dh=256, G=8, policy_name=pol,
@@ -3359,7 +3671,33 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase("[29] summary")
+    music = get_config("musicgen-medium")
+    phase(f"[29] serving musicgen-medium, gear_kcvt4, one wave (Engine.generate: monolithic "
+          f"prefill, dense layout), depth {music.num_layers}, {MUSIC_TOKENS} new frames")
+    summaries["musicgen_wave"] = serving_audio(*build(music, music.num_layers), music.num_layers,
+                                               flush, reports)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for num, arch, key, suffix in ((30, "qwen3-moe-235b-a22b", "qwen3_dense", "_qwen3"),
+                                   (31, "llama4-scout-17b-a16e", "llama4_dense", "_llama4")):
+        full_moe = get_config(arch)
+        phase(f"[{num}] serving {arch}, gear_kcvt4, monolithic prefill, dense layout, depth "
+              f"{MOE_LAYERS} (cut from {full_moe.num_layers}: memory, the weights of ~15 layers "
+              f"fill the card), {MOE_TOKENS} new tokens per request")
+        built_moe = build(dc.replace(full_moe, num_layers=MOE_LAYERS), full_moe.num_layers)
+        summaries[key] = serving_moe(*built_moe, MOE_LAYERS, flush, reports, key, suffix,
+                                     profiled=key == "qwen3_dense")
+        if arch == "llama4-scout-17b-a16e":
+            phase(f"[32] serving {arch}, gear_kcvt4, streaming prefill, paged pool, depth "
+                  f"{MOE_LAYERS} (cut from {full_moe.num_layers}), {MOE_TOKENS} new tokens "
+                  f"per request")
+            summaries["llama4_streaming_paged"] = serving_moe_paged(*built_moe, MOE_LAYERS,
+                                                                    flush, reports)
+        del built_moe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    phase("[33] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for rep in reports.values():

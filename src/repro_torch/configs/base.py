@@ -86,6 +86,11 @@ class ModelConfig:
             raise ValueError(f"{self.name}: {self.num_layers} layers not divisible by pattern {unit}")
         return self.num_layers // unit
 
+    @property
+    def expert_ff(self) -> int:
+        """Hidden width of one MoE expert (``moe_d_ff``, else ``d_ff``)."""
+        return self.moe_d_ff or self.d_ff
+
     def param_count(self) -> int:
         """Analytic parameter count of a dense decoder (embeddings + blocks)."""
         d, dff, L = self.d_model, self.d_ff, self.num_layers

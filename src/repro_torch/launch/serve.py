@@ -12,12 +12,14 @@ and ``--obs`` turns on telemetry (continuous mode too: traces follow the
 request lifecycle).  Weights are random, from ``Model.init(seed=0)``.
 
 The prompts come from numpy's seeded ``RandomState(1)``: wave mode draws a
-``[batch, prompt]`` block (and for a VLM a ``[batch, num_prefix_tokens,
-d_model]`` block of standard-normal image embeddings, in bf16, after it),
-continuous mode one mixed-length prompt per request (``--prompt`` is the
-longest, half of it the shortest; text models only, as the reference's
-launcher).  They cannot equal the reference launcher's ``jax.random``
-draws, so the two launchers serve different prompts.  A VLM's capacity
+``[batch, prompt]`` block (an audio model's ``[batch, prompt,
+num_codebooks]``; for a VLM a ``[batch, num_prefix_tokens, d_model]`` block
+of standard-normal image embeddings, in bf16, after it), continuous mode one
+mixed-length prompt per request (``--prompt`` is the longest, half of it
+the shortest; text models only, as the reference's launcher: an MoE model
+takes it, an audio model or a VLM exits).  They cannot equal the reference
+launcher's ``jax.random`` draws, so the two launchers serve different
+prompts.  A VLM's capacity
 holds its image prefix too.
 
 ``--device`` (default ``cuda``) names the device; nothing falls back to the
@@ -135,8 +137,8 @@ def main(argv=None) -> None:
                 print(f"obs: chrome trace -> {args.trace_out}")
         return
 
-    batch = {"tokens": rng.randint(0, cfg.vocab_size, size=(args.batch, args.prompt))
-             .astype(np.int32)}
+    shape = (args.batch, args.prompt) + ((cfg.num_codebooks,) if cfg.modality == "audio" else ())
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, size=shape).astype(np.int32)}
     if cfg.modality == "vlm":
         img = rng.standard_normal((args.batch, cfg.num_prefix_tokens, cfg.d_model))
         batch["img_embeds"] = torch.from_numpy(img.astype(np.float32)).to(torch.bfloat16)

@@ -15,7 +15,11 @@ f32 (see :mod:`repro_torch.models.transformer`).  An RWKV6 block's ``tm`` /
 ``cm`` subtrees land in its :class:`~repro_torch.models.rwkv.TimeMix` /
 :class:`~repro_torch.models.rwkv.ChannelMix` by name (matrices, the 3-D
 ``mix_lora_b`` included, in bf16; mixes, ``w0``, ``u`` and the GroupNorm in
-f32), and its LayerNorms' ``scale`` and ``bias`` in f32.
+f32), and its LayerNorms' ``scale`` and ``bias`` in f32.  An MoE block's
+``moe`` subtree lands in its :class:`~repro_torch.models.moe.MoE`: ``router``
+in f32, the experts' matrices and the shared expert's in bf16.  An audio
+model's ``embed`` [K, V, d] stays f32 (its K lookups sum in f32) and its
+``lm_head`` [d, K * V] becomes bf16.
 """
 
 from __future__ import annotations
@@ -72,6 +76,12 @@ def params_from_reference(np_tree: dict, cfg: ModelConfig, device=None,
         for name in _MLP:
             if getattr(blk, name) is not None:
                 put(getattr(blk, name), stacked["mlp"][name][r])
+        if blk.moe is not None:
+            for name, p in blk.moe.named_parameters():      # "router", ..., "shared.w_up"
+                leaf = stacked["moe"]
+                for part in name.split("."):
+                    leaf = leaf[part]
+                put(p, leaf[r])
         if "ssm" in stacked:
             for name in _SSM:
                 put(getattr(blk, name), stacked["ssm"][name][r])

@@ -60,6 +60,7 @@ class TimeMix(nn.Module):
     bias 0); matrices are zero until loaded or drawn."""
 
     FIXED = ("mix_base", "u")      # 2-D, yet constants of the init, not draws
+    FAN_IN = {"mix_lora_b": 1}     # [5, 32, d]: the reference draws it with fan_in 32
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()

@@ -5,9 +5,12 @@ MLP) and gemma (RMSNorm + GeGLU, its embedding scaled by sqrt(d_model));
 gemma3, whose 5:1 local:global stack adds QK-norm, a RoPE base per layer
 kind and sliding-window ring caches on its local layers; the VLM
 paligemma, whose prompt is a bidirectional prefix of image embeddings
-before the text; the hybrid hymba, whose blocks run Mamba-2 SSM heads
-beside attention; and the attention-free RWKV6, whose blocks are time mix
-+ channel mix).
+before the text; the audio musicgen, whose tokens are 4 codebook ids a
+frame, embedded by 4 tables and read out by one head of 4 x vocab logits;
+the MoE qwen3-moe and llama4-scout, whose blocks route each token to its
+top-k experts in place of the MLP (:mod:`repro_torch.models.moe`); the
+hybrid hymba, whose blocks run Mamba-2 SSM heads beside attention; and the
+attention-free RWKV6, whose blocks are time mix + channel mix).
 
 Where the reference stacks per-layer parameters and caches over repeats and
 drives them with ``lax.scan``, the port holds one :class:`Block` and one
@@ -17,7 +20,8 @@ is its :class:`~repro_torch.models.rwkv.RWKVState`; a local layer's is a
 :class:`~repro_torch.core.cache.WindowLayerCache` (:func:`cache_cfg_for`).  Activations run in
 bf16 (``COMPUTE_DTYPE``, as the reference); weight matrices are stored in
 bf16, which is what the reference computes with after its cast at use, and
-norm scales and biases and the SSM's per-head vectors stay f32.  The SSM's ``conv_w``
+norm scales and biases, the SSM's per-head vectors, an MoE router and an
+audio model's embedding tables stay f32.  The SSM's ``conv_w``
 stays f32 too: the reference's prefill casts it to bf16 at use, its decode
 uses it in f32.
 """
@@ -32,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cache as cache_lib
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (apply_norm, layernorm, resolve_device, rope_tables,
@@ -72,26 +77,33 @@ def check_serving(cfg: ModelConfig, layout: str = "dense") -> None:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense decoders (llama2, minicpm, starcoder2, gemma,
-    gemma3: SwiGLU / GeGLU / GELU MLP under RMSNorm or LayerNorm, global or
-    5:1 local:global attention, optional QK-norm), the VLM paligemma (a
-    dense decoder behind a bidirectional prefix of image embeddings), the
-    hybrid hymba (global attention beside parallel SSM heads, RMSNorm /
-    SwiGLU) and attention-free RWKV6 stacks; audio and MoE models raise."""
-    dense_ok = (cfg.family in ("dense", "vlm") and not cfg.ssm and cfg.mlp_kind in MLP_KINDS
-                and cfg.norm in ("rmsnorm", "layernorm")
-                and cfg.modality == ("vlm" if cfg.family == "vlm" else "text"))
+    """The port serves every family of the reference: dense decoders
+    (llama2, minicpm, starcoder2, gemma, gemma3: SwiGLU / GeGLU / GELU MLP
+    under RMSNorm or LayerNorm, global or 5:1 local:global attention,
+    optional QK-norm), the VLM paligemma (a dense decoder behind a
+    bidirectional prefix of image embeddings), the audio musicgen (a dense
+    decoder over ``num_codebooks`` codebooks), the MoE qwen3-moe and
+    llama4-scout (text, SwiGLU / RMSNorm, optional QK-norm, global layers),
+    the hybrid hymba (global attention beside parallel SSM heads, RMSNorm /
+    SwiGLU) and attention-free RWKV6 stacks; any other combination raises."""
+    modality = {"vlm": "vlm", "audio": "audio"}.get(cfg.family, "text")
+    dense_ok = (cfg.family in ("dense", "vlm", "audio") and not cfg.ssm and not cfg.moe
+                and cfg.mlp_kind in MLP_KINDS and cfg.norm in ("rmsnorm", "layernorm")
+                and cfg.modality == modality and (cfg.num_codebooks > 0) == (modality == "audio"))
+    moe_ok = (cfg.family == "moe" and cfg.moe and not cfg.ssm and cfg.mlp_kind == "swiglu"
+              and cfg.norm == "rmsnorm" and cfg.layer_pattern == ("global",)
+              and cfg.modality == "text" and 0 < cfg.moe_top_k <= cfg.num_experts)
     hybrid_ok = (cfg.family == "hybrid" and is_hybrid(cfg) and cfg.mlp_kind == "swiglu"
                  and cfg.norm == "rmsnorm" and cfg.layer_pattern == ("global",)
                  and not cfg.qk_norm and cfg.modality == "text")
     rwkv_ok = (cfg.family == "ssm" and cfg.rwkv and cfg.mlp_kind == "rwkv_cm"
                and cfg.norm == "rmsnorm" and cfg.modality == "text")
-    if not ((dense_ok and not cfg.rwkv) or hybrid_ok or rwkv_ok) or cfg.moe:
+    if not ((dense_ok and not cfg.rwkv) or moe_ok or hybrid_ok or rwkv_ok):
         raise NotImplementedError(
-            f"{cfg.name}: only dense decoders (SwiGLU / GeGLU / GELU MLP, RMSNorm / "
-            "LayerNorm, global or local:global attention, optional QK-norm), the VLM prefix-LM, "
-            "hybrid (parallel SSM) RMSNorm/SwiGLU ones and RWKV6 are ported (audio and MoE "
-            "families: ROADMAP queue 1, item 8.6 onward)")
+            f"{cfg.name}: the port serves dense decoders (SwiGLU / GeGLU / GELU MLP, RMSNorm / "
+            "LayerNorm, global or local:global attention, optional QK-norm) with text, a VLM "
+            "prefix or audio codebooks, MoE RMSNorm/SwiGLU global-attention decoders, hybrid "
+            "(parallel SSM) RMSNorm/SwiGLU ones and RWKV6; this combination is none of them")
 
 
 def _param(x: torch.Tensor) -> nn.Parameter:
@@ -114,7 +126,8 @@ class Block(nn.Module):
     reference): norms ``ln1`` / ``ln2`` (scales; ``ln1_bias`` / ``ln2_bias``
     for LayerNorm, else None), attention (``q_norm`` / ``k_norm`` with
     QK-norm, else None), and the MLP (``w_gate`` for the gated kinds only,
-    else None)."""
+    else None) or, in an MoE model, ``moe`` (a
+    :class:`~repro_torch.models.moe.MoE`; the MLP's matrices are then None)."""
 
     def __init__(self, cfg: ModelConfig, device, dtype=COMPUTE_DTYPE):
         super().__init__()
@@ -123,7 +136,7 @@ class Block(nn.Module):
         def mat(*shape):
             return _param(torch.zeros(shape, dtype=dtype, device=device))
 
-        self.norm, self.mlp_kind = cfg.norm, cfg.mlp_kind
+        self.cfg, self.norm, self.mlp_kind = cfg, cfg.norm, cfg.mlp_kind
         self.ln1, self.ln1_bias = _norm_params(cfg, device)
         self.ln2, self.ln2_bias = _norm_params(cfg, device)
         self.wq, self.wk, self.wv, self.wo = mat(d, qd), mat(d, kvd), mat(d, kvd), mat(qd, d)
@@ -133,8 +146,11 @@ class Block(nn.Module):
             self.q_norm, self.k_norm = (
                 _param(torch.zeros(cfg.head_dim, dtype=torch.float32, device=device))
                 for _ in range(2))
-        self.w_gate = mat(d, ff) if cfg.mlp_kind in GATED_KINDS else None
-        self.w_up, self.w_down = mat(d, ff), mat(ff, d)
+        self.moe = moe_lib.MoE(cfg, device, dtype) if cfg.moe else None
+        self.w_gate = self.w_up = self.w_down = None
+        if not cfg.moe:
+            self.w_gate = mat(d, ff) if cfg.mlp_kind in GATED_KINDS else None
+            self.w_up, self.w_down = mat(d, ff), mat(ff, d)
         if is_hybrid(cfg):
             H, dinner = cfg.num_heads, cfg.q_dim
 
@@ -155,6 +171,9 @@ class Block(nn.Module):
         return apply_norm(x, self.ln2, self.ln2_bias, self.norm)
 
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        """The MLP, or the MoE layer's output (its aux loss is not served)."""
+        if self.moe is not None:
+            return moe_lib.moe_apply(self.cfg, self.moe, x)[0]
         return mlp_apply(self, x, self.mlp_kind)
 
 
@@ -192,7 +211,14 @@ class Transformer(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         d, v = cfg.d_model, cfg.vocab_size
-        self.embed = _param(torch.zeros(v, d, dtype=dtype, device=device))
+        if cfg.modality == "audio":
+            # one f32 table per codebook: the K lookups sum in f32 and round
+            # once, as the reference's (f32 master) embedding does
+            self.embed = _param(torch.zeros(cfg.num_codebooks, v, d, dtype=torch.float32,
+                                            device=device))
+            v = v * cfg.num_codebooks                  # the head's logits: K x vocab
+        else:
+            self.embed = _param(torch.zeros(v, d, dtype=dtype, device=device))
         self.lm_head = (None if cfg.tie_embeddings
                         else _param(torch.zeros(d, v, dtype=dtype, device=device)))
         self.final_norm, self.final_norm_bias = _norm_params(cfg, device)
@@ -207,8 +233,15 @@ class Transformer(nn.Module):
     def random(cls, cfg: ModelConfig, seed: int = 0, device=None) -> "Transformer":
         """Random weights from a seeded ``torch.Generator`` on the target
         device: normal draws scaled by ``fan_in ** -0.5`` as the reference's
-        init (untruncated; ``fan_in`` is the input dim, the LoRA rank 32 for
-        RWKV6's ``mix_lora_b [5, 32, d]``); norms at the reference's
+        init (untruncated), drawn in place in the parameter's dtype.
+        ``fan_in`` is the reference's: its ``dense_init`` default
+        ``shape[0]`` (also the expert count E of an MoE's ``w_up`` /
+        ``w_gate`` [E, d, ffe]), ``d`` for the embedding (``[V, d]``, an
+        audio model's ``[K, V, d]``), and the dim a module's ``FAN_IN``
+        names where the reference passes one: the LoRA rank 32 of RWKV6's
+        ``mix_lora_b [5, 32, d]``, ffe of an MoE's ``w_down [E, ffe, d]``
+        (a 2-D ``w_down`` / ``wo`` already has its input dim first); norms
+        at the reference's
         ``norm_params``: RMSNorm scales zero (unit gain), LayerNorm scales 1
         and biases 0.
         Everything else keeps the reference's constants, set by the modules:
@@ -217,12 +250,15 @@ class Transformer(nn.Module):
         1 and bias 0."""
         model = cls(cfg, device)
         gen = torch.Generator(device=model.device).manual_seed(seed)
-        fixed = {f"{prefix}.{name}" for prefix, mod in model.named_modules()
-                 for name in getattr(mod, "FIXED", ())}
+        fixed, fan_dim = set(), {"embed": -1}
+        for prefix, mod in model.named_modules():
+            fixed.update(f"{prefix}.{name}" for name in getattr(mod, "FIXED", ()))
+            fan_dim.update({f"{prefix}.{name}": dim
+                            for name, dim in getattr(mod, "FAN_IN", {}).items()})
         with torch.no_grad():
             for name, p in model.named_parameters():
                 if p.dim() >= 2 and name not in fixed:
-                    fan_in = p.shape[1] if name == "embed" else p.shape[-2 if p.dim() == 3 else 0]
+                    fan_in = p.shape[fan_dim.get(name, 0)]
                     p.normal_(0.0, fan_in ** -0.5, generator=gen)
         return model
 
@@ -297,7 +333,15 @@ def embed_tokens(model: Transformer, tokens: torch.Tensor,
     (whose table is f32: on the port's bf16 table the scaled embedding may
     differ from the reference's by one bf16 ulp).  A VLM given
     ``img_embeds`` [B, P, d] puts them, unscaled, before the text rows: [B,
-    P + S, d]; any other model ignores them, as the reference does."""
+    P + S, d]; any other model ignores them, as the reference does.  An
+    audio model's ``tokens`` [B, S, K] hold one id per codebook: the K rows
+    of its f32 tables sum in codebook order and round to bf16 once, bit for
+    bit the reference's embedding."""
+    if model.cfg.modality == "audio":
+        x = model.embed[0][tokens[..., 0].to(torch.int64)]
+        for i in range(1, model.cfg.num_codebooks):
+            x = x + model.embed[i][tokens[..., i].to(torch.int64)]
+        return x.to(COMPUTE_DTYPE)
     x = model.embed[tokens.to(torch.int64)]
     if model.cfg.mlp_kind == "geglu":
         x = x.to(torch.float32) * (model.cfg.d_model ** 0.5)
@@ -307,9 +351,14 @@ def embed_tokens(model: Transformer, tokens: torch.Tensor,
 
 
 def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
+    """Logits [..., V] of ``h`` [..., d]; an audio model's (its head untied,
+    as musicgen's) [..., K, V]."""
     if model.lm_head is None:
         return h @ model.embed.to(h.dtype).T
-    return h @ model.lm_head
+    out = h @ model.lm_head
+    if model.cfg.modality == "audio":
+        return out.reshape(out.shape[:-1] + (model.cfg.num_codebooks, model.cfg.vocab_size))
+    return out
 
 
 def _rope_by_kind(cfg: ModelConfig, positions: torch.Tensor) -> dict:
@@ -323,9 +372,10 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
                     capacity: int, prefill_mode: str = "monolithic", padded_tail: bool = False,
                     true_len: int | None = None, start_pos: int = 0, init_caches=None,
                     img_embeds: torch.Tensor | None = None):
-    """Prefill of ``tokens`` [B, S] (a VLM's ``img_embeds`` [B, P, d] before
-    them: :func:`embed_tokens`).  Returns (logits [B, 1, V] of the last real
-    position, one filled layer cache per layer).
+    """Prefill of ``tokens`` [B, S] (an audio model's [B, S, K]; a VLM's
+    ``img_embeds`` [B, P, d] before them: :func:`embed_tokens`).  Returns
+    (logits [B, 1, V] of the last real position, [B, 1, K, V] for audio, one
+    filled layer cache per layer).
 
     ``prefill_mode="monolithic"``: full-sequence attention, then one batched
     compression event per layer.  ``"streaming"``: each layer that can
@@ -406,7 +456,9 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
             cache = (cache, ssm_state)
         x = x + h
         xin2 = blk.norm2(x)
-        x = x + (rowwise(blk.mlp, xin2) if stream[kind] else blk.mlp(xin2))
+        # an MoE layer's capacity couples the rows and its expert products run
+        # on [E, C, d] whatever the row count, so it takes no rowwise padding
+        x = x + (rowwise(blk.mlp, xin2) if stream[kind] and not cfg.moe else blk.mlp(xin2))
         caches.append(cache)
     x = final_norm(model, x)
     last = S if true_len is None else int(true_len)
@@ -417,7 +469,8 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
                   policy: CompressionPolicy, capacity: int, lengths=None,
                   block_tables: cache_lib.BlockTables | None = None,
                   fused: str = "auto") -> torch.Tensor:
-    """One decode step.  tokens [B, 1]; ``pos`` [B] per-slot absolute
+    """One decode step.  tokens [B, 1] ([B, 1, K] for audio); ``pos`` [B]
+    per-slot absolute
     positions; ``lengths`` the host copy of the caches' per-slot lengths
     (read from the first layer cache, one device sync per step, when not
     given: every layer's ``length``, a window ring's included, advances by
@@ -425,7 +478,8 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
     layer (window rings in a mixed tree stay dense and ignore it); ``fused``
     picks the attend path
     (:func:`~repro_torch.models.attention.attention_decode`).
-    Updates ``caches`` in place; returns logits [B, 1, V].  An RWKV6 model
+    Updates ``caches`` in place; returns logits [B, 1, V] ([B, 1, K, V] for
+    audio).  An RWKV6 model
     reads neither ``pos`` nor lengths: each layer advances its
     :class:`~repro_torch.models.rwkv.RWKVState` by one token."""
     cfg = model.cfg

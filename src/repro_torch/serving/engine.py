@@ -47,6 +47,12 @@ batch-1 prefill into a slot (:meth:`Engine.prefill_slot`).
   before them; its continuous-batching requests carry text only, yet each
   decodes from position ``len(tokens) + num_prefix_tokens``, as in the
   reference.
+* An audio model (musicgen) serves wave batches only: ``tokens`` hold K
+  codebook ids a frame ([B, S, K]), each step samples a frame [B, K], and
+  ``eos_id`` is ignored, as in the reference; continuous batching raises.
+* An MoE model (qwen3-moe, llama4-scout) serves like a dense text model;
+  its expert capacity counts every row of a call (a decode step's idle
+  slots, a bucketed prefill's padded tail), as the reference's does.
 * Telemetry (``obs``, :mod:`repro_torch.obs`): the engine owns the
   :class:`~repro_torch.obs.Observability` hub the scheduler drives, and
   annotates each prefill; with ``ObsConfig(profiler=True)`` prefill and
@@ -381,15 +387,16 @@ class Engine:
                                       prefill_mode="streaming", padded_tail=True, true_len=n)
 
     def prefill(self, batch: dict):
-        """Full-batch prefill of ``batch["tokens"]`` [B, S] (wave mode; the
-        dense layout only), after ``batch["img_embeds"]`` [B, P, d] for a VLM
-        (a text model ignores them, as the reference's).  Returns (logits
-        [B, 1, V], a fresh cache tree)."""
+        """Full-batch prefill of ``batch["tokens"]`` [B, S] (an audio model's
+        codebook ids [B, S, K]; wave mode, the dense layout only), after
+        ``batch["img_embeds"]`` [B, P, d] for a VLM (a text model ignores
+        them, as the reference's).  Returns (logits [B, 1, V] ([B, 1, K, V]
+        for audio), a fresh cache tree)."""
         if self.ecfg.layout == "paged":
             raise NotImplementedError(
                 "full-batch wave prefill is dense-only; paged engines serve "
                 "through Engine.prefill_slot / Scheduler.run_continuous")
-        _check_batch(batch)
+        _check_batch(self.cfg, batch)
         batch = dict(batch, tokens=torch.as_tensor(batch["tokens"]).to(torch.int32))
         with profiler_span("gear.prefill", self._prof):
             return self.model.prefill(self.params, batch, self.ecfg.policy, self._cap(),
@@ -644,8 +651,12 @@ class Engine:
         With an ``eos_id`` a row that sampled it keeps emitting it, and the
         loop stops once every row has.  ``active``: optional bool mask [B]
         of rows holding real requests; padded copy rows are left out of
-        ``decode_tok_per_s``.  Dense layout only."""
+        ``decode_tok_per_s``.  Dense layout only.  An audio model samples a
+        frame of K codebook ids per step (tokens [B, T, K]) and feeds it
+        back as [B, 1, K]; it never stops at ``eos_id``, as the reference's,
+        and its ``decode_tok_per_s`` counts frames."""
         ecfg = self.ecfg
+        eos = ecfg.eos_id if self.cfg.modality != "audio" else -1
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         t0 = time.time()
@@ -662,11 +673,11 @@ class Engine:
             pos = np.full(B, prompt_len + t, np.int32)
             logits, caches = self.decode({"tokens": tok[:, None]}, caches, pos)
             tok = sample(logits[:, -1], ecfg.temperature, ecfg.top_k, generator)
-            if ecfg.eos_id >= 0:
-                done = done | (tok == ecfg.eos_id)
-                tok = torch.where(done, torch.full_like(tok, ecfg.eos_id), tok)
+            if eos >= 0:
+                done = done | (tok == eos)
+                tok = torch.where(done, torch.full_like(tok, eos), tok)
             out.append(tok)
-            if ecfg.eos_id >= 0 and bool(done.all()):
+            if eos >= 0 and bool(done.all()):
                 break
         toks = torch.stack(out, dim=1).cpu().numpy()
         t_decode = time.time() - t1
@@ -684,11 +695,12 @@ class Engine:
 
     def _decode_tok_per_s(self, toks: np.ndarray, t_decode: float, active) -> float:
         """Decode throughput over useful tokens only: padded copy rows
-        (``active`` False) and the filler after a row's EOS are left out."""
+        (``active`` False) and the filler after a row's EOS are left out.
+        An audio row counts frames (``toks`` [B, T, K]) and has no EOS."""
         B, T = toks.shape[0], toks.shape[1]
         act = np.ones(B, bool) if active is None else np.asarray(active, bool)
         n_use = np.full(B, T)
-        if self.ecfg.eos_id >= 0:
+        if self.ecfg.eos_id >= 0 and self.cfg.modality != "audio":
             hit = toks == self.ecfg.eos_id
             has = hit.any(axis=1)
             n_use[has] = hit.argmax(axis=1)[has] + 1      # keep the EOS itself
@@ -713,12 +725,18 @@ class Engine:
                    for part in cache_lib._parts(layer) for t in part.tensors().values())
 
 
-def _check_batch(batch: dict) -> None:
+def _check_batch(cfg, batch: dict) -> None:
     """Wave mode serves token ids [B, S], with a VLM's ``img_embeds``
-    beside them; audio codebooks [B, S, K] raise."""
+    beside them, and an audio model's codebook ids [B, S, K]; any other key
+    or token shape raises."""
     extra = sorted(set(batch) - {"tokens", "img_embeds"})
-    rank = batch["tokens"].ndim
-    if extra or rank != 2:
-        raise NotImplementedError(
-            f"audio batches (extra keys {extra}, token rank {rank}): that model family "
-            "arrives with ROADMAP queue 1, item 8.6")
+    if extra:
+        raise ValueError(f"unknown batch keys {extra}")
+    shape = tuple(batch["tokens"].shape)
+    if cfg.modality == "audio":
+        if len(shape) != 3 or shape[-1] != cfg.num_codebooks:
+            raise ValueError(f"{cfg.name} takes codebook ids [B, S, {cfg.num_codebooks}], "
+                             f"got tokens of shape {shape}")
+    elif len(shape) != 2:
+        raise ValueError(f"{cfg.name} takes token ids [B, S], got tokens of shape {shape} "
+                         "(codebook ids [B, S, K] need an audio model)")

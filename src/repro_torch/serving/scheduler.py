@@ -243,6 +243,8 @@ class Scheduler:
         exception raised inside a step is not retried: it propagates, as in
         the reference."""
         eng = self.engine
+        if eng.cfg.modality == "audio":
+            raise NotImplementedError("continuous batching drives text tokens")
         B = eng.ecfg.batch
         eos = eng.ecfg.eos_id
         results: list[Result] = self._drain_shed()

@@ -345,7 +345,8 @@ def test_run_continuous_matches_reference_engine(fam, case):
 
 
 PORTED = ("llama2-7b", "hymba-1.5b", "rwkv6-3b", "minicpm-2b", "starcoder2-3b", "gemma-2b",
-          "gemma3-12b", "paligemma-3b")
+          "gemma3-12b", "paligemma-3b", "musicgen-medium", "qwen3-moe-235b-a22b",
+          "llama4-scout-17b-a16e")
 
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "minicpm-2b", "gemma-2b", "starcoder2-3b",
@@ -354,16 +355,14 @@ PORTED = ("llama2-7b", "hymba-1.5b", "rwkv6-3b", "minicpm-2b", "starcoder2-3b", 
                                   "rwkv6-3b", "llama2-7b"])
 def test_registry_and_check_supported_cover_the_ported_families(arch):
     """Every reference config: the port registers it, field for field, and
-    builds it exactly when it is one of the ported families; the others
-    raise naming ROADMAP queue 1, item 8.6 onward."""
+    builds it (every one of the 11 is a ported family); a combination no
+    family has (an MoE audio model) still raises."""
     from repro_torch.configs.base import ModelConfig
 
+    assert arch in PORTED
     cfg = ModelConfig(**dataclasses.asdict(ref_get_config(arch)))
-    if arch not in PORTED:
-        with pytest.raises(KeyError):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="item 8.6"):
-            tfm.check_supported(cfg)
-        return
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(cfg)
     tfm.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="none of them"):
+        tfm.check_supported(dataclasses.replace(cfg, family="audio", modality="audio",
+                                                num_codebooks=4, moe=True, num_experts=4))

@@ -101,9 +101,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
     kernel's live layer-0 call is held against its plain version and timed
     (``gear_compress``: the K and the V event of request 0's layer 0, bit
     for bit; ``flash_prefill_block`` also beside the efficient-attention
-    yardstick; request 0's layer-0 history call as ``ms_history_per_layer``),
-    and profiler windows cover one streaming prefill and 8 paged decode
-    steps;
+    yardstick; request 0's layer-0 history call as ``ms_history_per_layer``)
+    (no profiler window, for time: ``PERF.md`` §5 keeps an earlier reading);
 12. serving, path 5: the prefix trie, on phase 11's llama2-7b (all 32
     layers) with ``prefill_mode="streaming", layout="paged",
     prefix_cache=True`` (first, layer 0's row-wise products checked for
@@ -129,8 +128,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
     ``linear_scan_chunked`` and 32 ``flash_prefill`` launches per prefill
     and 32 ``gear_decode`` launches per step; the live layer-0 scan (S =
     chunk = 859) and decode step are held against their plain versions and
-    timed, and profiler windows cover one unaligned prefill and 8 decode
-    steps;
+    timed (no profiler window, for time);
 14. serving, path 6: the same hymba-1.5b with streaming prefill (unbucketed,
     as the reference serves a hybrid) on the dense layout, 16 new tokens per
     request (cut from 96 for time); every prefill must launch 32
@@ -139,8 +137,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
     ``gear_decode``; the live layer-0 K and V ``gear_compress`` calls
     (head_dim 64 tiles, bit for bit), ``flash_prefill_block`` call
     (kv_repeat 5, head_dim 64) and history call (5 heads x 64 = 320 query
-    rows) are held against their plain versions and timed, and profiler
-    windows cover one prefill and 8 decode steps;
+    rows) are held against their plain versions and timed (no profiler
+    window);
 15. serving, path 4: rwkv6-3b (attention-free RWKV6, no KV cache) at its 32
     layers and published widths, random bf16 weights with the reference's
     constants, the same 8 requests (ids from its vocab), monolithic prefill
@@ -149,8 +147,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
     step scans one token from each layer's state) and no attention kernel;
     the live layer-0 prefill scan (S = chunk = 859) and decode scan (S = 1,
     from the slots' states) are held against their plain versions and
-    timed, and profiler windows cover one unaligned prefill and 8 decode
-    steps;
+    timed (no profiler window);
 16. serving, path 7: wave mode on phase 10's llama2-7b (``--layers`` cuts
     it too): ``Engine(batch=4, capacity=1152)`` dense and ``Scheduler.run``
     over the 8 requests in two waves, left-padded to 859 and 899 tokens,
@@ -203,7 +200,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
     per prefill and 18 ``gear_decode`` (G = 8, head_dim 256) per step and
     no other kernel; request 0's live layer-0 ``flash_prefill`` call (beside
     SDPA) and a live decode step held against their plain versions and
-    timed; profiler windows over one prefill and 8 decode steps;
+    timed (no profiler window, for time; ``PERF.md`` §5 keeps an earlier
+    reading);
 23. serving, path 13: the same gemma-2b, gear_kivi2 (4 V stat groups),
     streaming prefill into a paged pool of two thirds of the dense pages, 16
     new tokens (cut from 96, as on paths 14 and 15, for time; no profiler
@@ -289,7 +287,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
     yardstick), the history call and a paged step held against their plain
     versions and timed; greedy tokens equal to a dense streaming engine's
     bit for bit;
-33. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
+33. training, path 23: minicpm-2b at its published widths and 40 layers
+    (2.72 B parameters; random f32 master weights from a seeded generator),
+    the config's WSD schedule, remat per layer with the ``dots`` policy,
+    batches of 4 x 512 tokens from ``repro_torch.data.synthetic`` in 2
+    microbatches, 8 steps of ``make_train_step`` and no checkpoint: every
+    loss and grad norm finite and positive, the last loss below the first,
+    every kernel wrapper's launch counter 0 over the steps (training attends
+    through ``attention_train``; no kernel has a backward); step time,
+    tokens/s, peak memory and the share of the dense bf16 peak that 8 N
+    tokens per step reach;
+34. training, path 24: minicpm-2b's smoke config, one train step on the CPU
+    port and on the card from the same weights and batch (loss within 1e-2,
+    every update of >= 1,000 elements at cosine >= 0.98), then on the card
+    6 steps straight against 3 steps, ``ckpt.save``, a fresh ``train_loop``
+    resuming from it and 3 more (parameters within 1e-5);
+35. adaptive rank at ``benchmarks/bench_adaptive.py``'s shape (8 heads of
+    [512, 128] seeded KV-like residuals), ranks 2, 4 and 8 on the card
+    against the CPU port: ranks equal, errors within 1e-4;
+36. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
     by path), the card's name and power limit, and the final
     ``{"ok": true, "device": {...}}`` line.
 
@@ -1862,7 +1878,6 @@ def serving_paged(model, params, cfg, layers: int, flush, reports: dict) -> dict
         reports[name]["launches_by_path"] = {"streaming_paged": launches[name]}
     reports["gear_decode"]["launches_by_path"]["streaming_paged"] = launches["gear_decode"]
     summary["layers"] = layers
-    profile(eng, cfg, HERE / "build" / "profile", "streaming_paged")
     return summary
 
 
@@ -1915,7 +1930,6 @@ def serving_hybrid(model, params, cfg, layers: int, flush, reports: dict) -> dic
     reports["gear_decode"]["launches_by_path"]["hybrid_dense"] = launches["gear_decode"]
     reports["flash_prefill"]["launches_by_path"]["hybrid_dense"] = launches["flash_prefill"]
     summary["layers"] = layers
-    profile(eng, cfg, HERE / "build" / "profile", "hybrid_dense", prompt_len=659)
     return summary
 
 
@@ -1964,7 +1978,6 @@ def serving_rwkv(model, params, cfg, layers: int, flush, reports: dict) -> dict:
                     zip(("ms", "plain_ms", "bound_ms", "bound_by"), timed)})
     rep["launches_by_path"]["rwkv_dense"] = launches["linear_scan_chunked"]
     summary["layers"] = layers
-    profile(eng, cfg, HERE / "build" / "profile", "rwkv_dense", prompt_len=659)
     return summary
 
 
@@ -2250,7 +2263,6 @@ def serving_hybrid_streaming(model, params, cfg, layers: int, flush, reports: di
     for name in ("flash_prefill_block", "gear_decode", "linear_scan_chunked", "gear_compress"):
         reports[name]["launches_by_path"]["hybrid_streaming"] = launches[name]
     summary.update(layers=layers, prefill_ms_by_admission=rec["ms"][:N_REQUESTS])
-    profile(eng, cfg, HERE / "build" / "profile", "hybrid_streaming", prompt_len=659)
     return summary
 
 
@@ -2742,7 +2754,7 @@ def serving_family(model, params, cfg, layers: int, flush, reports: dict, path: 
     ``DECODE_ROWS``), no other kernel; request 0's live layer-0
     ``flash_prefill`` call (kv_repeat G) and the live layer-0 decode step
     held against their plain versions and timed; with ``profiled``, profiler
-    windows over one prefill and 8 decode steps (path 12 only: the windows
+    windows over one prefill and 8 decode steps (path 20 only: the windows
     cost more of the run's time than the rest of a path)."""
     from repro_torch.core.policy import named_policy
     from repro_torch.kernels import gear_decode as gd
@@ -3423,6 +3435,227 @@ def profile_window(fn, out_dir: pathlib.Path, tag: str, name: str) -> None:
     print(f"  profiler table in {out_dir / f'profile_{tag}_{name}.txt'}")
 
 
+# ---------------------------------------------------------------------------
+# training (paths 23-24) and adaptive rank
+
+
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 512, 2, 8
+TRAIN_LOSS_ATOL = 1e-2         # one step, card against the CPU port (the CPU tests' bound)
+TRAIN_STEP_COS = 0.98          # the update of each leaf of >= 1,000 elements, card against CPU
+RESTORE_ATOL = 1e-5            # 6 steps straight against 3 + restore + 3 (the reference's bound)
+# adaptive / uniform relative errors, card against CPU.  Six unnormalised
+# power-iteration sweeps in f32 leave the trailing columns of a 16- or
+# 32-column subspace to rounding: on the CPU a one-ulp nudge of the input
+# moves the errors by up to 1.4e-4 (r 8); an H100 read 2.2e-4 at r 4
+ADAPTIVE_ERR_ATOL = 1e-3
+
+
+def zero_launches() -> dict:
+    fns = kernel_fns()
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+def training(flush, reports: dict) -> dict:
+    """Path 23: minicpm-2b at its published widths and 40 layers (2.72 B
+    parameters, random f32 master weights from a seeded generator), the
+    config's WSD schedule (warmup 1 of 8 steps), remat per layer with the
+    ``dots`` policy, batches of 4 x 512 tokens from ``data.synthetic`` in
+    2 microbatches, 8 steps of ``make_train_step``, no checkpoint (one would
+    write ~33 GB).  Every step's loss and grad norm must be finite and
+    positive, the last step's loss below the first's, and every kernel
+    wrapper's launch counter 0 over the steps.  Prints the step time,
+    tokens/s, peak memory, and the share of the card's dense bf16 peak that
+    8 N tokens per step reach (6 N forward and backward, 2 N the remat's
+    recompute); then two more steps, the second under a CUDA-only profiler
+    (``kernel_breakdown``): its summed kernel time against an unprofiled
+    step (the device's busy share) and the leading kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.state import RunConfig, init_train_state
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=DEV, dtype=torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"  {cfg.name} (d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_layers} layers): {n_params / 1e9:.3f} B "
+          f"f32 parameters, init {time.perf_counter() - t0:.1f} s")
+    run = RunConfig(total_steps=TRAIN_STEPS, warmup_steps=1, microbatches=TRAIN_MICRO,
+                    remat=True, remat_policy="dots", ckpt_every=0, log_every=1)
+    state = init_train_state(params, run)
+    step = make_train_step(model, run)
+    dc_ = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                     global_batch=TRAIN_BATCH)
+    batches = [make_batch(dc_, cfg, s, DEV) for s in range(TRAIN_STEPS)]
+    fns = zero_launches()
+    rows = []
+    for s in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step(state, batches[s])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        m = {k: float(v) for k, v in met.items()}
+        rows.append(dict(m, ms=ms))
+        print(f"  step {s}: loss {m['loss']:.4f} (ce {m['ce']:.4f}) lr {m['lr']:.3e} "
+              f"grad_norm {m['grad_norm']:.4f}, {ms:.1f} ms")
+    launches = {name: fn.launches for name, fn in fns.items()}
+    if any(launches.values()):
+        fail(f"training launched a CUDA kernel: {launches}")
+    for r in rows:
+        if not all(np.isfinite(r[k]) and r[k] > 0 for k in ("loss", "grad_norm")):
+            fail(f"training: a loss or grad norm is not finite and positive: {rows}")
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        fail(f"training: the last loss {rows[-1]['loss']} is not below the first "
+             f"{rows[0]['loss']}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = float(np.median([r["ms"] for r in rows[1:]]))     # step 0 warms the allocator
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops = 8 * n_params * tokens
+    share = flops / (step_ms / 1e3) / BF16_FLOPS
+    print(f"  kernel launches over the {TRAIN_STEPS} steps: {launches} (all 0)")
+    holder = [state]
+
+    def one_more():
+        holder[0], _ = step(holder[0], batches[0])
+
+    kernels = kernel_breakdown(one_more, 1, flush)
+    state = holder[0]
+    busy_s = sum(kernels.values()) / 1e3
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {name[:80]:80s} {ms:9.3f} ms")
+    print(f"  step {step_ms:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}; step 0 "
+          f"{rows[0]['ms']:.1f} ms), {tokens / (step_ms / 1e3):.0f} tokens/s, peak memory "
+          f"{peak:.2f} GB, 8 N tokens = {flops / 1e12:.1f} TFLOP a step: {share * 100:.2f}% of "
+          f"the dense bf16 peak; a profiled step's kernels {busy_s * 1e3:.1f} ms = "
+          f"{busy_s * 1e3 / step_ms * 100:.1f}% of an unprofiled step; "
+          f"{smi()}")
+    del state, params, step, batches, holder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params, "tokens_per_step":
+            tokens, "steps": rows, "step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+            "peak_gb": peak, "bf16_peak_share": share, "launches": launches,
+            "device_ms_per_step": busy_s * 1e3, "card": smi()}
+
+
+def training_cross() -> dict:
+    """Path 24: minicpm-2b's smoke config.  One ``make_train_step`` on the
+    CPU port and on the card from the same f32 weights (seeded on the CPU,
+    then copied) and batch: loss within ``TRAIN_LOSS_ATOL``, each leaf's
+    update (of >= 1,000 elements) at cosine >= ``TRAIN_STEP_COS``.  Then, on
+    the card, 6 steps of ``train_loop`` straight against 3 steps,
+    ``ckpt.save``, a fresh ``train_loop`` resuming from that checkpoint and
+    3 more steps (the reference's restore recipe): parameters within
+    ``RESTORE_ATOL``."""
+    import copy
+    import tempfile
+
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import make_train_step, train_loop
+    from repro_torch.train.state import RunConfig, init_train_state
+
+    cfg = smoke_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    dc_ = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
+    run = RunConfig(total_steps=6, warmup_steps=0, microbatches=2, remat=True,
+                    remat_policy="dots", ckpt_every=0, log_every=1)
+    cpu_params = model.init(seed=0, device="cpu", dtype=torch.float32)
+    card_params = copy.deepcopy(cpu_params).to(DEV)
+    before = {n: p.detach().clone() for n, p in cpu_params.named_parameters()}
+    step = make_train_step(model, run)
+    out = {}
+    for key, dev, params in (("cpu", "cpu", cpu_params), ("cuda", DEV, card_params)):
+        _, met = step(init_train_state(params, run), make_batch(dc_, cfg, 0, dev))
+        out[key] = float(met["loss"])
+    worst = 1.0
+    for (n, p), (_, q) in zip(cpu_params.named_parameters(), card_params.named_parameters()):
+        if p.numel() >= 1000:
+            a = (p.detach() - before[n]).double().flatten()
+            b = (q.detach().cpu() - before[n]).double().flatten()
+            worst = min(worst, float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300)))
+    gap = abs(out["cpu"] - out["cuda"])
+    print(f"  one step on the CPU and on the card: loss {out['cpu']:.6f} / {out['cuda']:.6f} "
+          f"(gap {gap:.2e}), least update cosine {worst:.6f}")
+    if gap > TRAIN_LOSS_ATOL or worst < TRAIN_STEP_COS:
+        fail(f"training on the card leaves the CPU port: loss gap {gap}, cosine {worst}")
+
+    build = HERE / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        def loop(name, total):
+            r = dc.replace(run, total_steps=total, warmup_steps=1,
+                           ckpt_dir=str(pathlib.Path(root) / name))
+            return train_loop(model, r, dc_, log_fn=lambda *_: None, device=DEV)
+
+        straight = loop("a", 6)
+        first = loop("b", 3)
+        ck.save(str(pathlib.Path(root) / "b"), 3, first)
+        resumed = loop("b", 6)
+        diff = max(float((p.detach() - q.detach()).abs().max()) for p, q in
+                   zip(straight.params.parameters(), resumed.params.parameters()))
+    print(f"  6 steps straight against 3 + save + resume + 3 on the card: max diff {diff:.3e} "
+          f"(resumed at step {resumed.step})")
+    if resumed.step != 6 or diff >= RESTORE_ATOL:
+        fail(f"restore: max diff {diff} (bound {RESTORE_ATOL}), step {resumed.step}")
+    return {"loss_cpu": out["cpu"], "loss_cuda": out["cuda"], "least_update_cos": worst,
+            "restore_max_diff": diff}
+
+
+def adaptive_rank(flush) -> dict:
+    """Adaptive rank (``core.adaptive``) at ``benchmarks/bench_adaptive.py``'s
+    shape: 8 heads of [512, 128] KV-like residuals (seeded, heavy-tailed,
+    token-correlated, on a steep per-head energy profile, minus their kivi2
+    quantization), ranks 2, 4 and 8 on the card against the CPU port: ranks
+    equal, errors within ``ADAPTIVE_ERR_ATOL``; each call timed."""
+    from repro_torch.core import quant
+    from repro_torch.core.adaptive import adaptive_error_vs_uniform
+    from repro_torch.core.policy import named_policy
+
+    H, n, d = 8, 512, 128
+    g = torch.Generator().manual_seed(0)
+    u, v = torch.randn(H, n, 16, generator=g), torch.randn(H, 16, d, generator=g)
+    chan = 1.0 + 4.0 * (torch.rand(H, 1, d, generator=g) < 0.03).float()
+    x = (torch.randn(H, n, d, generator=g) + 1.2 * u @ v / 4.0) * chan
+    x = x * (1 + 8.0 * (torch.rand(H, n, d, generator=g) < 0.005).float())
+    x = x * torch.logspace(0, 1.2, H)[:, None, None]
+    pol = named_policy("kivi2")
+    resid = x - quant.dequantize(quant.quantize(x, pol.bits, *pol.scheme_for("k")))
+    card = resid.to(DEV)
+    out = {}
+    for r in (2, 4, 8):
+        want = adaptive_error_vs_uniform(resid, r)
+        got = adaptive_error_vs_uniform(card, r)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        adaptive_error_vs_uniform(card, r)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        gaps = {k: abs(got[k] - want[k]) for k in ("uniform", "adaptive")}
+        gain = (got["uniform"] - got["adaptive"]) / got["uniform"] * 100
+        print(f"  r={r}: uniform {got['uniform']:.4f} adaptive {got['adaptive']:.4f} (gain "
+              f"{gain:.1f}%), ranks {got['ranks']}; against the CPU port: ranks "
+              f"{'equal' if got['ranks'] == want['ranks'] else want['ranks']}, error gaps "
+              f"{gaps['uniform']:.1e} / {gaps['adaptive']:.1e}; {ms:.1f} ms a call (host clock)")
+        if got["ranks"] != want["ranks"] or max(gaps.values()) > ADAPTIVE_ERR_ATOL:
+            fail(f"adaptive rank r={r} on the card: {got} against the CPU port's {want}")
+        out[f"r{r}"] = dict(got, ms=ms, gain_pct=gain)
+    return out
+
+
 def main() -> int:
     global PARENT_SCAN
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3633,7 +3866,7 @@ def main() -> int:
           f"{gemma.num_layers}")
     built_gemma = build(gemma, gemma.num_layers)
     summaries["gemma_dense"] = serving_family(*built_gemma, gemma.num_layers, flush, reports,
-                                              "gemma_dense", "_gemma", NEW_TOKENS, True)
+                                              "gemma_dense", "_gemma", NEW_TOKENS, False)
     phase(f"[23] serving gemma-2b, gear_kivi2, streaming prefill, paged pool, depth "
           f"{gemma.num_layers}, {FAMILY_TOKENS} new tokens per request")
     summaries["gemma_streaming_paged"] = serving_gemma_paged(*built_gemma, gemma.num_layers,
@@ -3697,7 +3930,17 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    phase("[33] summary")
+    phase(f"[33] training, path 23: {TRAIN_ARCH} at full width and depth, {TRAIN_STEPS} steps "
+          f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches, remat dots")
+    summaries["train_full"] = training(flush, reports)
+    phase(f"[34] training, path 24: {TRAIN_ARCH} smoke config, one step on the CPU port and on "
+          f"the card, then 6 steps straight against 3 + restore + 3")
+    summaries["train_cross"] = training_cross()
+    phase("[35] adaptive rank at bench_adaptive.py's shape (8 heads of [512, 128]), card "
+          "against the CPU port")
+    summaries["adaptive_rank"] = adaptive_rank(flush)
+
+    phase("[36] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for rep in reports.values():

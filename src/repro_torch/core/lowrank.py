@@ -88,19 +88,31 @@ def householder_q(x: torch.Tensor) -> torch.Tensor:
     return q
 
 
-def power_iteration(x: torch.Tensor, rank: int, iters: int = 4):
-    """Approximate top-``rank`` factors of ``x`` [..., n, d].
+def power_iteration(x: torch.Tensor, rank: int, iters: int = 4,
+                    init: torch.Tensor | None = None):
+    """Approximate top-``rank`` factors of ``x`` [..., n, d] from the start
+    matrix ``init`` [d, rank] (None: the reference's ``PRNGKey(0)`` draw,
+    :func:`pi_init`), broadcast over the leading dims.
 
     Returns (A [..., n, rank], B [..., d, rank]) in f32 with ``A @ Bᵀ ≈ x_r``.
     """
     n, d = x.shape[-2], x.shape[-1]
     lead = x.shape[:-2]
     xf = x.to(torch.float32)
-    b = _pi_init_on(d, rank, xf.device).expand(lead + (d, rank))
+    b0 = (_pi_init_on(d, rank, xf.device) if init is None
+          else torch.as_tensor(init, dtype=torch.float32, device=xf.device))
+    if tuple(b0.shape) != (d, rank):
+        raise ValueError(f"power_iteration: init has shape {tuple(b0.shape)}, "
+                         f"expected {(d, rank)}")
+    b = b0.expand(lead + (d, rank))
     a = torch.zeros(lead + (n, rank), dtype=torch.float32, device=xf.device)
     for it in range(iters):
         last = it == iters - 1
         if last:
+            # Q does not change when a column is scaled by a power of two (every
+            # rounding scales with it), and at unit scale the QR's norms cannot
+            # overflow: b has grown by sigma^2 a sweep (LAPACK's norms rescale)
+            b = torch.ldexp(b, -torch.frexp(b.abs().amax(dim=-2, keepdim=True)).exponent)
             b = householder_q(b)
         a = xf @ b
         if last:

@@ -12,6 +12,10 @@ hash of the source, the headers and the flags, so an edited source is never
 served a stale library.  :func:`build_all` starts one ``nvcc`` per source, all at once.
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises on
 a non-zero code.
+
+A kernel is called through ``ctypes`` on raw pointers, so autograd does not
+see it: its outputs are new leaves and every gradient above them would read
+zero.  Each wrapper therefore calls :func:`refuse_grad` before it launches.
 """
 
 from __future__ import annotations
@@ -25,7 +29,10 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["CSRC", "BUILD", "nvcc", "build_all", "load", "check", "KernelError"]
+import torch
+
+__all__ = ["CSRC", "BUILD", "nvcc", "build_all", "load", "check", "refuse_grad",
+           "KernelError", "NO_BACKWARD_ITEM"]
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD = pathlib.Path(__file__).with_name("build")
@@ -92,6 +99,28 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed."""
     build_all([name])
     return ctypes.CDLL(str(_target(name)))
+
+
+# the ROADMAP entry that gives linear_scan_chunked a backward (RWKV6 and hymba
+# training on the card)
+NO_BACKWARD_ITEM = "ROADMAP queue 1, item 11"
+
+
+def refuse_grad(who: str, operands, hint: str = "", on_cuda: bool | None = None) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and an operand on CUDA
+    requires grad: the kernel has no backward and its call would cut the
+    autograd graph without a word.  ``on_cuda`` overrides the device test
+    (the CPU tests pass True).  Serving runs under ``torch.inference_mode``,
+    where grad mode is off."""
+    if not torch.is_grad_enabled():
+        return
+    for x in operands:
+        if isinstance(x, torch.Tensor) and x.requires_grad and (
+                x.is_cuda if on_cuda is None else on_cuda):
+            raise RuntimeError(
+                f"{who}: an operand requires grad, and the CUDA kernel has no backward "
+                f"({NO_BACKWARD_ITEM}); its call would cut the autograd graph"
+                + (f"; {hint}" if hint else ""))
 
 
 def check(code: int, what: str) -> None:

@@ -54,6 +54,8 @@ def flash_prefill(q, k, v, *, window: int = 0, prefix_len: int = 0,
         return flash_prefill_ref(q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: no kernel for device {q.device}")
+    _build.refuse_grad("flash_prefill", (q, k, v),
+                       "use repro_torch.models.attention.attention_train to train")
     BH, S, Dh = q.shape
     if kv_repeat < 1 or BH % kv_repeat:
         raise ValueError(f"flash_prefill: kv_repeat={kv_repeat} does not divide {BH} rows")
@@ -92,6 +94,8 @@ def flash_prefill_block(q, k, v, kv_len, *, scale: float, softcap: float = 0.0,
         return flash_block_ref(q, k, v, kv_len, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill_block: no kernel for device {q.device}")
+    _build.refuse_grad("flash_prefill_block", (q, k, v),
+                       "use repro_torch.models.attention.attention_train to train")
     N, T, Dh = q.shape
     if kv_repeat < 1 or N % kv_repeat:
         raise ValueError(f"flash_prefill_block: kv_repeat={kv_repeat} does not divide {N} rows")

@@ -43,6 +43,7 @@ def gear_compress(x: torch.Tensor, *, bits: int, scheme: str, group: int | None 
         return gear_compress_ref(x, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"gear_compress: no kernel for device {x.device}")
+    _build.refuse_grad("gear_compress", (x,))
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"gear_compress: x must be a contiguous [N, nb, d] f32 tensor "
                          f"(got {x.dtype} {tuple(x.shape)})")

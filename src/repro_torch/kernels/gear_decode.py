@@ -230,6 +230,8 @@ def gear_decode(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, n_comp,
                                n_comp, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"gear_decode: no kernel for device {q.device}")
+    _build.refuse_grad("gear_decode", (q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero,
+                                       k_a, k_b, v_a, v_b, k_sp_val, v_sp_val))
     BH = q.shape[0]
     S = k_packed.shape[1]
     if S % chunk:
@@ -268,6 +270,8 @@ def gear_decode_paged(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, n
                                      n_comp, block_tables, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"gear_decode_paged: no kernel for device {q.device}")
+    _build.refuse_grad("gear_decode_paged", (q, k_packed, k_scale, k_zero, v_packed, v_scale,
+                                             v_zero, k_a, k_b, v_a, v_b, k_sp_val, v_sp_val))
     BH = q.shape[0]
     B, C = block_tables.shape
     if BH % B:
@@ -313,6 +317,8 @@ def gear_decode_history(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero,
                                        extents, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"gear_decode_history: no kernel for device {q.device}")
+    _build.refuse_grad("gear_decode_history", (q, k_packed, k_scale, k_zero, v_packed, v_scale,
+                                               v_zero, k_a, k_b, v_a, v_b, k_sp_val, v_sp_val))
     BH, NB, R, Dh = q.shape
     S = k_packed.shape[1]
     if S % chunk:

@@ -66,6 +66,8 @@ def linear_scan_chunked(r, k, v, log_w, u=None, *, chunk: int = 64, mode: str = 
         return linear_scan_ref(r, k, v, log_w, u, chunk=chunk, mode=mode, state0=state0)
     if r.device.type != "cuda":
         raise ValueError(f"linear_scan_chunked: no kernel for device {r.device}")
+    _build.refuse_grad("linear_scan_chunked", (r, k, v, log_w, u, state0),
+                       "RWKV6 and hymba train on the CPU until it has one")
     Dv = v.shape[-1]
     lw_cols = log_w.shape[-1]
     wants = {"r": (r, (BH, S, Dk)), "k": (k, (BH, S, Dk)), "v": (v, (BH, S, Dv)),

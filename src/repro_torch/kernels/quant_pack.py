@@ -52,6 +52,7 @@ def quant_pack(x: torch.Tensor, bits: int):
         return quant_pack_ref(x, bits)
     if x.device.type != "cuda":
         raise ValueError(f"quant_pack: no kernel for device {x.device}")
+    _build.refuse_grad("quant_pack", (x,))
     if not x.is_contiguous():
         raise ValueError("quant_pack: x must be contiguous")
     dev = x.device

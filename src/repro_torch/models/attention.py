@@ -1,11 +1,15 @@
 """Multi-head attention with GQA, RoPE and QK-norm: full-sequence prefill
 through ``flash_prefill`` (causal, a local layer's sliding window, a VLM's
-bidirectional prefix), streaming prefill into a GEAR layer cache, and
-cached decode over a dense or paged layer cache of any kind (port of
-``repro.models.attention``'s flash, streaming and decode paths).
+bidirectional prefix), streaming prefill into a GEAR layer cache, cached
+decode over a dense or paged layer cache of any kind, and the training
+path's differentiable full-sequence attention (port of
+``repro.models.attention``'s flash, streaming, decode and chunked paths).
 
 Monolithic prefill always takes the flash path, on the card and on the CPU —
 the path the reference takes on a TPU (and under ``fused="interpret"``).
+Training takes :func:`attention_train`, plain PyTorch that autograd
+differentiates, as the reference trains through its XLA ``_sdpa_chunked``;
+the ``flash_prefill`` kernel has no backward.
 """
 
 from __future__ import annotations
@@ -18,8 +22,10 @@ from repro_torch.core import cache as cache_lib
 from repro_torch.kernels import ops
 from repro_torch.models.common import rmsnorm, rotate, rowwise
 
-__all__ = ["rope_theta_for", "attention_prefill", "streaming_prefill_supported",
-           "attention_prefill_streaming", "attention_decode"]
+__all__ = ["rope_theta_for", "attention_prefill", "attention_train",
+           "streaming_prefill_supported", "attention_prefill_streaming", "attention_decode"]
+
+NEG_INF = -1e30
 
 
 def rope_theta_for(cfg: ModelConfig, kind: str) -> float:
@@ -37,9 +43,9 @@ def _project_qkv(cfg: ModelConfig, layer, x: torch.Tensor, rope):
     (the ``(1 + scale)`` gain) before the rotation, as the reference."""
     B, S, _ = x.shape
     dh = cfg.head_dim
-    q = (x @ layer.wq).reshape(B, S, cfg.num_heads, dh)
-    k = (x @ layer.wk).reshape(B, S, cfg.num_kv_heads, dh)
-    v = (x @ layer.wv).reshape(B, S, cfg.num_kv_heads, dh)
+    q = (x @ layer.wq.to(x.dtype)).reshape(B, S, cfg.num_heads, dh)
+    k = (x @ layer.wk.to(x.dtype)).reshape(B, S, cfg.num_kv_heads, dh)
+    v = (x @ layer.wv.to(x.dtype)).reshape(B, S, cfg.num_kv_heads, dh)
     if cfg.qk_norm:
         q, k = rmsnorm(q, layer.q_norm), rmsnorm(k, layer.k_norm)
     return rotate(q, *rope), rotate(k, *rope), v
@@ -71,8 +77,77 @@ def attention_prefill(cfg: ModelConfig, layer, x: torch.Tensor, rope, kind: str 
     q, k, v = _project_qkv(cfg, layer, x, rope)
     out = _sdpa_flash(cfg, q, k, v, kind, prefix_len)
     B, S = x.shape[:2]
-    out = out.reshape(B, S, cfg.q_dim).to(x.dtype) @ layer.wo
+    out = out.reshape(B, S, cfg.q_dim).to(x.dtype) @ layer.wo.to(x.dtype)
     return out, (k.transpose(1, 2), v.transpose(1, 2))
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, kind: str, window: int,
+          prefix_len: int) -> torch.Tensor:
+    """[Sq, Sk] boolean, True = attend: causal, within ``window`` keys on a
+    local layer, and both ways among the first ``prefix_len`` positions."""
+    ok = q_pos[:, None] >= k_pos[None, :]
+    if kind == "local":
+        ok = ok & (q_pos[:, None] - k_pos[None, :] < window)
+    if prefix_len:
+        ok = ok | ((q_pos[:, None] < prefix_len) & (k_pos[None, :] < prefix_len))
+    return ok
+
+
+def _sdpa_chunked(cfg: ModelConfig, q, k, v, positions, kind: str, prefix_len: int,
+                  q_chunk: int):
+    """q [B, S, Hq, Dh]; k, v [B, S, Hkv, Dh] -> [B, S, Hq, Dh], by chunks of
+    ``q_chunk`` queries against every key (port of the reference's
+    ``_sdpa_chunked``).  The reference's mixed precision: bf16 scores scaled
+    in bf16 (the optional softcap in f32), a row max that carries no
+    gradient, an f32 exp and sum, bf16 weights and a bf16 product with V.
+    A group's G query heads are stacked as G * q_chunk rows against their
+    K/V head, so K and V are never repeated."""
+    B, S, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    bf = torch.bfloat16
+    scale = torch.tensor(Dh ** -0.5, dtype=bf, device=q.device)
+    neg = torch.tensor(NEG_INF, dtype=bf, device=q.device)
+    cap = cfg.attn_logit_softcap
+    kT = k.to(bf).permute(0, 2, 3, 1)                       # [B, Hkv, Dh, S]
+    vT = v.to(bf).transpose(1, 2)                           # [B, Hkv, S, Dh]
+
+    def block(q_blk, pos_blk):
+        qc = q_blk.shape[1]
+        qg = q_blk.to(bf).permute(0, 2, 1, 3).reshape(B, Hkv, G * qc, Dh)   # rows (g, q)
+        s = (qg @ kT) * scale
+        if cap:
+            s = (cap * torch.tanh(s.to(torch.float32) / cap)).to(bf)
+        m = _mask(pos_blk, positions, kind, cfg.local_window, prefix_len)
+        s = torch.where(m.expand(G, qc, S).reshape(G * qc, S), s, neg)
+        mx = s.amax(dim=-1, keepdim=True).detach()
+        ex = torch.exp((s - mx).to(torch.float32))
+        w = (ex / ex.sum(dim=-1, keepdim=True)).to(bf)
+        o = (w @ vT).reshape(B, Hq, qc, Dh)
+        return o.transpose(1, 2)
+
+    if S <= q_chunk:
+        return block(q, positions).to(q.dtype)
+    if S % q_chunk:
+        raise ValueError(f"q_chunk {q_chunk} does not divide S={S}")
+    outs = [block(q[:, i:i + q_chunk], positions[i:i + q_chunk])
+            for i in range(0, S, q_chunk)]
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def attention_train(cfg: ModelConfig, layer, x: torch.Tensor, rope, positions: torch.Tensor,
+                    kind: str = "global", prefix_len: int = 0,
+                    q_chunk: int = 512) -> torch.Tensor:
+    """Full-sequence attention of the training forward (the reference's
+    ``attention_train`` with ``impl="chunked"``): x [B, S, d] -> out [B, S,
+    d].  ``rope`` holds the (cos, sin) tables of ``positions`` [S] for this
+    layer's kind; the mask is the reference's (causal, a local layer's
+    window, a VLM's bidirectional prefix) with the config's logit softcap.
+    Never calls a kernel, so autograd sees every operation."""
+    q, k, v = _project_qkv(cfg, layer, x, rope)
+    out = _sdpa_chunked(cfg, q, k, v, positions, kind, prefix_len, q_chunk)
+    B, S = x.shape[:2]
+    return out.reshape(B, S, cfg.q_dim).to(x.dtype) @ layer.wo.to(x.dtype)
 
 
 def streaming_prefill_supported(cfg: ModelConfig, kind: str,
@@ -122,7 +197,7 @@ def attention_prefill_streaming(cfg: ModelConfig, layer, x: torch.Tensor, rope,
         cache_cfg, cache, S, cfg.num_heads, project, cfg.head_dim ** -0.5,
         start_chunk=start_pos // nb, tail_is_padded=padded_tail, true_n=true_len)
     out = out.transpose(1, 2).reshape(B, S, cfg.q_dim).to(x.dtype)
-    return rowwise(lambda o: o @ layer.wo, out), cache
+    return rowwise(lambda o: o @ layer.wo.to(o.dtype), out), cache
 
 
 def attention_decode(cfg: ModelConfig, layer, x_t: torch.Tensor, rope, cache,
@@ -157,4 +232,4 @@ def attention_decode(cfg: ModelConfig, layer, x_t: torch.Tensor, rope, cache,
         cache_lib.append_token(cache_cfg, cache, k[:, 0], v[:, 0], lengths)
         attend = ops.gear_attend if kernel else cache_lib.attend
         out = attend(cache_cfg, cache, q[:, 0], scale)
-    return out.reshape(B, 1, cfg.q_dim) @ layer.wo
+    return out.reshape(B, 1, cfg.q_dim) @ layer.wo.to(out.dtype)

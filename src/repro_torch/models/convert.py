@@ -19,7 +19,13 @@ f32), and its LayerNorms' ``scale`` and ``bias`` in f32.  An MoE block's
 ``moe`` subtree lands in its :class:`~repro_torch.models.moe.MoE`: ``router``
 in f32, the experts' matrices and the shared expert's in bf16.  An audio
 model's ``embed`` [K, V, d] stays f32 (its K lookups sum in f32) and its
-``lm_head`` [d, K * V] becomes bf16.
+``lm_head`` [d, K * V] becomes bf16.  ``dtype=torch.float32`` carries the
+reference's f32 master weights across whole, for training.
+
+``opt_state_from_reference`` maps an ``AdamWState``'s ``mu`` and ``nu``
+trees (numpy, shaped as the parameters) to the port's
+:class:`~repro_torch.optim.adamw.AdamWState`, keyed by the same parameter
+names, so that both packages can start a step from one state.
 """
 
 from __future__ import annotations
@@ -29,8 +35,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import COMPUTE_DTYPE, Transformer
+from repro_torch.optim.adamw import AdamWState
 
-__all__ = ["params_from_reference"]
+__all__ = ["params_from_reference", "opt_state_from_reference"]
 
 _ATTN = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 _MLP = ("w_gate", "w_up", "w_down")
@@ -86,3 +93,13 @@ def params_from_reference(np_tree: dict, cfg: ModelConfig, device=None,
             for name in _SSM:
                 put(getattr(blk, name), stacked["ssm"][name][r])
     return model
+
+
+def opt_state_from_reference(mu_tree: dict, nu_tree: dict, count: int, cfg: ModelConfig,
+                             device=None) -> AdamWState:
+    """The reference's AdamW moments (numpy trees shaped as its parameters)
+    as f32 tensors keyed by the port's parameter names."""
+    def named(tree):
+        model = params_from_reference(tree, cfg, device, torch.float32)
+        return {n: p.detach() for n, p in model.named_parameters()}
+    return AdamWState(mu=named(mu_tree), nu=named(nu_tree), count=int(count))

@@ -21,11 +21,11 @@ def mlp_apply(layer, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     ``gelu(x W_gate) * (x W_up) W_down`` (geglu), ``gelu(x W_up) W_down``
     (gelu_mlp), with the tanh GELU of ``jax.nn.gelu(approximate=True)``."""
     if kind == "swiglu":
-        h = F.silu(x @ layer.w_gate) * (x @ layer.w_up)
+        h = F.silu(x @ layer.w_gate.to(x.dtype)) * (x @ layer.w_up.to(x.dtype))
     elif kind == "geglu":
-        h = gelu_tanh(x @ layer.w_gate) * (x @ layer.w_up)
+        h = gelu_tanh(x @ layer.w_gate.to(x.dtype)) * (x @ layer.w_up.to(x.dtype))
     elif kind == "gelu_mlp":
-        h = gelu_tanh(x @ layer.w_up)
+        h = gelu_tanh(x @ layer.w_up.to(x.dtype))
     else:
         raise ValueError(f"unknown mlp kind {kind!r}")
-    return h @ layer.w_down
+    return h @ layer.w_down.to(x.dtype)

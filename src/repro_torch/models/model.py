@@ -1,8 +1,10 @@
-"""Public model facade: prefill / decode / caches (port of
-``repro.models.model.Model``'s serving half).  A hybrid model's per-layer
-cache is the pair (GEAR cache, SSM state), an RWKV6 model's its
+"""Public model facade: init / loss / prefill / decode / caches (port of
+``repro.models.model.Model``).  A hybrid model's per-layer cache is the pair
+(GEAR cache, SSM state), an RWKV6 model's its
 :class:`~repro_torch.models.rwkv.RWKVState` (the compression policy touches
-none of its layers); the facade passes them through."""
+none of its layers); the facade passes them through.  The serving entry
+points run under ``torch.inference_mode``; :meth:`Model.loss_fn` does not,
+so autograd can differentiate it."""
 
 from __future__ import annotations
 
@@ -25,10 +27,32 @@ class Model:
     def __post_init__(self):
         tfm.check_supported(self.cfg)
 
-    def init(self, seed: int = 0, device=None) -> tfm.Transformer:
+    def init(self, seed: int = 0, device=None, dtype=tfm.COMPUTE_DTYPE) -> tfm.Transformer:
         """Random weights from a seeded generator (CUDA unless ``device``
-        names another)."""
-        return tfm.Transformer.random(self.cfg, seed, device)
+        names another), the matrices in ``dtype`` (bf16 to serve, f32
+        masters to train)."""
+        return tfm.Transformer.random(self.cfg, seed, device, dtype)
+
+    def loss_fn(self, params: tfm.Transformer, batch: dict, remat: bool = False,
+                remat_policy: str = "full"):
+        """Next-token cross-entropy plus the MoE load-balance loss.
+        ``batch["tokens"]`` [B, S] ([B, S, K] for audio; a VLM's text, after
+        ``batch["img_embeds"]`` [B, P, d]).  Returns (loss, {"ce", "aux"}),
+        f32 scalars; labels are the next token of every position but the
+        last (a VLM's text positions only; every codebook for audio)."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=params.device)
+        img = batch.get("img_embeds")
+        img = None if img is None else torch.as_tensor(img, device=params.device)
+        logits, aux = tfm.forward_train(params, tokens, img, remat=remat,
+                                        remat_policy=remat_policy)
+        labels = tokens[:, 1:]                       # [B, S-1] (audio: [B, S-1, K])
+        if cfg.modality == "vlm":
+            lg = logits[:, cfg.num_prefix_tokens:-1]     # the text positions
+        else:
+            lg = logits[:, :-1]
+        ce = _xent(lg, labels)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.inference_mode()
     def prefill(self, params: tfm.Transformer, batch: dict, policy: CompressionPolicy,
@@ -85,6 +109,17 @@ class Model:
                     layout: str = "dense", pool_pages: int = 0):
         return tfm.init_caches(self.cfg, policy, batch, capacity, resolve_device(device),
                                layout=layout, pool_pages=pool_pages)
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of bf16 ``logits`` [..., V] at ``labels`` [...]
+    without f32 logits: a row max that carries no gradient, the exp and sum
+    in f32 (the reference's ``_xent``)."""
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    ex = torch.exp((logits - m).to(torch.float32))
+    lse = torch.log(ex.sum(dim=-1)) + m[..., 0].to(torch.float32)
+    ll = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    return torch.mean(lse - ll.to(torch.float32))
 
 
 def build_model(cfg: ModelConfig) -> Model:

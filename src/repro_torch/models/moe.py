@@ -116,14 +116,14 @@ def route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor) -> Routing:
 
 def _experts(cfg: ModelConfig, layer: MoE, xe: torch.Tensor) -> torch.Tensor:
     """xe [E, C, d] -> [E, C, d] through each expert's MLP, batched."""
-    up = torch.bmm(xe, layer.w_up)
+    up = torch.bmm(xe, layer.w_up.to(xe.dtype))
     if cfg.mlp_kind == "swiglu":
-        h = F.silu(torch.bmm(xe, layer.w_gate)) * up
+        h = F.silu(torch.bmm(xe, layer.w_gate.to(xe.dtype))) * up
     elif cfg.mlp_kind == "geglu":
-        h = gelu_tanh(torch.bmm(xe, layer.w_gate)) * up
+        h = gelu_tanh(torch.bmm(xe, layer.w_gate.to(xe.dtype))) * up
     else:
         h = gelu_tanh(up)
-    return torch.bmm(h, layer.w_down)
+    return torch.bmm(h, layer.w_down.to(xe.dtype))
 
 
 def moe_apply(cfg: ModelConfig, layer: MoE, x: torch.Tensor):

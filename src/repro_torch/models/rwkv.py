@@ -13,12 +13,14 @@ engine (:func:`repro_torch.models.linear_scan.chunked_scan`, i.e. the
 and a decode step is the same code at S = 1 from the slot's state.  There is
 no KV cache, so GEAR compresses nothing here, as in the reference.
 
-Precision follows the reference step by step: activations and the cast
-weight matrices in bf16, ``dec = w0 (f32) + LoRA (bf16)`` promoted to f32
-before ``log w = -exp(dec)``, ``u`` and the recurrent state in f32, the
-GroupNorm in f32.  :class:`TimeMix` / :class:`ChannelMix` hold the weights
-(matrices in bf16, what the reference casts them to at use; the mixes,
-``w0``, ``u`` and the GroupNorm's scale and bias in f32).
+Precision follows the reference step by step: activations and the weight
+matrices (cast to the activations' dtype at each product) in bf16,
+``dec = w0 (f32) + LoRA (bf16)`` promoted to f32 before ``log w =
+-exp(dec)``, ``u`` and the recurrent state in f32, the GroupNorm in f32.
+:class:`TimeMix` / :class:`ChannelMix` hold the weights (matrices in bf16
+for serving, what the reference casts them to at use, or f32 masters for
+training; the mixes, ``w0``, ``u`` and the GroupNorm's scale and bias in
+f32).
 """
 
 from __future__ import annotations
@@ -112,9 +114,9 @@ def _ddlerp(tm: TimeMix, x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     dx = x_prev - x
     base = tm.mix_base.to(x.dtype)
     xx = x + dx * base[0]                                   # coarse mix for the LoRA input
-    lora = torch.tanh(xx @ tm.mix_lora_a)
+    lora = torch.tanh(xx @ tm.mix_lora_a.to(x.dtype))
     lora = lora.reshape(lora.shape[:-1] + (5, LORA_MIX))
-    dyn = torch.einsum("bsfl,fld->fbsd", lora, tm.mix_lora_b)
+    dyn = torch.einsum("bsfl,fld->fbsd", lora, tm.mix_lora_b.to(x.dtype))
     mixes = base[:, None, None, :] + dyn                    # [5, B, S, d]
     return x[None] + dx[None] * mixes
 
@@ -143,9 +145,10 @@ def time_mix_apply(cfg: ModelConfig, layer, x: torch.Tensor, state: RWKVState | 
     def heads(t):
         return t.reshape(B, S, H, dh).transpose(1, 2)
 
-    r, k, v = heads(xr @ tm.wr), heads(xk @ tm.wk), heads(xv @ tm.wv)
-    g = silu(xg @ tm.wg)
-    dec = tm.w0 + torch.tanh(xw @ tm.decay_lora_a) @ tm.decay_lora_b    # f32 + bf16 -> f32
+    r, k = heads(xr @ tm.wr.to(x.dtype)), heads(xk @ tm.wk.to(x.dtype))
+    v = heads(xv @ tm.wv.to(x.dtype))
+    g = silu(xg @ tm.wg.to(x.dtype))
+    dec = tm.w0 + torch.tanh(xw @ tm.decay_lora_a.to(x.dtype)) @ tm.decay_lora_b.to(x.dtype)
     log_w = heads(-torch.exp(dec.to(torch.float32)))                     # ≤ 0
     eff_chunk = chunk if S % chunk == 0 else S
     y, wkv = linear_scan.chunked_scan(r, k, v, log_w, chunk=eff_chunk, u=tm.u,
@@ -153,7 +156,7 @@ def time_mix_apply(cfg: ModelConfig, layer, x: torch.Tensor, state: RWKVState | 
                                       mode="bonus")
     y = y.transpose(1, 2).reshape(B, S, d)
     y = _group_norm_heads(y, tm.ln_scale, tm.ln_bias, H)
-    return (y * g) @ tm.wo, (x[:, -1, :], wkv)
+    return (y * g) @ tm.wo.to(x.dtype), (x[:, -1, :], wkv)
 
 
 def channel_mix_apply(cfg: ModelConfig, layer, x: torch.Tensor,
@@ -164,8 +167,8 @@ def channel_mix_apply(cfg: ModelConfig, layer, x: torch.Tensor,
     dx = _shifted(x, None if state is None else state.shift_cm) - x
     xk = x + dx * cm.mix_k.to(x.dtype)
     xr = x + dx * cm.mix_r.to(x.dtype)
-    kk = torch.square(torch.relu(xk @ cm.wk))
-    return torch.sigmoid(xr @ cm.wr) * (kk @ cm.wv), x[:, -1, :]
+    kk = torch.square(torch.relu(xk @ cm.wk.to(x.dtype)))
+    return torch.sigmoid(xr @ cm.wr.to(x.dtype)) * (kk @ cm.wv.to(x.dtype)), x[:, -1, :]
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,

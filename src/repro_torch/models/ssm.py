@@ -57,7 +57,8 @@ def _bcdt(cfg: ModelConfig, layer, xc: torch.Tensor):
     """xc [..., dinner] -> (B̃ [..., H, ds], C̃ [..., H, ds], Δ [..., H],
     log_w [..., H]), f32 from the bf16 projection."""
     H, dh, dinner, ds = _dims(cfg)
-    proj = (xc @ layer.w_bcdt).reshape(xc.shape[:-1] + (H, 2 * ds + 1)).to(torch.float32)
+    proj = xc @ layer.w_bcdt.to(xc.dtype)
+    proj = proj.reshape(xc.shape[:-1] + (H, 2 * ds + 1)).to(torch.float32)
     b, c, dt_raw = proj[..., :ds], proj[..., ds:2 * ds], proj[..., -1]
     dt = F.softplus(dt_raw + layer.dt_bias)
     log_w = -dt * torch.exp(layer.a_log)
@@ -72,7 +73,7 @@ def ssm_apply(cfg: ModelConfig, layer, x: torch.Tensor, chunk: int = 64):
     form's clamps then cut the decay past e^-30 (ROADMAP §3)."""
     H, dh, dinner, ds = _dims(cfg)
     B, S, _ = x.shape
-    xi, z = (x @ layer.w_in).chunk(2, dim=-1)
+    xi, z = (x @ layer.w_in.to(x.dtype)).chunk(2, dim=-1)
     xc = silu(_conv_train(xi, layer.conv_w.to(x.dtype)))
     b, c, dt, log_w = _bcdt(cfg, layer, xc)
 
@@ -85,7 +86,7 @@ def ssm_apply(cfg: ModelConfig, layer, x: torch.Tensor, chunk: int = 64):
     y = y + layer.d_skip[None, :, None, None] * v
     y = y.transpose(1, 2).reshape(B, S, dinner).to(x.dtype)
     y = y * silu(z)
-    out = y @ layer.w_out
+    out = y @ layer.w_out.to(x.dtype)
     tail = xi[:, max(0, S - (cfg.ssm_conv - 1)):, :]
     if tail.shape[1] < cfg.ssm_conv - 1:
         tail = F.pad(tail, (0, 0, cfg.ssm_conv - 1 - tail.shape[1], 0))
@@ -104,7 +105,7 @@ def ssm_decode(cfg: ModelConfig, layer, x_t: torch.Tensor, st: SSMState):
     ``st`` is left as it was."""
     H, dh, dinner, ds = _dims(cfg)
     B = x_t.shape[0]
-    xi, z = (x_t[:, 0] @ layer.w_in).chunk(2, dim=-1)                 # [B, dinner]
+    xi, z = (x_t[:, 0] @ layer.w_in.to(x_t.dtype)).chunk(2, dim=-1)                 # [B, dinner]
     window = torch.cat([st.conv, xi[:, None, :]], dim=1)                # [B, cw, dinner]
     xc = silu(torch.einsum("bcd,cd->bd", window.to(torch.float32),
                             layer.conv_w.to(torch.float32))).to(x_t.dtype)
@@ -114,5 +115,5 @@ def ssm_decode(cfg: ModelConfig, layer, x_t: torch.Tensor, st: SSMState):
                                        mode="inclusive")
     y = y + layer.d_skip[None, :, None] * v
     y = (y.reshape(B, dinner) * silu(z.to(torch.float32))).to(x_t.dtype)
-    out = (y @ layer.w_out)[:, None, :]
+    out = (y @ layer.w_out.to(x_t.dtype))[:, None, :]
     return out, SSMState(conv=window[:, 1:, :], state=state)

@@ -10,7 +10,8 @@ frame, embedded by 4 tables and read out by one head of 4 x vocab logits;
 the MoE qwen3-moe and llama4-scout, whose blocks route each token to its
 top-k experts in place of the MLP (:mod:`repro_torch.models.moe`); the
 hybrid hymba, whose blocks run Mamba-2 SSM heads beside attention; and the
-attention-free RWKV6, whose blocks are time mix + channel mix).
+attention-free RWKV6, whose blocks are time mix + channel mix), and the
+training forward of all of them (:func:`forward_train`).
 
 Where the reference stacks per-layer parameters and caches over repeats and
 drives them with ``lax.scan``, the port holds one :class:`Block` and one
@@ -18,9 +19,12 @@ layer cache per layer and loops in Python.  A hybrid layer's cache is the
 pair ``(GEARLayerCache, SSMState)``, as the reference's; an RWKV6 layer's
 is its :class:`~repro_torch.models.rwkv.RWKVState`; a local layer's is a
 :class:`~repro_torch.core.cache.WindowLayerCache` (:func:`cache_cfg_for`).  Activations run in
-bf16 (``COMPUTE_DTYPE``, as the reference); weight matrices are stored in
-bf16, which is what the reference computes with after its cast at use, and
-norm scales and biases, the SSM's per-head vectors, an MoE router and an
+bf16 (``COMPUTE_DTYPE``, as the reference); every product casts its weight
+matrix to the activations' dtype at use, as the reference does.  Serving
+stores the matrices in bf16, which is what the reference computes with
+after that cast (the cast is then a no-op); training keeps f32 masters
+(``Transformer(..., dtype=torch.float32)``), as the reference's
+``init_params``.  Norm scales and biases, the SSM's per-head vectors, an MoE router and an
 audio model's embedding tables stay f32.  The SSM's ``conv_w``
 stays f32 too: the reference's prefill casts it to bf16 at use, its decode
 uses it in f32.
@@ -28,9 +32,12 @@ uses it in f32.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cache as cache_lib
@@ -46,7 +53,7 @@ from repro_torch.models.mlp import GATED_KINDS, MLP_KINDS, mlp_apply
 __all__ = ["COMPUTE_DTYPE", "Block", "RWKVBlock", "Transformer", "check_supported",
            "check_serving", "is_hybrid", "layer_kinds", "cache_cfg_for", "init_caches",
            "embed_tokens", "final_norm", "logits_from_hidden", "forward_prefill",
-           "decode_tokens"]
+           "decode_tokens", "pick_q_chunk", "forward_train"]
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -230,10 +237,12 @@ class Transformer(nn.Module):
         return self.embed.device
 
     @classmethod
-    def random(cls, cfg: ModelConfig, seed: int = 0, device=None) -> "Transformer":
+    def random(cls, cfg: ModelConfig, seed: int = 0, device=None,
+               dtype=COMPUTE_DTYPE) -> "Transformer":
         """Random weights from a seeded ``torch.Generator`` on the target
         device: normal draws scaled by ``fan_in ** -0.5`` as the reference's
-        init (untruncated), drawn in place in the parameter's dtype.
+        init (untruncated), drawn in place in the parameter's dtype (the
+        matrices' ``dtype``: bf16 to serve, f32 masters to train).
         ``fan_in`` is the reference's: its ``dense_init`` default
         ``shape[0]`` (also the expert count E of an MoE's ``w_up`` /
         ``w_gate`` [E, d, ffe]), ``d`` for the embedding (``[V, d]``, an
@@ -248,7 +257,7 @@ class Transformer(nn.Module):
         the SSM's per-head vectors (``a_log`` 0, ``dt_bias`` -1, ``d_skip``
         1), RWKV6's mixes (0.5), ``w0`` (-2), ``u`` (0) and its norms' scale
         1 and bias 0."""
-        model = cls(cfg, device)
+        model = cls(cfg, device, dtype)
         gen = torch.Generator(device=model.device).manual_seed(seed)
         fixed, fan_dim = set(), {"embed": -1}
         for prefix, mod in model.named_modules():
@@ -355,10 +364,19 @@ def logits_from_hidden(model: Transformer, h: torch.Tensor) -> torch.Tensor:
     as musicgen's) [..., K, V]."""
     if model.lm_head is None:
         return h @ model.embed.to(h.dtype).T
-    out = h @ model.lm_head
+    out = h @ model.lm_head.to(h.dtype)
     if model.cfg.modality == "audio":
         return out.reshape(out.shape[:-1] + (model.cfg.num_codebooks, model.cfg.vocab_size))
     return out
+
+
+def pick_q_chunk(s: int, target: int = 512) -> int:
+    """The largest of ``target``, ``target / 2``, ... that divides ``s``
+    (at most ``s``), as the reference's query chunk."""
+    c = min(target, s)
+    while s % c:
+        c //= 2
+    return max(c, 1)
 
 
 def _rope_by_kind(cfg: ModelConfig, positions: torch.Tensor) -> dict:
@@ -517,3 +535,76 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
         x = x + blk.mlp(blk.norm2(x))
     x = final_norm(model, x)
     return logits_from_hidden(model, x)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of the 2-D matrix products (every ``x @ W``; JAX's
+    ``dots_with_no_batch_dims_saveable``) and recompute everything else,
+    the attention's batched products included."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block_train(cfg: ModelConfig, blk, kind: str, x: torch.Tensor, rope, positions,
+                 prefix_len: int, q_chunk: int):
+    """One layer of the training forward (the reference's
+    ``_apply_block_train``): returns (x, aux), aux the layer's MoE
+    load-balance loss (an f32 zero for any other layer)."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.rwkv:
+        h, _ = rwkv_lib.time_mix_apply(cfg, blk, blk.ln1(x))
+        x = x + h
+        h, _ = rwkv_lib.channel_mix_apply(cfg, blk, blk.ln2(x))
+        return x + h, zero
+    xin = blk.norm1(x)
+    h = attn_lib.attention_train(cfg, blk, xin, rope, positions, kind, prefix_len, q_chunk)
+    if is_hybrid(cfg):
+        h2, _ = ssm_lib.ssm_apply(cfg, blk, xin)
+        h = (h + h2) * 0.5
+    x = x + h
+    xin2 = blk.norm2(x)
+    if blk.moe is not None:
+        m, aux = moe_lib.moe_apply(cfg, blk.moe, xin2)
+        return x + m, aux
+    return x + mlp_apply(blk, xin2, blk.mlp_kind), zero
+
+
+def forward_train(model: Transformer, tokens: torch.Tensor,
+                  img_embeds: torch.Tensor | None = None, remat: bool = False,
+                  remat_policy: str = "full", q_chunk_target: int = 512):
+    """The training forward (the reference's ``forward(mode="train")``):
+    ``tokens`` [B, S] ([B, S, K] for audio; a VLM's text after its
+    ``img_embeds`` [B, P, d]) -> (logits [B, S(+P), V] ([..., K, V] for
+    audio) in bf16, aux), aux the MoE load-balance losses summed over layers
+    (f32).  Attention is :func:`~repro_torch.models.attention.attention_train`;
+    a hybrid's SSM heads run beside it and an RWKV6 layer runs its time and
+    channel mix, their scans through ``models.linear_scan.chunked_scan`` (on
+    a card that is the ``linear_scan_chunked`` kernel, which has no
+    backward: it raises when asked for a gradient).
+
+    ``remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``); ``remat_policy="dots"`` keeps the outputs
+    of the layer's matrix products (:func:`_save_products`), ``"full"``
+    keeps nothing."""
+    if remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy must be full/dots, got {remat_policy!r}")
+    cfg = model.cfg
+    x = embed_tokens(model, tokens, img_embeds)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    ropes = {} if cfg.rwkv else _rope_by_kind(cfg, positions)
+    prefix_len = cfg.num_prefix_tokens if cfg.modality == "vlm" else 0
+    q_chunk = pick_q_chunk(S, q_chunk_target)
+    context = (functools.partial(ckpt.create_selective_checkpoint_contexts, _save_products)
+               if remat_policy == "dots" else ckpt.noop_context_fn)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk, kind in zip(model.blocks, layer_kinds(cfg)):
+        args = (cfg, blk, kind, x, ropes.get(kind), positions, prefix_len, q_chunk)
+        if remat:
+            x, a = ckpt.checkpoint(_block_train, *args, use_reentrant=False, context_fn=context)
+        else:
+            x, a = _block_train(*args)
+        aux = aux + a
+    return logits_from_hidden(model, final_norm(model, x)), aux

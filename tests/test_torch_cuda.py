@@ -991,3 +991,42 @@ def test_served_vlm_wave_matches_the_cpu_port(dev):
     assert (gaps[:, 0] <= CROSS_PREFILL_ATOL).all(), gaps[:, 0]
     assert (gaps <= CROSS_GAP).all(), gaps
     np.testing.assert_array_equal(served, rows["dev"].argmax(-1))
+
+
+def test_kernel_wrappers_refuse_grad_on_the_card(dev):
+    """A CUDA operand that requires grad raises while grad mode is on (the
+    ctypes call would cut the autograd graph); under ``inference_mode`` the
+    same call launches.  A hybrid's training forward on the card raises at
+    its scan (``linear_scan_chunked`` has no backward); a dense model's
+    trains through ``attention_train`` without any kernel."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import build_model
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    r, k, v = (torch.randn(4, 64, 16, device=dev, generator=g) for _ in range(3))
+    lw = -torch.rand(4, 64, 16, device=dev, generator=g)
+    r.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="item 11"):
+        lsk.linear_scan_chunked(r, k, v, lw, chunk=64)
+    with torch.inference_mode():
+        lsk.linear_scan_chunked(r.detach(), k, v, lw, chunk=64)
+    q = torch.randn(4, 64, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="attention_train"):
+        fp.flash_prefill(q, q.detach(), q.detach())
+    for arch, raises in (("hymba-1.5b", True), ("minicpm-2b", False)):
+        cfg = smoke_config(arch)
+        m = build_model(cfg)
+        params = m.init(seed=0, device=dev, dtype=torch.float32).requires_grad_(True)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=dev, generator=g)
+        before = {name: fn.launches for name, fn in
+                  (("scan", lsk.linear_scan_chunked), ("flash", fp.flash_prefill))}
+        if raises:
+            with pytest.raises(RuntimeError, match="item 11"):
+                m.loss_fn(params, {"tokens": tokens})
+        else:
+            loss, _ = m.loss_fn(params, {"tokens": tokens}, remat=True, remat_policy="dots")
+            loss.backward()
+            assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                       for p in params.parameters())
+            assert lsk.linear_scan_chunked.launches == before["scan"]
+            assert fp.flash_prefill.launches == before["flash"]

@@ -69,7 +69,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bound and, where products run on the tensor cores, its TF32 bound, with
    the CUDA kernels one call launches (with ``--parent-scan``, an older
    ``linear_scan.cu`` is built too and timed in turns p1, c1, c2, p2 here
-   and at the live scans of phases 13 and 15);
+   and at the live scans of phases 13 and 15); then the backward
+   (``linear_scan_chunked_bwd``) at every one of those cases (a seeded dy,
+   and a seeded final-state gradient from a ``state0``) and at paths 25-26's
+   training scans (rwkv6-3b: 80 rows of Dk = Dv = 64, bonus; hymba-1.5b: 50
+   rows, Dk 16, Dv 64, one decay per row; S 512 in chunks of 64, a zero
+   final-state gradient): every gradient within 2e-3 x max(1, max |plain|)
+   of ``linear_scan_bwd_ref``'s overall and per row, two calls bit for bit,
+   timed beside the plain version and its f32 bound;
 9. ``quant_pack`` through its entry point ``repro_torch.kernels.quantize_chunk``
    on the 448 [64, 128] tiles of phase 5, at 2, 4 and 8 bits, f32 and bf16
    input: launches counted, packed codes, scale and zero bit for bit equal
@@ -88,9 +95,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the timer's own check runs on it (CUDA events beside the profiler's
    kernel time); path 10b: that step's layer-0 ``gear_attend`` output (the
    kernel) against the portable ``cache.attend`` on the same cache (atol
-   3e-2, the reference's bound for its f32 / bf16 pair); then
-   ``torch.profiler`` windows over one prefill and 8 decode steps say
-   where the time goes (tables under ``build/profile/``);
+   3e-2, the reference's bound for its f32 / bf16 pair) (no profiler
+   window, for time: ``PERF.md`` §5 keeps an earlier reading);
 11. serving, path 2: the same requests through llama2-7b at all its 32
     layers with ``prefill_mode="streaming", layout="paged"`` and a pool of
     two thirds of the dense-equivalent pages, so that a decode step runs
@@ -119,8 +125,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
     greedy tokens, and for request 1 the same prefill logits and pool
     chunks bit for bit; request 1's layer-0 history call (extents from 512)
     and ``flash_prefill_block`` call are held against their plain versions
-    and timed, cold and warm prefill times are printed, and a profiler
-    window covers one warm prefill;
+    and timed, cold and warm prefill times are printed (no profiler window,
+    for time: ``PERF.md`` §5 keeps an earlier reading);
 13. serving, path 3: hymba-1.5b (GEAR attention beside Mamba-2 SSM heads)
     at its 32 layers and published widths, random bf16 weights with the
     reference's SSM constants, the same 8 requests (ids from its vocab),
@@ -294,20 +300,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
     microbatches, 8 steps of ``make_train_step`` and no checkpoint: every
     loss and grad norm finite and positive, the last loss below the first,
     every kernel wrapper's launch counter 0 over the steps (training attends
-    through ``attention_train``; no kernel has a backward); step time,
-    tokens/s, peak memory and the share of the dense bf16 peak that 8 N
-    tokens per step reach;
-34. training, path 24: minicpm-2b's smoke config, one train step on the CPU
-    port and on the card from the same weights and batch (loss within 1e-2,
-    every update of >= 1,000 elements at cosine >= 0.98), then on the card
-    6 steps straight against 3 steps, ``ckpt.save``, a fresh ``train_loop``
-    resuming from it and 3 more (parameters within 1e-5);
+    through ``attention_train``); step time, tokens/s, peak memory and the
+    share of the dense bf16 peak that 8 N tokens per step reach;
+34. training, path 24: the smoke configs of minicpm-2b, rwkv6-3b,
+    hymba-1.5b, qwen3-moe-235b-a22b, paligemma-3b and musicgen-medium, one
+    train step on the CPU port and on the card from the same weights and
+    batch (loss within 1e-2; every update of >= 1,000 elements at cosine
+    >= 0.98, but rwkv6-3b: its gradients, every leaf within relative error
+    0.5 and cosine 0.95), then minicpm-2b on the card 6 steps straight
+    against 3 steps, ``ckpt.save``, a fresh ``train_loop`` resuming from it
+    and 3 more (parameters within 1e-5);
 35. adaptive rank at ``benchmarks/bench_adaptive.py``'s shape (8 heads of
     [512, 128] seeded KV-like residuals), ranks 2, 4 and 8 on the card
-    against the CPU port: ranks equal, errors within 1e-4;
-36. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
-    by path), the card's name and power limit, and the final
-    ``{"ok": true, "device": {...}}`` line.
+    against the CPU port: ranks equal, errors within 1e-3;
+36. training, path 25: rwkv6-3b at its published widths and 32 layers (3.1 B
+    parameters), path 23's recipe: the gates of path 23, and exactly 2 x 32
+    x 2 ``linear_scan_chunked`` launches a step (the forward and the
+    ``dots`` remat's recompute) and 32 x 2 ``linear_scan_chunked_bwd``
+    launches, no other kernel; the first live backward call held against
+    the plain backward and timed; then ``python -m repro_torch.launch.train
+    --arch rwkv6-3b --smoke --steps 4`` as a subprocess, with no
+    ``--device``: exit 0 and ``done at step 4``;
+37. training, path 26: hymba-1.5b at its published widths and 32 layers, as
+    path 25 (its attention trains through ``attention_train``, its SSM
+    heads' scans through the kernels), and its launcher run;
+38. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
+    by path; the backward's on paths 25-26), the card's name and power
+    limit, and the final ``{"ok": true, "device": {...}}`` line.
 
 Kernel times come from ``time_ms``: the median over launches of CUDA
 events around one launch with a cold L2, behind a device-side wait that
@@ -1420,6 +1439,123 @@ def scan_case(case, flush, report: dict) -> None:
                list_kernels=True)
 
 
+# the backward's cases: every SCAN_CASES entry, then paths 25-26's training
+# scans (2 sequences of 512 tokens a microbatch, chunk 64, a zero state)
+SCAN_BWD_TRAIN_CASES = {
+    "rwkv": ("bonus", 80, 512, 64, 64, 64, 64, False),        # rwkv6-3b: 2 x 40 heads
+    "hymba": ("inclusive", 50, 512, 16, 64, 1, 64, False),    # hymba-1.5b: 2 x 25 SSM heads
+}
+
+
+def scan_bwd_bytes_flops(r, k, v, lw, u, chunk: int, mode: str, state0=None, dstate=None):
+    """Least bytes and f32 operations of one ``linear_scan_chunked_bwd``
+    call: r, k, v, log w, u, state0, dy and dstate read once, their
+    gradients written once.  Per chunk of W tokens: 2 (3 Dk + 2 Dv)
+    operations per visible (query, key) pair (A = q_fac k_fac^T, dA = g v^T,
+    dq_fac, dk_fac and dv from them); 8 Dk Dv per token for the four
+    token-by-state products (the recomputed increment k_state^T v, q_fac^T
+    g, k_state G_{c+1} and v G_{c+1}^T); per token, the factors as the
+    forward computes them, 12 Dk for dr, dk and the masked exponential
+    terms and 3 per log w column for its reverse cumsum; 2 Dk Dv for the
+    reverse state pass.  Where the chunk-start state is not zero (the chunks
+    after the first, or every chunk from a ``state0``): 2 Dk Dv per token
+    for g S_c^T, and 3 Dk Dv for the state's decay and d dl.  Returns
+    (bytes, operations)."""
+    BH, S, Dk = r.shape
+    Dv, L = v.shape[-1], lw.shape[-1]
+    W = chunk
+    n = S // W
+    pairs = W * (W + 1) // 2 if mode == "inclusive" else W * (W - 1) // 2
+    per_chunk = (pairs * 2 * (3 * Dk + 2 * Dv) + W * (8 * Dk * Dv + 4 * L + 15 * Dk + 3 * L)
+                 + 2 * Dk * Dv)
+    if mode == "bonus":                         # beta, gamma, their terms in dr, dk, dv, du
+        per_chunk += W * (3 * Dk + 2 * Dv + 6 * Dk + 2 * Dv)
+    cross = W * 2 * Dk * Dv + 3 * Dk * Dv
+    flops = BH * (n * per_chunk + (n if state0 is not None else n - 1) * cross)
+    tensors = [r, k, v, lw, u, state0, dstate]
+    read = sum(x.numel() for x in tensors if x is not None) + BH * S * Dv       # + dy
+    written = sum(x.numel() for x in (r, k, v, lw, u, state0) if x is not None)
+    return 4 * (read + written), flops
+
+
+def scan_bwd_check(fn, args: tuple, kw: dict, label: str, flush, report: dict,
+                   iters: int = 20, list_kernels: bool = False):
+    """Backward kernel vs ``linear_scan_bwd_ref`` on the same operands: each
+    gradient within 2e-3 x max(1, max |plain|) overall and per row (as
+    ``scan_check`` holds y), two calls equal bit for bit; then its time, the
+    plain version's and the bound (f32 operations at the SIMT rate: the
+    kernel runs f32 FMAs), with ``list_kernels`` the device time of each of
+    its seven CUDA kernels (a profiler window).  Returns (ms, plain_ms,
+    bound_ms, bound_by)."""
+    from repro_torch.kernels.ref import linear_scan_bwd_ref
+
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    want = linear_scan_bwd_ref(*args, **kw)
+    torch.cuda.synchronize()
+    names = ("dr", "dk", "dv", "dlog_w", "du", "dstate0")
+    errs, ok, worst = {}, True, 0.0
+    for name, a, b, w in zip(names, got, again, want):
+        if (a is None) != (w is None):
+            fail(f"{label}: {name} is {'missing' if a is None else 'unexpected'}")
+        if w is None:
+            continue
+        scale = max(1.0, float(w.abs().max()))
+        err = float((a - w).abs().max())
+        row, _ = row_err(a, w)
+        bitwise = torch.equal(a, b)
+        errs[name] = (err, scale, row, bitwise)
+        ok = ok and err <= 2e-3 * scale and row <= 1.0 and bitwise
+        worst = max(worst, err / scale)
+        report["err"] = max(report.get("err", 0.0), err)
+    ms = time_ms(lambda: fn(*args, **kw), iters, flush)
+    plain_ms = time_ms(lambda: linear_scan_bwd_ref(*args, **kw), 3, flush)
+    names = kernel_breakdown(lambda: fn(*args, **kw), 10, flush) if list_kernels else None
+    nbytes, flops = scan_bwd_bytes_flops(*args, kw["chunk"], kw["mode"], kw.get("state0"),
+                                         kw.get("dstate"))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    print(f"  {label}: " + ", ".join(
+        f"{n} max_abs_err={e:.3e} (tol 2e-3 x {sc:.3g}; worst row at {rw:.3g} of its limit"
+        f"{'' if bw else '; TWO CALLS DIFFER'})" for n, (e, sc, rw, bw) in errs.items()))
+    print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at f32 {F32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s), two calls bitwise equal: {all(e[3] for e in errs.values())}"
+          + ("; CUDA kernels per call (ms): " + ", ".join(
+              f"{key} {val:.4f}" for key, val in names.items()) if names else ""))
+    if not ok:
+        fail(f"{label} disagrees with its plain version")
+    report["err_over_scale"] = max(report.get("err_over_scale", 0.0), worst)
+    report.setdefault("cases", []).append(
+        {"what": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        | ({"kernels": names} if names else {}))
+    return ms, plain_ms, bound, by
+
+
+def scan_bwd_case(case, flush, report: dict, dstate_zero: bool = False,
+                  list_kernels: bool = False):
+    """``scan_case``'s operands and a seeded dy (and, from a ``state0``, a
+    seeded dstate; ``dstate_zero``: the zero gradient a training step's unused
+    final state gives) through the backward kernel."""
+    from repro_torch.kernels import linear_scan_kernel as lsk
+
+    mode, BH, S, Dk, Dv, lw_cols, chunk, with_state = case
+    r, k, v, lw, u = scan_inputs(mode, BH, S, Dk, Dv, lw_cols, S + Dk)
+    gen = torch.Generator(device=DEV).manual_seed(S + Dv)
+    kw = dict(chunk=chunk, mode=mode, dy=torch.randn(BH, S, Dv, generator=gen, device=DEV))
+    if with_state:
+        kw["state0"] = torch.randn(BH, Dk, Dv, generator=torch.Generator(device=DEV).manual_seed(S),
+                                   device=DEV)
+        kw["dstate"] = torch.randn(BH, Dk, Dv, generator=gen, device=DEV)
+    elif dstate_zero:
+        kw["dstate"] = torch.zeros(BH, Dk, Dv, device=DEV)
+    return scan_bwd_check(
+        lsk.linear_scan_chunked_bwd, (r, k, v, lw, u), kw,
+        f"linear_scan_chunked_bwd {mode} BH={BH} S={S} Dk={Dk} Dv={Dv} log_w[..,{lw_cols}] "
+        f"chunk={chunk}" + (" from a non-zero state0 with a final-state gradient" if with_state
+                            else ""), flush, report, list_kernels=list_kernels)
+
+
 # ---------------------------------------------------------------------------
 # quant_pack
 
@@ -1588,6 +1724,16 @@ class Capture:
     def restore(self) -> None:
         setattr(self.module, self.name, self.real)
 
+    @property
+    def launches(self) -> int:
+        """The wrapped kernel's count (a wrapper bumps its count through its
+        module's name, which this stand-in holds while it is installed)."""
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.real.launches = n
+
 
 class CallCheck:
     """Stand-in for ``module.name`` that forwards every call and, at its
@@ -1637,7 +1783,8 @@ def kernel_fns() -> dict:
     return {"gear_decode": gd.gear_decode, "flash_prefill": fp.flash_prefill,
             "gear_compress": gc.gear_compress, "flash_prefill_block": fp.flash_prefill_block,
             "gear_decode_paged": gd.gear_decode_paged,
-            "linear_scan_chunked": lsk.linear_scan_chunked, "quant_pack": qp.quant_pack}
+            "linear_scan_chunked": lsk.linear_scan_chunked,
+            "linear_scan_chunked_bwd": lsk.linear_scan_chunked_bwd, "quant_pack": qp.quant_pack}
 
 
 def drive(eng, cfg, prompts: list, captures: list, new_tokens: int = NEW_TOKENS,
@@ -1780,7 +1927,6 @@ def serving(model, params, cfg, layers: int, flush, reports: dict) -> dict:
         fail(f"the portable attend disagrees with gear_attend on a live cache: {err}")
     summary.update(layers=layers, portable_attend_err=err,
                    cache_nbytes=cache_nbytes(model, pol))
-    profile(eng, cfg, HERE / "build" / "profile", "monolithic_dense")
     return summary
 
 
@@ -2189,7 +2335,6 @@ def serving_prefix(model, params, cfg, layers: int, flush, reports: dict) -> dic
                    gemm_rows_differ=rows_differ)
     for name in ("gear_decode", "flash_prefill_block", "gear_compress", "gear_decode_paged"):
         reports[name]["launches_by_path"]["prefix_paged"] = launches[name]
-    profile_warm(warm, prompts, HERE / "build" / "profile", "prefix_paged")
     return summary
 
 
@@ -3369,18 +3514,6 @@ def serving_moe_paged(model, params, cfg, layers: int, flush, reports: dict) -> 
     return summary
 
 
-def profile_warm(eng, prompts: list, out_dir: pathlib.Path, tag: str) -> None:
-    """A ``torch.profiler`` window over one warm prefill: a new view (fresh
-    pool and trie), request 0 seeds the trie, and request 1's prefill (its
-    system prompt hit) runs in the window."""
-    view = eng.new_view()
-    view.prefill_slot({"tokens": prompts[0][None]}, 0, reserve_tokens=len(prompts[0]))
-    torch.cuda.synchronize()
-    profile_window(lambda: view.prefill_slot({"tokens": prompts[1][None]}, 1,
-                                             reserve_tokens=len(prompts[1])),
-                   out_dir, tag, "warm_prefill")
-
-
 def profile(eng, cfg, out_dir: pathlib.Path, tag: str, prompt_len: int = 640) -> None:
     """Where the time goes: ``torch.profiler`` over one ``prompt_len``-token
     prefill and over 8 decode steps of 4 live slots (after warm-up).  Prints
@@ -3443,6 +3576,11 @@ TRAIN_ARCH = "minicpm-2b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 512, 2, 8
 TRAIN_LOSS_ATOL = 1e-2         # one step, card against the CPU port (the CPU tests' bound)
 TRAIN_STEP_COS = 0.98          # the update of each leaf of >= 1,000 elements, card against CPU
+# path 24's smoke configs; rwkv6-3b is held on its gradients at the CPU
+# tests' GRAD_LIMITS (relative error, cosine), not on the update's cosine
+CROSS_ARCHS = ("minicpm-2b", "rwkv6-3b", "hymba-1.5b", "qwen3-moe-235b-a22b", "paligemma-3b",
+               "musicgen-medium")
+RWKV_GRAD_LIMITS = (0.5, 0.95)
 RESTORE_ATOL = 1e-5            # 6 steps straight against 3 + restore + 3 (the reference's bound)
 # adaptive / uniform relative errors, card against CPU.  Six unnormalised
 # power-iteration sweeps in f32 leave the trailing columns of a 16- or
@@ -3458,27 +3596,35 @@ def zero_launches() -> dict:
     return fns
 
 
-def training(flush, reports: dict) -> dict:
-    """Path 23: minicpm-2b at its published widths and 40 layers (2.72 B
-    parameters, random f32 master weights from a seeded generator), the
-    config's WSD schedule (warmup 1 of 8 steps), remat per layer with the
-    ``dots`` policy, batches of 4 x 512 tokens from ``data.synthetic`` in
-    2 microbatches, 8 steps of ``make_train_step``, no checkpoint (one would
-    write ~33 GB).  Every step's loss and grad norm must be finite and
-    positive, the last step's loss below the first's, and every kernel
-    wrapper's launch counter 0 over the steps.  Prints the step time,
-    tokens/s, peak memory, and the share of the card's dense bf16 peak that
-    8 N tokens per step reach (6 N forward and backward, 2 N the remat's
-    recompute); then two more steps, the second under a CUDA-only profiler
+def training(flush, reports: dict, arch: str = TRAIN_ARCH, path: str = "train_full") -> dict:
+    """Paths 23, 25 and 26: ``arch`` at its published widths and depth
+    (random f32 master weights from a seeded generator), the config's
+    schedule (warmup 1 of 8 steps), remat per layer with the ``dots``
+    policy, batches of 4 x 512 tokens from ``data.synthetic`` in 2
+    microbatches, 8 steps of ``make_train_step``, no checkpoint (one would
+    write tens of GB).  Every step's loss and grad norm must be finite and
+    positive, the last step's loss below the first's.  A model without a
+    scan (path 23) must launch no kernel; an RWKV6 or hybrid model (paths
+    25-26) must launch ``linear_scan_chunked`` exactly 2 x layers x
+    microbatches times a step (the forward, and ``dots`` remat's recompute
+    of each layer's forward in the backward) and ``linear_scan_chunked_bwd``
+    layers x microbatches times, and no other kernel; its first live
+    backward call is held against the plain backward and timed.  Prints the
+    step time, tokens/s, peak memory, and the share of the card's dense bf16
+    peak that 8 N tokens per step reach (6 N forward and backward, 2 N the
+    remat's recompute); then one more step under a CUDA-only profiler
     (``kernel_breakdown``): its summed kernel time against an unprofiled
     step (the device's busy share) and the leading kernels."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.kernels import linear_scan_kernel as lsk
     from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import is_hybrid
     from repro_torch.train.loop import make_train_step
     from repro_torch.train.state import RunConfig, init_train_state
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
+    scans = cfg.rwkv or is_hybrid(cfg)
     model = build_model(cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3498,20 +3644,29 @@ def training(flush, reports: dict) -> dict:
                      global_batch=TRAIN_BATCH)
     batches = [make_batch(dc_, cfg, s, DEV) for s in range(TRAIN_STEPS)]
     fns = zero_launches()
+    # the last layer's backward scan of step 0's first microbatch
+    cap = Capture(lsk, "linear_scan_chunked_bwd", 0) if scans else None
     rows = []
-    for s in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, met = step(state, batches[s])
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
-        m = {k: float(v) for k, v in met.items()}
-        rows.append(dict(m, ms=ms))
-        print(f"  step {s}: loss {m['loss']:.4f} (ce {m['ce']:.4f}) lr {m['lr']:.3e} "
-              f"grad_norm {m['grad_norm']:.4f}, {ms:.1f} ms")
-    launches = {name: fn.launches for name, fn in fns.items()}
-    if any(launches.values()):
-        fail(f"training launched a CUDA kernel: {launches}")
+    try:
+        for s in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, met = step(state, batches[s])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            m = {k: float(v) for k, v in met.items()}
+            rows.append(dict(m, ms=ms))
+            print(f"  step {s}: loss {m['loss']:.4f} (ce {m['ce']:.4f}) lr {m['lr']:.3e} "
+                  f"grad_norm {m['grad_norm']:.4f}, {ms:.1f} ms")
+        launches = {name: fn.launches for name, fn in fns.items()}
+    finally:
+        if cap is not None:
+            cap.restore()
+    per_step = TRAIN_MICRO * cfg.num_layers if scans else 0
+    want = ({"linear_scan_chunked": 2 * per_step * TRAIN_STEPS,
+             "linear_scan_chunked_bwd": per_step * TRAIN_STEPS} if scans else {})
+    if {k: n for k, n in launches.items() if n} != want:
+        fail(f"training {cfg.name}: kernel launches {launches}, expected {want} (others 0)")
     for r in rows:
         if not all(np.isfinite(r[k]) and r[k] > 0 for k in ("loss", "grad_norm")):
             fail(f"training: a loss or grad norm is not finite and positive: {rows}")
@@ -3523,7 +3678,22 @@ def training(flush, reports: dict) -> dict:
     peak = torch.cuda.max_memory_allocated() / 1e9
     flops = 8 * n_params * tokens
     share = flops / (step_ms / 1e3) / BF16_FLOPS
-    print(f"  kernel launches over the {TRAIN_STEPS} steps: {launches} (all 0)")
+    print(f"  kernel launches over the {TRAIN_STEPS} steps: {launches} (expected "
+          f"{want or 'all 0'}" + (f": {2 * per_step} forward and {per_step} backward scans a "
+                                  f"step" if scans else "") + ")")
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params}
+    if scans:
+        rep = reports["linear_scan_chunked_bwd"]
+        r, k, v, lw, u = cap.args
+        print(f"  live backward scan: r {tuple(r.shape)}, log_w {tuple(lw.shape)}, "
+              f"{ {n: x for n, x in cap.kwargs.items() if not isinstance(x, torch.Tensor)} }")
+        live = scan_bwd_check(cap.real, tuple(cap.args), cap.kwargs,
+                              f"linear_scan_chunked_bwd live {cfg.name} backward scan", flush,
+                              rep)
+        out.update(zip(("scan_bwd_ms", "scan_bwd_plain_ms", "scan_bwd_bound_ms",
+                        "scan_bwd_bound_by"), live))
+        rep.setdefault("launches_by_path", {})[path] = launches["linear_scan_chunked_bwd"]
+        reports["linear_scan_chunked"]["launches_by_path"][path] = launches["linear_scan_chunked"]
     holder = [state]
 
     def one_more():
@@ -3543,18 +3713,47 @@ def training(flush, reports: dict) -> dict:
     del state, params, step, batches, holder
     gc.collect()
     torch.cuda.empty_cache()
-    return {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params, "tokens_per_step":
-            tokens, "steps": rows, "step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
-            "peak_gb": peak, "bf16_peak_share": share, "launches": launches,
-            "device_ms_per_step": busy_s * 1e3, "card": smi()}
+    return out | {"tokens_per_step": tokens, "steps": rows, "step_ms": step_ms,
+                  "tokens_per_s": tokens / (step_ms / 1e3), "peak_gb": peak,
+                  "bf16_peak_share": share, "launches": launches,
+                  "device_ms_per_step": busy_s * 1e3, "card": smi()}
+
+
+def train_launcher(arch: str) -> dict:
+    """``python -m repro_torch.launch.train --arch <arch> --smoke --steps 4``
+    as a user runs it, without ``--device`` (so on the card), checkpoints
+    into a fresh directory under ``build/``: it must exit 0 and end with
+    ``done at step 4``."""
+    import os
+    import tempfile
+
+    build = HERE / "build"
+    build.mkdir(exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    with tempfile.TemporaryDirectory(dir=build) as ckpt:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
+               "--steps", "4", "--ckpt-dir", ckpt]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
+                              timeout=600)
+        sec = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    print(f"  {' '.join(cmd[1:-2])}: exit {proc.returncode} in {sec:.1f} s; " + " | ".join(lines))
+    if proc.returncode != 0 or not lines or lines[-1] != "done at step 4":
+        fail(f"the training launcher ({arch}) exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return {"seconds": sec, "stdout": lines}
 
 
 def training_cross() -> dict:
-    """Path 24: minicpm-2b's smoke config.  One ``make_train_step`` on the
-    CPU port and on the card from the same f32 weights (seeded on the CPU,
-    then copied) and batch: loss within ``TRAIN_LOSS_ATOL``, each leaf's
-    update (of >= 1,000 elements) at cosine >= ``TRAIN_STEP_COS``.  Then, on
-    the card, 6 steps of ``train_loop`` straight against 3 steps,
+    """Path 24: the smoke configs of ``CROSS_ARCHS``.  For each, one
+    ``make_train_step`` on the CPU port and on the card from the same f32
+    weights (seeded on the CPU, then copied) and batch: loss within
+    ``TRAIN_LOSS_ATOL``, each leaf's update (of >= 1,000 elements) at cosine
+    >= ``TRAIN_STEP_COS``; rwkv6-3b, whose gradient at init is
+    ill-conditioned (ROADMAP standing difference m), is held instead on the
+    step's gradients, every leaf within ``RWKV_GRAD_LIMITS`` (the CPU tests'
+    ``GRAD_LIMITS``: relative Frobenius error, cosine).  Then, on the card,
+    minicpm-2b's 6 steps of ``train_loop`` straight against 3 steps,
     ``ckpt.save``, a fresh ``train_loop`` resuming from that checkpoint and
     3 more steps (the reference's restore recipe): parameters within
     ``RESTORE_ATOL``."""
@@ -3565,34 +3764,67 @@ def training_cross() -> dict:
     from repro_torch.configs import smoke_config
     from repro_torch.data.synthetic import DataConfig, make_batch
     from repro_torch.models.model import build_model
-    from repro_torch.train.loop import make_train_step, train_loop
+    from repro_torch.train.loop import _accum_grads, make_train_step, train_loop
     from repro_torch.train.state import RunConfig, init_train_state
+
+    run = RunConfig(total_steps=6, warmup_steps=0, microbatches=2, remat=True,
+                    remat_policy="dots", ckpt_every=0, log_every=1)
+    out = {}
+    for arch in CROSS_ARCHS:
+        cfg = smoke_config(arch)
+        model = build_model(cfg)
+        dc_ = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
+        cpu_params = model.init(seed=0, device="cpu", dtype=torch.float32)
+        card_params = copy.deepcopy(cpu_params).to(DEV)
+        before = {n: p.detach().clone() for n, p in cpu_params.named_parameters()}
+        step = make_train_step(model, run)
+        loss, grads = {}, {}
+        for key, dev, params in (("cpu", "cpu", cpu_params), ("cuda", DEV, card_params)):
+            batch = make_batch(dc_, cfg, 0, dev)
+            if arch == "rwkv6-3b":
+                lo, _, g = _accum_grads(model, params.requires_grad_(True), batch, run)
+                grads[key] = {n: t.detach().cpu().double() for n, t in g.items()}
+                loss[key] = float(lo)
+            else:
+                _, met = step(init_train_state(params, run), batch)
+                loss[key] = float(met["loss"])
+        gap = abs(loss["cpu"] - loss["cuda"])
+        if arch == "rwkv6-3b":
+            rel_max, cos_min = 0.0, 1.0
+            for n, a in grads["cpu"].items():
+                b = grads["cuda"][n]
+                nb = float(b.norm())
+                rel = float((a - b).norm()) / max(nb, 1e-300)
+                cos = float(a.flatten() @ b.flatten()) / max(float(a.norm()) * nb, 1e-300)
+                rel_max, cos_min = max(rel_max, rel), min(cos_min, cos)
+            print(f"  {arch}: one step's loss on the CPU and on the card {loss['cpu']:.6f} / "
+                  f"{loss['cuda']:.6f} (gap {gap:.2e}); gradients, card against CPU: largest "
+                  f"relative error {rel_max:.4f}, least cosine {cos_min:.6f} (limits "
+                  f"{RWKV_GRAD_LIMITS})")
+            if gap > TRAIN_LOSS_ATOL or rel_max > RWKV_GRAD_LIMITS[0] or \
+                    cos_min < RWKV_GRAD_LIMITS[1]:
+                fail(f"training {arch} on the card leaves the CPU port: loss gap {gap}, "
+                     f"gradient rel {rel_max}, cosine {cos_min}")
+            out[arch] = {"loss_cpu": loss["cpu"], "loss_cuda": loss["cuda"],
+                         "grad_rel_max": rel_max, "grad_cos_min": cos_min}
+            continue
+        worst = 1.0
+        for (n, p), (_, q) in zip(cpu_params.named_parameters(), card_params.named_parameters()):
+            if p.numel() >= 1000:
+                a = (p.detach() - before[n]).double().flatten()
+                b = (q.detach().cpu() - before[n]).double().flatten()
+                worst = min(worst, float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300)))
+        print(f"  {arch}: one step on the CPU and on the card: loss {loss['cpu']:.6f} / "
+              f"{loss['cuda']:.6f} (gap {gap:.2e}), least update cosine {worst:.6f}")
+        if gap > TRAIN_LOSS_ATOL or worst < TRAIN_STEP_COS:
+            fail(f"training {arch} on the card leaves the CPU port: loss gap {gap}, "
+                 f"cosine {worst}")
+        out[arch] = {"loss_cpu": loss["cpu"], "loss_cuda": loss["cuda"],
+                     "least_update_cos": worst}
 
     cfg = smoke_config(TRAIN_ARCH)
     model = build_model(cfg)
     dc_ = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
-    run = RunConfig(total_steps=6, warmup_steps=0, microbatches=2, remat=True,
-                    remat_policy="dots", ckpt_every=0, log_every=1)
-    cpu_params = model.init(seed=0, device="cpu", dtype=torch.float32)
-    card_params = copy.deepcopy(cpu_params).to(DEV)
-    before = {n: p.detach().clone() for n, p in cpu_params.named_parameters()}
-    step = make_train_step(model, run)
-    out = {}
-    for key, dev, params in (("cpu", "cpu", cpu_params), ("cuda", DEV, card_params)):
-        _, met = step(init_train_state(params, run), make_batch(dc_, cfg, 0, dev))
-        out[key] = float(met["loss"])
-    worst = 1.0
-    for (n, p), (_, q) in zip(cpu_params.named_parameters(), card_params.named_parameters()):
-        if p.numel() >= 1000:
-            a = (p.detach() - before[n]).double().flatten()
-            b = (q.detach().cpu() - before[n]).double().flatten()
-            worst = min(worst, float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300)))
-    gap = abs(out["cpu"] - out["cuda"])
-    print(f"  one step on the CPU and on the card: loss {out['cpu']:.6f} / {out['cuda']:.6f} "
-          f"(gap {gap:.2e}), least update cosine {worst:.6f}")
-    if gap > TRAIN_LOSS_ATOL or worst < TRAIN_STEP_COS:
-        fail(f"training on the card leaves the CPU port: loss gap {gap}, cosine {worst}")
-
     build = HERE / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as root:
@@ -3607,12 +3839,11 @@ def training_cross() -> dict:
         resumed = loop("b", 6)
         diff = max(float((p.detach() - q.detach()).abs().max()) for p, q in
                    zip(straight.params.parameters(), resumed.params.parameters()))
-    print(f"  6 steps straight against 3 + save + resume + 3 on the card: max diff {diff:.3e} "
-          f"(resumed at step {resumed.step})")
+    print(f"  {TRAIN_ARCH}: 6 steps straight against 3 + save + resume + 3 on the card: max "
+          f"diff {diff:.3e} (resumed at step {resumed.step})")
     if resumed.step != 6 or diff >= RESTORE_ATOL:
         fail(f"restore: max diff {diff} (bound {RESTORE_ATOL}), step {resumed.step}")
-    return {"loss_cpu": out["cpu"], "loss_cuda": out["cuda"], "least_update_cos": worst,
-            "restore_max_diff": diff}
+    return out | {"restore_max_diff": diff}
 
 
 def adaptive_rank(flush) -> dict:
@@ -3729,6 +3960,11 @@ def main() -> int:
         "quant_pack": {"name": "quant_pack", "route": "cuda",
                        "source": "src/repro_torch/kernels/csrc/quant_pack.cu",
                        "replaces": "src/repro/kernels/quant_pack.py:53"},
+        # the reference differentiates its XLA chunked_scan (no Pallas backward)
+        "linear_scan_chunked_bwd": {"name": "linear_scan_chunked_bwd", "route": "cuda",
+                                    "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+                                    "replaces": "src/repro/models/linear_scan.py:30",
+                                    "library_ms": None, "launches_by_path": {}},
     }
     phase("[3] gear_decode vs plain")
     for pol in ("gear_kcvt4", "gear_kivi2"):
@@ -3765,9 +4001,17 @@ def main() -> int:
         paged_case(pol, reports["gear_decode_paged"])
         paged_case(pol, reports["gear_decode_paged"], H=1, Dh=256, G=8)   # gemma-2b
 
-    phase("[8] linear_scan_chunked vs plain")
+    phase("[8] linear_scan_chunked vs plain, forward and backward")
     for case in SCAN_CASES:
         scan_case(case, flush, reports["linear_scan_chunked"])
+    bwd = reports["linear_scan_chunked_bwd"]
+    for case in SCAN_CASES:
+        scan_bwd_case(case, flush, bwd)
+    for key, case in SCAN_BWD_TRAIN_CASES.items():
+        timed = scan_bwd_case(case, flush, bwd, dstate_zero=True, list_kernels=True)
+        names = ("ms", "plain_ms", "bound_ms", "bound_by")
+        bwd.update(dict(zip(names, timed)) if key == "rwkv" else
+                   {f"{n}_{key}": t for n, t in zip(names, timed)})
     phase("[9] quant_pack through kernels.quantize_chunk vs plain")
     quant_pack_phase(flush, reports["quant_pack"])
 
@@ -3933,14 +4177,20 @@ def main() -> int:
     phase(f"[33] training, path 23: {TRAIN_ARCH} at full width and depth, {TRAIN_STEPS} steps "
           f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches, remat dots")
     summaries["train_full"] = training(flush, reports)
-    phase(f"[34] training, path 24: {TRAIN_ARCH} smoke config, one step on the CPU port and on "
-          f"the card, then 6 steps straight against 3 + restore + 3")
+    phase(f"[34] training, path 24: {len(CROSS_ARCHS)} smoke configs, one step on the CPU port "
+          f"and on the card, then {TRAIN_ARCH} 6 steps straight against 3 + restore + 3")
     summaries["train_cross"] = training_cross()
     phase("[35] adaptive rank at bench_adaptive.py's shape (8 heads of [512, 128]), card "
           "against the CPU port")
     summaries["adaptive_rank"] = adaptive_rank(flush)
+    for num, arch, key in ((36, "rwkv6-3b", "train_rwkv"), (37, "hymba-1.5b", "train_hymba")):
+        phase(f"[{num}] training, path {num - 11}: {arch} at full width and depth, "
+              f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} "
+              f"microbatches, remat dots, the scan's backward kernel")
+        summaries[key] = training(flush, reports, arch, key)
+        summaries[key]["launcher"] = train_launcher(arch)
 
-    phase("[36] summary")
+    phase("[38] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for rep in reports.values():

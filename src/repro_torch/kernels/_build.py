@@ -15,7 +15,11 @@ a non-zero code.
 
 A kernel is called through ``ctypes`` on raw pointers, so autograd does not
 see it: its outputs are new leaves and every gradient above them would read
-zero.  Each wrapper therefore calls :func:`refuse_grad` before it launches.
+zero.  The serving kernels take no gradient (training attends through
+``models.attention.attention_train``), so each of their wrappers calls
+:func:`refuse_grad` before it launches.  ``linear_scan_chunked`` has a
+backward kernel instead, behind an ``autograd.Function``
+(``linear_scan_kernel``): RWKV6 and hymba train through it.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import time
 import torch
 
 __all__ = ["CSRC", "BUILD", "nvcc", "build_all", "load", "check", "refuse_grad",
-           "KernelError", "NO_BACKWARD_ITEM"]
+           "KernelError"]
 
 CSRC = pathlib.Path(__file__).with_name("csrc")
 BUILD = pathlib.Path(__file__).with_name("build")
@@ -101,26 +105,21 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(_target(name)))
 
 
-# the ROADMAP entry that gives linear_scan_chunked a backward (RWKV6 and hymba
-# training on the card)
-NO_BACKWARD_ITEM = "ROADMAP queue 1, item 11"
-
-
 def refuse_grad(who: str, operands, hint: str = "", on_cuda: bool | None = None) -> None:
     """Raise ``RuntimeError`` when grad mode is on and an operand on CUDA
-    requires grad: the kernel has no backward and its call would cut the
-    autograd graph without a word.  ``on_cuda`` overrides the device test
-    (the CPU tests pass True).  Serving runs under ``torch.inference_mode``,
-    where grad mode is off."""
+    requires grad: a serving kernel has no backward, and its call would cut
+    the autograd graph without a word.  ``on_cuda`` overrides the device
+    test (the CPU tests pass True).  Serving runs under
+    ``torch.inference_mode``, where grad mode is off."""
     if not torch.is_grad_enabled():
         return
     for x in operands:
         if isinstance(x, torch.Tensor) and x.requires_grad and (
                 x.is_cuda if on_cuda is None else on_cuda):
             raise RuntimeError(
-                f"{who}: an operand requires grad, and the CUDA kernel has no backward "
-                f"({NO_BACKWARD_ITEM}); its call would cut the autograd graph"
-                + (f"; {hint}" if hint else ""))
+                f"{who}: an operand requires grad, and this serving kernel has no backward "
+                "(training attends through models.attention.attention_train); its call "
+                "would cut the autograd graph" + (f"; {hint}" if hint else ""))
 
 
 def check(code: int, what: str) -> None:

@@ -65,6 +65,26 @@
 //        instruction.  The attention tile stays in registers: its
 //        accumulator fragment is the next product's A fragment with the key
 //        order permuted to match.  y is written once.
+//
+// (c) Backward (training; the reference differentiates its XLA chunked_scan,
+//     and its Pallas kernel has none): the vector-Jacobian product of the
+//     clamped chunked form, ref.py's linear_scan_bwd_ref.  Given g = dy and
+//     the final state's gradient, with G_{c+1} the gradient of the state
+//     after chunk c: G_c = diag(e^{max(cum_last, -30)}) G_{c+1} + q_fac^T g_c;
+//     dq_fac = (tri * g v^T) k_fac + g S_c^T, dk_fac = (tri * g v^T)^T q_fac,
+//     dv = A^T g + k_state G_{c+1} (+ beta g), dk_state = v G_{c+1}^T; the
+//     exponentials' masked terms give d cum, whose reverse cumsum within the
+//     chunk is d log w.  Bound by operations (the W^2 / 2 pair products and
+//     the token-by-state products).  Seven launches, f32 FMAs, no atomics:
+//     scan_factors (also writing cum for the masks) and scan_states recompute
+//     the forward's factors and chunk-start states rather than keep them
+//     (under the `dots` remat policy the layer's forward runs again anyway);
+//     bwd_qg: q_fac^T g per 128-row tile, in parallel; bwd_states: one thread
+//     per (row, state entry), chunks in reverse, the tiles' sums in order;
+//     bwd_dqk and bwd_dv: a 256-thread block per (row, chunk, 64-token tile),
+//     products of 64 x 64 shared tiles in 4 x 4 register micro-tiles, f32
+//     FMAs (the factors span e^-30 .. e^30: no TF32); bwd_decay: d log w per
+//     (row, chunk, log w column) in reverse order, and du per row.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -282,8 +302,8 @@ __global__ void __launch_bounds__(STEP_THREADS) scan_step(
 __global__ void __launch_bounds__(FAC_THREADS) scan_factors(
     const float* __restrict__ r, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ lw, float* __restrict__ qf, float* __restrict__ kf,
-    float* __restrict__ decay, float* __restrict__ part, int S, int Dk, int Dv, int LC, int W,
-    int bonus, int vec) {
+    float* __restrict__ decay, float* __restrict__ part, float* __restrict__ cum_out, int S,
+    int Dk, int Dv, int LC, int W, int bonus, int vec) {
   __shared__ float before_s[16][17], all_s[16][17], tot[16][17];
   __shared__ float kst[FAC_ROWS][KSTP];
   __shared__ __align__(16) float vt[FAC_ROWS][VTP];
@@ -346,6 +366,7 @@ __global__ void __launch_bounds__(FAC_THREADS) scan_factors(
       const float qc = bonus ? cum - w[i] : cum;
       qf[o] = real ? rr[i] * expf(fmaxf(qc, -CLAMP)) : 0.f;
       kf[o] = real ? kk[i] * expf(fminf(-cum, CLAMP)) : 0.f;
+      if (cum_out != nullptr) cum_out[o] = real ? cum : 0.f;    // the backward's masks
     }
     kst[seg * 8 + i][col] = t < W && real ? kk[i] * expf(fmaxf(last - cum, -CLAMP)) : 0.f;
   }
@@ -585,6 +606,433 @@ long long workspace_floats(int BH, int S, int Dk, int Dv, int W, Workspace* ws, 
 
 bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+
+// ---------------------------------------------------------------------------
+// (c) the backward: the vector-Jacobian product of the chunked form
+
+constexpr int BT = 64;              // tokens of a backward tile
+constexpr int BLD = BT + 1;         // row stride of every backward shared tile (odd: no
+                                    // bank conflicts whichever way mm44 walks it)
+constexpr int BTILE = BT * BLD;     // floats of one shared tile
+constexpr int BWD_THREADS = 256;    // 16 x 16 threads, a 4 x 4 micro-tile each
+constexpr int DQK_TILES = 7;        // shared tiles of bwd_dqk
+constexpr int DV_TILES = 6;         // shared tiles of bwd_dv
+
+// rows [0, nrows) x columns [0, ncols) of a row-major global array (row
+// stride ld floats) into a [64][BLD] shared tile, zeros elsewhere in its 64 x 64
+__device__ __forceinline__ void load64(float* dst, const float* src, long ld, int nrows,
+                                       int ncols) {
+  for (int i = threadIdx.x; i < BT * BT; i += blockDim.x) {
+    const int t = i / BT, j = i % BT;
+    dst[t * BLD + j] = t < nrows && j < ncols ? src[(long)t * ld + j] : 0.f;
+  }
+}
+
+// acc[a][b] += sum_{k < K} X(ty + 16 a, k) Y(tx + 16 b, k), X(row, k) =
+// X[row * xr + k * xk], Y(col, k) = Y[col * yc + k * yk], in f32 FMAs
+__device__ __forceinline__ void mm44(float (&acc)[4][4], const float* X, int xr, int xk,
+                                     const float* Y, int yc, int yk, int K) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  for (int kk = 0; kk < K; ++kk) {
+    float xa[4], yb[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) xa[a] = X[(ty + 16 * a) * xr + kk * xk];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) yb[b] = Y[(tx + 16 * b) * yc + kk * yk];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(xa[a], yb[b], acc[a][b]);
+  }
+}
+
+__device__ __forceinline__ void zero44(float (&acc)[4][4]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+}
+
+// the causal mask of a diagonal tile on a micro-tile whose rows are the
+// earlier index (key tau) and whose columns the later (query t), or the
+// other way round with `rows_are_queries`: keep tau < t, and tau == t unless bonus
+__device__ __forceinline__ void mask44(float (&acc)[4][4], bool rows_are_queries, int bonus) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int row = ty + 16 * a, col = tx + 16 * b;
+      const int t = rows_are_queries ? row : col, tau = rows_are_queries ? col : row;
+      if (bonus ? tau >= t : tau > t) acc[a][b] = 0.f;
+    }
+}
+
+__device__ __forceinline__ void store44(float* dst, const float (&acc)[4][4]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) dst[(ty + 16 * a) * BLD + tx + 16 * b] = acc[a][b];
+}
+
+// a per-(token, Dk column) micro-tile of the tile's tokens to out [BH, S,
+// LC]: as it is, or (one log w column) summed over Dk in order through scr
+__device__ __forceinline__ void emit_terms(const float (&val)[4][4], float* out, float* scr,
+                                           int LC, long tok, int ni, int Dk) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  if (LC != 1) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int t = ty + 16 * a, d = tx + 16 * b;
+        if (t < ni && d < Dk) out[(tok + t) * Dk + d] = val[a][b];
+      }
+    return;
+  }
+  __syncthreads();
+  store44(scr, val);
+  __syncthreads();
+  if (tid < ni) {
+    float sum = 0.f;
+    for (int d = 0; d < Dk; ++d) sum += scr[tid * BLD + d];
+    out[tok + tid] = sum;
+  }
+}
+
+// B1. grid BH * C * n128: P = q_fac^T g over the 128-row tile's tokens, into
+// the layout of scan_factors' increments (whose buffer it reuses)
+__global__ void __launch_bounds__(BWD_THREADS) bwd_qg(
+    const float* __restrict__ qf, const float* __restrict__ dy, float* __restrict__ part, int S,
+    int Dk, int Dv, int W) {
+  __shared__ float qs[BTILE], gs[BTILE];
+  const int C = S / W, n128 = cdiv(W, FAC_ROWS), Dkp = pad8(Dk);
+  const int xc = blockIdx.x / n128, tile = blockIdx.x % n128, x = xc / C, c = xc % C;
+  const long tok0 = (long)x * S + (long)c * W + tile * FAC_ROWS;
+  const int rows = min(FAC_ROWS, W - tile * FAC_ROWS);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float* pp = part + ((long)xc * n128 + tile) * Dk * Dv;
+  for (int v0 = 0; v0 < Dv; v0 += BT) {
+    const int nv = min(BT, Dv - v0);
+    float acc[4][4];
+    zero44(acc);
+    for (int t0 = 0; t0 < rows; t0 += BT) {
+      const int n = min(BT, rows - t0);
+      __syncthreads();
+      load64(qs, qf + (tok0 + t0) * Dkp, Dkp, n, Dk);
+      load64(gs, dy + (tok0 + t0) * Dv + v0, Dv, n, nv);
+      __syncthreads();
+      mm44(acc, qs, 1, BLD, gs, 1, BLD, n);          // (d, v) += q_fac[t][d] g[t][v]
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int d = ty + 16 * a, j = tx + 16 * b;
+        if (d < Dk && j < nv) pp[(long)d * Dv + v0 + j] = acc[a][b];
+      }
+  }
+}
+
+// B2. grid (BH, Dk Dv / 256), one thread per state entry, chunks in reverse:
+// G_{c+1} to `after`, G_c = G_{c+1} e^{max(cum_last, -30)} + chunk c's P in
+// tile order; G_0 is the gradient of state0
+__global__ void __launch_bounds__(STATE_THREADS) bwd_states(
+    const float* __restrict__ decay, const float* __restrict__ part,
+    const float* __restrict__ dstate, float* __restrict__ after, float* __restrict__ dstate0,
+    int S, int Dk, int Dv, int W) {
+  const int C = S / W, n128 = cdiv(W, FAC_ROWS), Dkp = pad8(Dk);
+  const int x = blockIdx.x, e = blockIdx.y * STATE_THREADS + threadIdx.x;
+  if (e >= Dk * Dv) return;
+  const int d = e / Dv;
+  const long size = (long)Dk * Dv;
+  float gr = dstate != nullptr ? dstate[x * size + e] : 0.f;
+  for (int c = C - 1; c >= 0; --c) {
+    after[((long)x * C + c) * size + e] = gr;
+    const float* p = part + ((long)x * C + c) * n128 * size + e;
+    float qg = 0.f;
+    for (int i = 0; i < n128; ++i) qg += p[i * size];
+    gr = gr * decay[((long)x * C + c) * Dkp + d] + qg;
+  }
+  if (dstate0 != nullptr) dstate0[x * size + e] = gr;
+}
+
+struct BwdArgs {
+  const float *r, *k, *v, *lw, *u, *state0, *dy;
+  const float *qf, *kf, *cum, *decay, *starts, *after;
+  float *dr, *dk, *dv, *dlw, *du, *ddl, *xs, *es, *as, *dupart;
+  int S, Dk, Dv, LC, W, bonus;
+};
+
+// B3. grid BH * C * nt, one block per (row, chunk, 64-token tile i): the
+// gradients of q_fac, k_fac and k_state of the tile's tokens, then dr, dk,
+// the masked exponential terms (a, e and d cum = a - b - e; summed over Dk
+// in Dk order when log w has one column), the tile's share of du and, in
+// tile 0, d dl = sum_v S_c G_{c+1}.  Shared tiles: 0 k_fac of tile j, 1
+// q_fac of tile j, 2 / 3 g / v of tile i, 4 g of tile j (G_{c+1} in the
+// cross pass), 5 v of tile j (S_c in the cross pass), 6 scratch.
+__global__ void __launch_bounds__(BWD_THREADS) bwd_dqk(BwdArgs p) {
+  extern __shared__ float smem[];
+  float *fk = smem, *fq = fk + BTILE, *gi = fq + BTILE, *vi = gi + BTILE;
+  float *gj = vi + BTILE, *vj = gj + BTILE, *scr = vj + BTILE, *gam = scr + BTILE;
+  const int S = p.S, Dk = p.Dk, Dv = p.Dv, W = p.W, bonus = p.bonus;
+  const int C = S / W, nt = cdiv(W, BT), Dkp = pad8(Dk), nvs = cdiv(Dv, BT);
+  const int xc = blockIdx.x / nt, i = blockIdx.x % nt, x = xc / C, c = xc % C;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const long tok0 = (long)x * S + (long)c * W, size = (long)Dk * Dv;
+  const int q0 = i * BT, ni = min(BT, W - q0);
+  const float* s_c = c == 0 ? (p.state0 == nullptr ? nullptr : p.state0 + x * size)
+                            : p.starts + (long)xc * size;
+  const float* g_n = p.after + (long)xc * size;
+
+  float acc_dq[4][4], acc_dk[4][4], acc_ds[4][4];
+  zero44(acc_dq);
+  zero44(acc_dk);
+  zero44(acc_ds);
+  float gam_r = 0.f, ddl_r = 0.f;
+
+  // cross terms: dq_fac += g S_c^T, dk_state = v G_{c+1}^T, gamma = g . v, d dl
+  for (int s = 0; s < nvs; ++s) {
+    const int v0 = s * BT, nv = min(BT, Dv - v0);
+    __syncthreads();
+    load64(gi, p.dy + (tok0 + q0) * Dv + v0, Dv, ni, nv);
+    load64(vi, p.v + (tok0 + q0) * Dv + v0, Dv, ni, nv);
+    if (s_c != nullptr) load64(vj, s_c + v0, Dv, Dk, nv);
+    load64(gj, g_n + v0, Dv, Dk, nv);
+    __syncthreads();
+    if (s_c != nullptr) mm44(acc_dq, gi, BLD, 1, vj, BLD, 1, nv);
+    mm44(acc_ds, vi, BLD, 1, gj, BLD, 1, nv);
+    if (tid < BT)
+      for (int j = 0; j < nv; ++j) gam_r = fmaf(gi[tid * BLD + j], vi[tid * BLD + j], gam_r);
+    if (i == 0 && s_c != nullptr && tid < Dk)
+      for (int j = 0; j < nv; ++j) ddl_r = fmaf(vj[tid * BLD + j], gj[tid * BLD + j], ddl_r);
+  }
+  if (tid < BT) gam[tid] = gam_r;
+  if (i == 0 && tid < Dk) p.ddl[(long)xc * Dk + tid] = ddl_r;
+
+  // intra-chunk: keys j <= i give dq_fac (dA = g_i v_j^T, then dA k_fac_j),
+  // queries j >= i give dk_fac (dA^T = v_i g_j^T, then dA^T q_fac_j)
+  for (int j = 0; j < nt; ++j) {
+    const int nj = min(BT, W - j * BT);
+    const long tj = tok0 + (long)j * BT;
+    float a1[4][4], a2[4][4];
+    zero44(a1);
+    zero44(a2);
+    for (int s = 0; s < nvs; ++s) {
+      const int v0 = s * BT, nv = min(BT, Dv - v0);
+      __syncthreads();
+      if (nvs > 1) {
+        load64(gi, p.dy + (tok0 + q0) * Dv + v0, Dv, ni, nv);
+        load64(vi, p.v + (tok0 + q0) * Dv + v0, Dv, ni, nv);
+      }
+      if (j != i) {
+        load64(gj, p.dy + tj * Dv + v0, Dv, nj, nv);
+        load64(vj, p.v + tj * Dv + v0, Dv, nj, nv);
+      }
+      __syncthreads();
+      const float* gb = j == i ? gi : gj;
+      const float* vb = j == i ? vi : vj;
+      if (j <= i) mm44(a1, gi, BLD, 1, vb, BLD, 1, nv);      // (t, tau)
+      if (j >= i) mm44(a2, vi, BLD, 1, gb, BLD, 1, nv);      // (tau, t)
+    }
+    if (j == i) {
+      mask44(a1, true, bonus);
+      mask44(a2, false, bonus);
+    }
+    if (j <= i) {
+      __syncthreads();
+      load64(fk, p.kf + tj * Dkp, Dkp, nj, Dk);
+      store44(scr, a1);
+      __syncthreads();
+      mm44(acc_dq, scr, BLD, 1, fk, 1, BLD, nj);
+    }
+    if (j >= i) {
+      __syncthreads();
+      load64(fq, p.qf + tj * Dkp, Dkp, nj, Dk);
+      store44(scr, a2);
+      __syncthreads();
+      mm44(acc_dk, scr, BLD, 1, fq, 1, BLD, nj);
+    }
+  }
+
+  // through the exponentials
+  float xv[4][4], ev[4][4], av[4][4], duv[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int t = ty + 16 * a, d = tx + 16 * b;
+      xv[a][b] = ev[a][b] = av[a][b] = duv[a][b] = 0.f;
+      if (t >= ni || d >= Dk) continue;
+      const long tok = tok0 + q0 + t;
+      const float rr = p.r[tok * Dk + d], kk = p.k[tok * Dk + d];
+      const float cm = p.cum[tok * Dkp + d], cw = p.cum[(tok0 + W - 1) * Dkp + d];
+      const float w = p.lw[tok * p.LC + (p.LC == 1 ? 0 : d)];
+      const float qc = bonus ? cm - w : cm;
+      const float eq = expf(fmaxf(qc, -CLAMP)), ek = expf(fminf(-cm, CLAMP));
+      const float es = expf(fmaxf(cw - cm, -CLAMP));
+      float dr = acc_dq[a][b] * eq;
+      float dk = acc_dk[a][b] * ek + acc_ds[a][b] * es;
+      if (bonus) {
+        const float gu = gam[t] * p.u[(long)x * Dk + d];
+        dr = fmaf(gu, kk, dr);
+        dk = fmaf(gu, rr, dk);
+        duv[a][b] = gam[t] * rr * kk;
+      }
+      p.dr[tok * Dk + d] = dr;
+      p.dk[tok * Dk + d] = dk;
+      const float ta = qc >= -CLAMP ? acc_dq[a][b] * (rr * eq) : 0.f;
+      const float tb = cm >= -CLAMP ? acc_dk[a][b] * (kk * ek) : 0.f;
+      const float te = cw - cm >= -CLAMP ? acc_ds[a][b] * (kk * es) : 0.f;
+      xv[a][b] = ta - tb - te;
+      ev[a][b] = te;
+      av[a][b] = ta;
+    }
+  emit_terms(xv, p.xs, scr, p.LC, tok0 + q0, ni, Dk);
+  emit_terms(ev, p.es, scr, p.LC, tok0 + q0, ni, Dk);
+  if (bonus) emit_terms(av, p.as, scr, p.LC, tok0 + q0, ni, Dk);
+  if (bonus) {                            // the tile's du: sum over its tokens in order
+    __syncthreads();
+    store44(scr, duv);
+    __syncthreads();
+    if (tid < Dk) {
+      float sum = 0.f;
+      for (int t = 0; t < ni; ++t) sum += scr[t * BLD + tid];
+      p.dupart[((long)xc * nt + i) * Dk + tid] = sum;
+    }
+  }
+}
+
+// B4. grid BH * C * nt: dv of a 64-token tile i, per 64 v columns:
+// k_state G_{c+1} + sum over query tiles j >= i of A_ji^T g_j (+ beta g).
+// Shared tiles: 0 k_fac of tile i, 1 k_state of tile i, 2 q_fac of tile j,
+// 3 G_{c+1}, 4 g of tile j, 5 A_ji^T
+__global__ void __launch_bounds__(BWD_THREADS) bwd_dv(BwdArgs p) {
+  extern __shared__ float smem[];
+  float *ki = smem, *kst = ki + BTILE, *fq = kst + BTILE, *gn = fq + BTILE;
+  float *gj = gn + BTILE, *scr = gj + BTILE, *beta = scr + BTILE;
+  const int S = p.S, Dk = p.Dk, Dv = p.Dv, W = p.W, bonus = p.bonus;
+  const int C = S / W, nt = cdiv(W, BT), Dkp = pad8(Dk);
+  const int xc = blockIdx.x / nt, i = blockIdx.x % nt, x = xc / C;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const long tok0 = (long)x * S + (long)(xc % C) * W, size = (long)Dk * Dv;
+  const int q0 = i * BT, ni = min(BT, W - q0);
+  const float* g_n = p.after + (long)xc * size;
+
+  load64(ki, p.kf + (tok0 + q0) * Dkp, Dkp, ni, Dk);
+  for (int e = tid; e < BT * BT; e += blockDim.x) {
+    const int t = e / BT, d = e % BT;
+    float val = 0.f;
+    if (t < ni && d < Dk) {
+      const long tok = tok0 + q0 + t;
+      const float cm = p.cum[tok * Dkp + d], cw = p.cum[(tok0 + W - 1) * Dkp + d];
+      val = p.k[tok * Dk + d] * expf(fmaxf(cw - cm, -CLAMP));
+    }
+    kst[t * BLD + d] = val;
+  }
+  if (bonus && tid < BT) {
+    float sum = 0.f;
+    if (tid < ni) {
+      const long o = (tok0 + q0 + tid) * Dk;
+      for (int d = 0; d < Dk; ++d) sum += p.r[o + d] * p.u[(long)x * Dk + d] * p.k[o + d];
+    }
+    beta[tid] = sum;
+  }
+  for (int v0 = 0; v0 < Dv; v0 += BT) {
+    const int nv = min(BT, Dv - v0);
+    float acc[4][4];
+    zero44(acc);
+    __syncthreads();
+    load64(gn, g_n + v0, Dv, Dk, nv);
+    __syncthreads();
+    mm44(acc, kst, BLD, 1, gn, 1, BLD, Dk);           // (t, v) += k_state[t][d] G[d][v]
+    for (int j = i; j < nt; ++j) {
+      const int nj = min(BT, W - j * BT);
+      const long tj = tok0 + (long)j * BT;
+      __syncthreads();
+      load64(fq, p.qf + tj * Dkp, Dkp, nj, Dk);
+      load64(gj, p.dy + tj * Dv + v0, Dv, nj, nv);
+      __syncthreads();
+      float at[4][4];
+      zero44(at);
+      mm44(at, ki, BLD, 1, fq, BLD, 1, Dk);           // A^T (tau, t) = k_fac_i . q_fac_j
+      if (j == i) mask44(at, false, bonus);
+      store44(scr, at);
+      __syncthreads();
+      mm44(acc, scr, BLD, 1, gj, 1, BLD, nj);         // (tau, v) += A^T[tau][t] g_j[t][v]
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int t = ty + 16 * a, j = tx + 16 * b;
+        if (t >= ni || j >= nv) continue;
+        const long o = (tok0 + q0 + t) * Dv + v0 + j;
+        p.dv[o] = bonus ? fmaf(beta[t], p.dy[o], acc[a][b]) : acc[a][b];
+      }
+  }
+}
+
+// B5. grid BH * C, one thread per log w column: d log w = the reverse
+// cumsum of d cum within the chunk + d cum_last (sum_t e + d dl dl where
+// cum_last >= -30), minus a for bonus; block (x, 0) also sums row x's du
+// over its chunks and tiles in order
+__global__ void __launch_bounds__(64) bwd_decay(BwdArgs p) {
+  const int S = p.S, Dk = p.Dk, W = p.W, LC = p.LC;
+  const int C = S / W, nt = cdiv(W, BT), Dkp = pad8(Dk);
+  const int xc = blockIdx.x, x = xc / C, c = xc % C, j = threadIdx.x;
+  const long tok0 = (long)x * S + (long)c * W;
+  if (j < LC) {
+    float last = 0.f;
+    for (int t = 0; t < W; ++t) last += p.es[(tok0 + t) * LC + j];
+    for (int d = LC == 1 ? 0 : j; d < (LC == 1 ? Dk : j + 1); ++d)
+      if (p.cum[(tok0 + W - 1) * Dkp + d] >= -CLAMP)
+        last = fmaf(p.ddl[(long)xc * Dk + d], p.decay[(long)xc * Dkp + d], last);
+    float run = 0.f;
+    for (int t = W - 1; t >= 0; --t) {
+      const long o = (tok0 + t) * LC + j;
+      run += p.xs[o];
+      p.dlw[o] = p.bonus ? run + last - p.as[o] : run + last;
+    }
+  }
+  if (p.bonus && c == 0 && j < Dk) {
+    float sum = 0.f;
+    for (int cc = 0; cc < C; ++cc)
+      for (int i = 0; i < nt; ++i) sum += p.dupart[(((long)x * C + cc) * nt + i) * Dk + j];
+    p.du[(long)x * Dk + j] = sum;
+  }
+}
+
+// workspace of the backward, in floats (each part a multiple of 4): q_fac,
+// k_fac and cum [BH, S, Dk8]; e^{cum_last} [BH, C, Dk8]; the increments,
+// then P [BH, C, n128, Dk, Dv]; S_c and G_{c+1} [BH, C, Dk, Dv]; the final
+// state [BH, Dk, Dv]; d dl [BH, C, Dk]; d cum, e and a [BH, S, LC]; du per
+// tile [BH, C, nt, Dk]
+struct BwdWorkspace {
+  float *qf, *kf, *cum, *decay, *part, *starts, *after, *fin, *ddl, *xs, *es, *as, *dupart;
+};
+
+long long bwd_workspace_floats(int BH, int S, int Dk, int Dv, int LC, int W, BwdWorkspace* ws,
+                               float* base) {
+  if (S == 0 || W < 1) return 0;
+  auto r4 = [](long long n) { return (n + 3) & ~3LL; };
+  const long long C = S / W, fac = r4((long long)BH * S * pad8(Dk));
+  const long long states = r4((long long)BH * C * Dk * Dv), tok = r4((long long)BH * S * LC);
+  const long long sizes[13] = {fac, fac, fac, r4((long long)BH * C * pad8(Dk)),
+                               r4((long long)BH * C * cdiv(W, FAC_ROWS) * Dk * Dv), states, states,
+                               r4((long long)BH * Dk * Dv), r4((long long)BH * C * Dk), tok, tok,
+                               tok, r4((long long)BH * C * cdiv(W, BT) * Dk)};
+  float** slots[13] = {&ws->qf, &ws->kf, &ws->cum, &ws->decay, &ws->part, &ws->starts,
+                       &ws->after, &ws->fin, &ws->ddl, &ws->xs, &ws->es, &ws->as, &ws->dupart};
+  long long off = 0;
+  for (int n = 0; n < 13; ++n) {
+    if (base != nullptr) *slots[n] = base + off;
+    off += sizes[n];
+  }
+  return off;
+}
+
 }  // namespace
 
 // Bytes of workspace linear_scan_launch needs for these shapes (0 in the step regime).
@@ -630,7 +1078,8 @@ extern "C" int linear_scan_launch(const void* r, const void* k, const void* v, c
       smem_set = true;
     }
     scan_factors<<<dim3(BH * C * cdiv(W, FAC_ROWS), cdiv(pad8(Dk), 16)), FAC_THREADS, 0, st>>>(
-        rf, kf, vf, lwf, ws.qf, ws.kf, ws.decay, ws.part, S, Dk, Dv, LC, W, bonus, (int)vec);
+        rf, kf, vf, lwf, ws.qf, ws.kf, ws.decay, ws.part, nullptr, S, Dk, Dv, LC, W, bonus,
+        (int)vec);
   }
   scan_states<<<dim3(BH, cdiv(Dk * Dv, STATE_THREADS)), STATE_THREADS, 0, st>>>(
       ws.decay, ws.part, s0, ws.starts, sf, S, Dk, Dv, W);
@@ -639,5 +1088,67 @@ extern "C" int linear_scan_launch(const void* r, const void* k, const void* v, c
     scan_tiles<<<dim3(BH * C * cdiv(W, TILE), cdiv(Dv, DVT)), TILE_THREADS, smem, st>>>(
         ws.qf, ws.kf, rf, kf, vf, uf, s0, ws.starts, yf, BH, S, Dk, Dv, W, bonus, (int)vec);
   }
+  return (int)cudaGetLastError();
+}
+
+// Bytes of workspace linear_scan_bwd_launch needs for these shapes.
+extern "C" long long linear_scan_bwd_workspace_bytes(int BH, int S, int Dk, int Dv, int LC,
+                                                     int W) {
+  BwdWorkspace ws{};
+  return 4 * bwd_workspace_floats(BH, S, Dk, Dv, LC, W, &ws, nullptr);
+}
+
+// The backward of linear_scan_launch: given dy [BH, S, Dv] and dstate [BH,
+// Dk, Dv] (or null: zero), writes dr, dk [BH, S, Dk], dv [BH, S, Dv], dlw
+// [BH, S, LC], du [BH, Dk] (bonus) and dstate0 [BH, Dk, Dv] (or null).  Any
+// W that divides S (W = 1 too) runs the chunked form's seven launches.
+extern "C" int linear_scan_bwd_launch(const void* r, const void* k, const void* v,
+                                      const void* lw, const void* u, const void* state0,
+                                      const void* dy, const void* dstate, void* dr, void* dk,
+                                      void* dv, void* dlw, void* du, void* dstate0,
+                                      void* workspace, int BH, int S, int Dk, int Dv, int LC,
+                                      int W, int bonus, void* stream) {
+  if (Dk < 1 || Dk > 64 || Dv < 1 || (LC != 1 && LC != Dk) || W < 1 || S % W ||
+      (bonus && (u == nullptr || du == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (BH == 0 || S == 0) return 0;
+  if (workspace == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  static bool smem_set = false;
+  const int dqk_smem = (int)sizeof(float) * (DQK_TILES * BTILE + BT);
+  const int dv_smem = (int)sizeof(float) * (DV_TILES * BTILE + BT);
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(bwd_dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           dqk_smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(bwd_dv, cudaFuncAttributeMaxDynamicSharedMemorySize, dv_smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  BwdWorkspace ws{};
+  bwd_workspace_floats(BH, S, Dk, Dv, LC, W, &ws, (float*)workspace);
+  const float *rf = (const float*)r, *kf = (const float*)k, *vf = (const float*)v;
+  const float *lwf = (const float*)lw, *s0 = (const float*)state0;
+  const bool vec = Dv % 4 == 0 && aligned16(v);
+  const int C = S / W, n128 = cdiv(W, FAC_ROWS), nt = cdiv(W, BT);
+
+  // the forward's factors and chunk-start states, recomputed
+  scan_factors<<<dim3(BH * C * n128, cdiv(pad8(Dk), 16)), FAC_THREADS, 0, st>>>(
+      rf, kf, vf, lwf, ws.qf, ws.kf, ws.decay, ws.part, ws.cum, S, Dk, Dv, LC, W, bonus,
+      (int)vec);
+  scan_states<<<dim3(BH, cdiv(Dk * Dv, STATE_THREADS)), STATE_THREADS, 0, st>>>(
+      ws.decay, ws.part, s0, ws.starts, ws.fin, S, Dk, Dv, W);
+  // the reverse state pass
+  bwd_qg<<<BH * C * n128, BWD_THREADS, 0, st>>>(ws.qf, (const float*)dy, ws.part, S, Dk, Dv, W);
+  bwd_states<<<dim3(BH, cdiv(Dk * Dv, STATE_THREADS)), STATE_THREADS, 0, st>>>(
+      ws.decay, ws.part, (const float*)dstate, ws.after, (float*)dstate0, S, Dk, Dv, W);
+  // the intra-chunk terms, then d log w and du
+  BwdArgs a{rf, kf, vf, lwf, (const float*)u, s0, (const float*)dy,
+            ws.qf, ws.kf, ws.cum, ws.decay, ws.starts, ws.after,
+            (float*)dr, (float*)dk, (float*)dv, (float*)dlw, (float*)du,
+            ws.ddl, ws.xs, ws.es, ws.as, ws.dupart, S, Dk, Dv, LC, W, bonus};
+  bwd_dqk<<<BH * C * nt, BWD_THREADS, dqk_smem, st>>>(a);
+  bwd_dv<<<BH * C * nt, BWD_THREADS, dv_smem, st>>>(a);
+  bwd_decay<<<BH * C, 64, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

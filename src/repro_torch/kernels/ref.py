@@ -17,7 +17,7 @@ from repro_torch.core import quant as q_lib
 
 __all__ = ["gear_decode_ref", "gear_decode_paged_ref", "gather_paged_operands",
            "gear_decode_history_ref", "gear_hist_block_ref", "flash_prefill_ref", "flash_block_ref",
-           "gear_compress_ref", "linear_scan_ref", "quant_pack_ref"]
+           "gear_compress_ref", "linear_scan_ref", "linear_scan_bwd_ref", "quant_pack_ref"]
 
 NEG_INF = -1e30
 
@@ -345,3 +345,104 @@ def linear_scan_ref(r, k, v, log_w, u=None, *, chunk: int, mode: str = "inclusiv
         state = state * decay_last[:, c, :, None] + state_inc[:, c]
     y = y + torch.stack(y_cross, dim=1)
     return y.reshape(BH, S, Dv).to(v.dtype), state
+
+
+def linear_scan_bwd_ref(r, k, v, log_w, u=None, *, chunk: int, mode: str = "inclusive",
+                        state0=None, dy, dstate=None):
+    """Vector-Jacobian product of :func:`linear_scan_ref`, clamps included,
+    written out (no autograd): the algorithm ``csrc/linear_scan.cu``'s
+    backward runs.  ``dy`` [BH, S, Dv] is the gradient of y, ``dstate``
+    [BH, Dk, Dv] that of the final state (None: zero).  A clamp cuts the
+    gradient where it bites and passes it at equality, as ``torch.clamp``'s
+    does.  Per row and chunk, with g = dy and G_{c+1} the gradient of the
+    state after chunk c:
+
+    * reverse state pass: G_c = diag(dl) G_{c+1} + q_fac^T g_c, dstate0 = G_0,
+      d dl = sum_v S_c * G_{c+1};
+    * intra-chunk: dA = tri * g v^T, dq_fac = dA k_fac + g S_c^T, dk_fac =
+      dA^T q_fac, dv = A^T g + k_st G_{c+1} (+ beta g), dk_st = v G_{c+1}^T;
+      ``bonus``, with gamma_t = g_t . v_t: dr += gamma u k, dk += gamma u r,
+      du = sum_t gamma_t r_t k_t;
+    * through the exponentials: dr += dq_fac e^.., dk += dk_fac e^.. + dk_st
+      e^..; the masked terms a = dq_fac q_fac, b = dk_fac k_fac and e =
+      dk_st k_st give d cum = a - b - e and d cum_W = sum_t e + d dl dl
+      (``bonus``: d log w -= a, as q_cum = cum - log w);
+    * d log w: the reverse cumsum of d cum within the chunk plus d cum_W,
+      summed over Dk for a ``[BH, S, 1]`` log_w.
+
+    Returns (dr, dk, dv, dlog_w shaped as log_w, du [BH, Dk] or None for
+    ``inclusive``, dstate0 [BH, Dk, Dv] or None without ``state0``), in f32."""
+    BH, S, Dk = r.shape
+    Dv = v.shape[-1]
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"S={S} not divisible by chunk={chunk}")
+    if mode not in ("inclusive", "bonus"):
+        raise ValueError(f"mode must be inclusive/bonus, got {mode!r}")
+    C, W = S // chunk, chunk
+    f32 = torch.float32
+    bonus = mode == "bonus"
+    rc, kc = (x.to(f32).reshape(BH, C, W, Dk) for x in (r, k))
+    vc, gc = (x.to(f32).reshape(BH, C, W, Dv) for x in (v, dy))
+    lw = torch.broadcast_to(log_w.to(f32), (BH, S, Dk)).reshape(BH, C, W, Dk)
+    zero_state = torch.zeros((BH, Dk, Dv), dtype=f32, device=r.device)
+
+    cum = torch.cumsum(lw, dim=2)
+    q_cum = cum - lw if bonus else cum
+    cum_w = cum[:, :, -1:, :]                                       # [BH, C, 1, Dk]
+    e_q = torch.exp(torch.clamp(q_cum, min=-SCAN_CLAMP))
+    e_k = torch.exp(torch.clamp(-cum, max=SCAN_CLAMP))
+    e_s = torch.exp(torch.clamp(cum_w - cum, min=-SCAN_CLAMP))
+    dl = torch.exp(torch.clamp(cum_w[:, :, 0], min=-SCAN_CLAMP))     # [BH, C, Dk]
+    q_fac, k_fac, k_st = rc * e_q, kc * e_k, kc * e_s
+    tri = torch.tril(torch.ones((W, W), dtype=f32, device=r.device), -1 if bonus else 0)
+    att = torch.einsum("xcwk,xcyk->xcwy", q_fac, k_fac) * tri
+
+    # the chunk-start states S_c (forward), then G_{c+1} (reverse)
+    inc = torch.einsum("xcwk,xcwv->xckv", k_st, vc)
+    state = zero_state if state0 is None else state0.to(f32)
+    starts = []
+    for c in range(C):
+        starts.append(state)
+        state = state * dl[:, c, :, None] + inc[:, c]
+    s_c = torch.stack(starts, dim=1)                                # [BH, C, Dk, Dv]
+    qg = torch.einsum("xcwk,xcwv->xckv", q_fac, gc)
+    grad = zero_state if dstate is None else dstate.to(f32)
+    after = [None] * C
+    for c in reversed(range(C)):
+        after[c] = grad
+        grad = grad * dl[:, c, :, None] + qg[:, c]
+    g_n = torch.stack(after, dim=1)                                 # G_{c+1}
+    d_dl = (s_c * g_n).sum(-1)                                      # [BH, C, Dk]
+
+    d_att = torch.einsum("xcwv,xcyv->xcwy", gc, vc) * tri
+    dq_fac = torch.einsum("xcwy,xcyk->xcwk", d_att, k_fac) + torch.einsum(
+        "xcwv,xckv->xcwk", gc, s_c)
+    dk_fac = torch.einsum("xcwy,xcwk->xcyk", d_att, q_fac)
+    dk_st = torch.einsum("xcwv,xckv->xcwk", vc, g_n)
+    dv = torch.einsum("xcwy,xcwv->xcyv", att, gc) + torch.einsum("xcwk,xckv->xcwv", k_st, g_n)
+    dr = dq_fac * e_q
+    dk = dk_fac * e_k + dk_st * e_s
+    du = None
+    if bonus:
+        uf = u.to(f32)[:, None, None, :]
+        gam = (gc * vc).sum(-1, keepdim=True)                       # gamma_t = g_t . v_t
+        beta = (rc * uf * kc).sum(-1, keepdim=True)
+        dv = dv + beta * gc
+        dr = dr + gam * uf * kc
+        dk = dk + gam * uf * rc
+        du = (gam * rc * kc).sum((1, 2))
+
+    zero = torch.zeros((), dtype=f32, device=r.device)
+    a = torch.where(q_cum >= -SCAN_CLAMP, dq_fac * q_fac, zero)
+    b = torch.where(cum >= -SCAN_CLAMP, dk_fac * k_fac, zero)       # -cum <= 30
+    e = torch.where(cum_w - cum >= -SCAN_CLAMP, dk_st * k_st, zero)
+    d_cum = a - b - e
+    d_cum_w = e.sum(2) + torch.where(cum_w[:, :, 0] >= -SCAN_CLAMP, d_dl * dl, zero)
+    dlw = torch.flip(torch.cumsum(torch.flip(d_cum, (2,)), 2), (2,)) + d_cum_w[:, :, None, :]
+    if bonus:
+        dlw = dlw - a
+    dlw = dlw.reshape(BH, S, Dk)
+    if log_w.shape[-1] == 1:
+        dlw = dlw.sum(-1, keepdim=True)
+    return (dr.reshape(BH, S, Dk), dk.reshape(BH, S, Dk), dv.reshape(BH, S, Dv), dlw, du,
+            None if state0 is None else grad)

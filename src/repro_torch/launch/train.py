@@ -12,8 +12,9 @@ schedule, checkpoints under ``--ckpt-dir`` every ``--ckpt-every`` steps, and
 a resume from the latest one there.  ``--mesh`` and ``--production-mesh``
 (sharding, ROADMAP queue 1, item 10) exit with a message; ``--powersgd``
 and ``--no-zero1`` are accepted and change nothing on one device, as on the
-reference's one-device mesh.  An RWKV6 or hybrid model trains with
-``--device cpu`` only (ROADMAP queue 1, item 11).
+reference's one-device mesh.  Every family trains on either device; an
+RWKV6 or hybrid model's scan runs ``linear_scan_chunked`` and its backward
+kernel on the card.
 """
 
 from __future__ import annotations

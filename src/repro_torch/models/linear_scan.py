@@ -10,9 +10,12 @@ For per-head state ``S ∈ R^{Dk×Dv}``:
 :func:`chunked_scan` keeps the reference's ``[B, H, S, D]`` layout and
 computes what it computes, clamps included (see ``ref.linear_scan_ref``):
 on a CUDA tensor through the ``linear_scan_chunked`` kernel, on a CPU
-tensor through its plain version.  :func:`decode_step` and
-:func:`sequential_scan_ref` are plain PyTorch, as the reference has no
-kernel for either.
+tensor through its plain version.  It is differentiable: with grad on, the
+kernel's backward (on the CPU, ``ref.linear_scan_bwd_ref``) gives the
+flattened operands' gradients, and autograd carries them back through the
+f32 casts and ``u``'s broadcast over B, which stay here.
+:func:`decode_step` and :func:`sequential_scan_ref` are plain PyTorch, as
+the reference has no kernel for either.
 """
 
 from __future__ import annotations

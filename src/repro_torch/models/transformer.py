@@ -581,8 +581,7 @@ def forward_train(model: Transformer, tokens: torch.Tensor,
     (f32).  Attention is :func:`~repro_torch.models.attention.attention_train`;
     a hybrid's SSM heads run beside it and an RWKV6 layer runs its time and
     channel mix, their scans through ``models.linear_scan.chunked_scan`` (on
-    a card that is the ``linear_scan_chunked`` kernel, which has no
-    backward: it raises when asked for a gradient).
+    a card the ``linear_scan_chunked`` kernel and its backward kernel).
 
     ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``); ``remat_policy="dots"`` keeps the outputs

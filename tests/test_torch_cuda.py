@@ -59,8 +59,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quant_pack as qp  # noqa: E402
 from repro_torch.kernels.ref import (flash_block_ref, flash_prefill_ref,  # noqa: E402
                                      gather_paged_operands, gear_compress_ref,
-                                     gear_decode_paged_ref, gear_decode_ref, linear_scan_ref,
-                                     quant_pack_ref)
+                                     gear_decode_paged_ref, gear_decode_ref, linear_scan_bwd_ref,
+                                     linear_scan_ref, quant_pack_ref)
 from repro_torch.models import linear_scan as ls  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -498,6 +498,123 @@ def test_linear_scan_two_calls_are_bitwise_equal(dev, S, chunk, with_state):
     y1, s1 = lsk.linear_scan_chunked(r, k, v, lw, u, chunk=chunk, mode="bonus", state0=st0)
     y2, s2 = lsk.linear_scan_chunked(r, k, v, lw, u, chunk=chunk, mode="bonus", state0=st0)
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+SCAN_BWD_CASES = [
+    # (mode, BH, S, chunk, Dk, Dv, log_w columns, state0 and a final-state gradient):
+    # tests/test_torch_scan_grad.py's grid (aligned, chunk = S, a clamp that bites)
+    (mode, 4, S, chunk, 16, 24, lw, st) for mode in ("inclusive", "bonus") for lw in (1, 16)
+    for S, chunk in ((128, 32), (96, 96), (128, 64)) for st in (False, True)
+] + [
+    ("inclusive", 50, 512, 64, 16, 64, 1, False),     # hymba-1.5b's training scan
+    ("bonus", 80, 512, 64, 64, 64, 64, False),        # rwkv6-3b's training scan
+    ("bonus", 6, 859, 859, 64, 64, 64, True),         # chunk = S over 14 ragged tiles
+    ("inclusive", 6, 200, 200, 16, 100, 1, True),     # Dv over two 64-column slices
+    ("bonus", 6, 37, 1, 64, 40, 64, True),            # chunk = 1
+    ("inclusive", 6, 130, 65, 7, 33, 7, False),       # odd widths, a ragged tile
+]
+
+
+def scan_bwd_inputs(dev, case, seed=0):
+    mode, BH, S, chunk, Dk, Dv, lw_cols, with_state = case
+    g = torch.Generator(device=dev).manual_seed(seed + S + Dk + Dv)
+    r, k = (torch.randn(BH, S, Dk, generator=g, device=dev) for _ in range(2))
+    v = torch.randn(BH, S, Dv, generator=g, device=dev)
+    if chunk == 64 and S == 128:          # the clamp bites: log w in [-0.9, -0.3]
+        lw = -(0.3 + 0.6 * torch.rand(BH, S, lw_cols, generator=g, device=dev))
+    else:
+        lw = -torch.nn.functional.softplus(torch.randn(BH, S, lw_cols, generator=g, device=dev))
+    u = torch.randn(BH, Dk, generator=g, device=dev) * 0.5 if mode == "bonus" else None
+    st0 = torch.randn(BH, Dk, Dv, generator=g, device=dev) if with_state else None
+    dy = torch.randn(BH, S, Dv, generator=g, device=dev)
+    dst = torch.randn(BH, Dk, Dv, generator=g, device=dev) if with_state else None
+    return (r, k, v, lw, u), dict(chunk=chunk, mode=mode, state0=st0, dy=dy, dstate=dst)
+
+
+@pytest.mark.parametrize("case", SCAN_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_linear_scan_bwd_kernel_matches_plain(dev, case):
+    """The backward kernel against ``linear_scan_bwd_ref`` on the same
+    operands, every gradient within 2e-3 x max(1, max |plain|) overall and
+    per row (the forward's bound); two calls bit for bit (no float
+    atomics); one count a call."""
+    args, kw = scan_bwd_inputs(dev, case)
+    before = lsk.linear_scan_chunked_bwd.launches
+    got = lsk.linear_scan_chunked_bwd(*args, **kw)
+    again = lsk.linear_scan_chunked_bwd(*args, **kw)
+    assert lsk.linear_scan_chunked_bwd.launches == before + 2
+    want = linear_scan_bwd_ref(*args, **kw)
+    for name, a, b, w in zip(("dr", "dk", "dv", "dlog_w", "du", "dstate0"), got, again, want):
+        assert (a is None) == (w is None), name
+        if w is None:
+            continue
+        assert torch.equal(a, b), name
+        assert_scan_rows_close(a, w)
+
+
+@pytest.mark.parametrize("mode,lw_cols", [("inclusive", 1), ("bonus", 64)])
+def test_chunked_scan_trains_through_the_kernels(dev, mode, lw_cols):
+    """``models.linear_scan.chunked_scan`` with grad on, at [B, H, S, D]
+    with a [H, Dk] u broadcast over B: one forward and one backward launch,
+    and every gradient within the forward's bound of autograd through the
+    plain forward on the card (f32 leaves: a bf16 leaf's gradient is
+    rounded to bf16 on both sides, one ulp apart where the f32 sums round
+    across a bf16 boundary)."""
+    B, H, S, Dk, Dv = 2, 4, 256, 64 if lw_cols == 64 else 16, 64
+    g = torch.Generator(device=dev).manual_seed(lw_cols)
+    leaves = {"r": torch.randn(B, H, S, Dk, generator=g, device=dev),
+              "k": torch.randn(B, H, S, Dk, generator=g, device=dev),
+              "v": torch.randn(B, H, S, Dv, generator=g, device=dev),
+              "log_w": -torch.rand(B, H, S, lw_cols, generator=g, device=dev),
+              "state0": torch.randn(B, H, Dk, Dv, generator=g, device=dev)}
+    if mode == "bonus":
+        leaves["u"] = torch.randn(H, Dk, generator=g, device=dev)
+    dy = torch.randn(B, H, S, Dv, generator=g, device=dev)
+
+    def run(scan):
+        t = {n: x.detach().clone().requires_grad_(True) for n, x in leaves.items()}
+        y, fin = scan(t)
+        ((y * dy).sum() + fin.sum()).backward()
+        return {n: x.grad for n, x in t.items()}
+
+    def plain(t):
+        u = None if "u" not in t else torch.broadcast_to(t["u"], (B, H, Dk)).reshape(B * H, Dk)
+        y, fin = linear_scan_ref(*(t[n].reshape(B * H, S, -1) for n in
+                                   ("r", "k", "v", "log_w")), u, chunk=64, mode=mode,
+                                 state0=t["state0"].reshape(B * H, Dk, Dv))
+        return y.reshape(B, H, S, Dv), fin
+
+    fwd, bwd = lsk.linear_scan_chunked.launches, lsk.linear_scan_chunked_bwd.launches
+    got = run(lambda t: ls.chunked_scan(t["r"], t["k"], t["v"], t["log_w"], chunk=64,
+                                        u=t.get("u"), state0=t["state0"], mode=mode))
+    assert lsk.linear_scan_chunked.launches == fwd + 1
+    assert lsk.linear_scan_chunked_bwd.launches == bwd + 1
+    want = run(plain)
+    for name in want:
+        assert_scan_rows_close(got[name], want[name])
+
+
+def test_scan_training_is_bitwise_equal_across_remat_policies(dev):
+    """hymba-1.5b's and rwkv6-3b's smoke configs: loss and every gradient on
+    the card bit for bit with remat off, ``full`` and ``dots`` (the scan's
+    kernels add no float atomics; the recompute runs the same launches)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import build_model
+
+    for arch in ("hymba-1.5b", "rwkv6-3b"):
+        cfg = smoke_config(arch)
+        m = build_model(cfg)
+        params = m.init(seed=0, device=dev, dtype=torch.float32).requires_grad_(True)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 128), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(1))
+        runs = []
+        for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
+            params.zero_grad(set_to_none=True)
+            loss, _ = m.loss_fn(params, {"tokens": tokens}, remat=remat, remat_policy=policy)
+            loss.backward()
+            runs.append((loss.detach(), [p.grad.clone() for p in params.parameters()]))
+        for loss, grads in runs[1:]:
+            assert torch.equal(loss, runs[0][0]), arch
+            assert all(torch.equal(a, b) for a, b in zip(grads, runs[0][1])), arch
 
 
 QP_SHAPES = [(448, 64, 128), (2, 16, 64), (1, 64, 256), (8, 32, 32), (3, 7, 48)]
@@ -994,11 +1111,13 @@ def test_served_vlm_wave_matches_the_cpu_port(dev):
 
 
 def test_kernel_wrappers_refuse_grad_on_the_card(dev):
-    """A CUDA operand that requires grad raises while grad mode is on (the
-    ctypes call would cut the autograd graph); under ``inference_mode`` the
-    same call launches.  A hybrid's training forward on the card raises at
-    its scan (``linear_scan_chunked`` has no backward); a dense model's
-    trains through ``attention_train`` without any kernel."""
+    """A serving kernel's CUDA operand that requires grad raises while grad
+    mode is on (the ctypes call would cut the autograd graph); under
+    ``inference_mode`` the same call launches.  ``linear_scan_chunked``
+    takes a gradient through its backward kernel: a hybrid's training step
+    on the card runs the scan forward twice a layer (``dots`` remat
+    recomputes it) and its backward once, a dense model's trains through
+    ``attention_train`` without any kernel."""
     from repro_torch.configs import smoke_config
     from repro_torch.models.model import build_model
 
@@ -1006,27 +1125,29 @@ def test_kernel_wrappers_refuse_grad_on_the_card(dev):
     r, k, v = (torch.randn(4, 64, 16, device=dev, generator=g) for _ in range(3))
     lw = -torch.rand(4, 64, 16, device=dev, generator=g)
     r.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="item 11"):
-        lsk.linear_scan_chunked(r, k, v, lw, chunk=64)
-    with torch.inference_mode():
-        lsk.linear_scan_chunked(r.detach(), k, v, lw, chunk=64)
+    bwd = lsk.linear_scan_chunked_bwd.launches
+    y, _ = lsk.linear_scan_chunked(r, k, v, lw, chunk=64)
+    y.sum().backward()
+    assert lsk.linear_scan_chunked_bwd.launches == bwd + 1
+    assert r.grad is not None and torch.isfinite(r.grad).all()
     q = torch.randn(4, 64, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(RuntimeError, match="attention_train"):
         fp.flash_prefill(q, q.detach(), q.detach())
-    for arch, raises in (("hymba-1.5b", True), ("minicpm-2b", False)):
+    with torch.inference_mode():
+        fp.flash_prefill(q, q.detach(), q.detach())
+    for arch, scans in (("hymba-1.5b", True), ("minicpm-2b", False)):
         cfg = smoke_config(arch)
         m = build_model(cfg)
         params = m.init(seed=0, device=dev, dtype=torch.float32).requires_grad_(True)
         tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=dev, generator=g)
         before = {name: fn.launches for name, fn in
-                  (("scan", lsk.linear_scan_chunked), ("flash", fp.flash_prefill))}
-        if raises:
-            with pytest.raises(RuntimeError, match="item 11"):
-                m.loss_fn(params, {"tokens": tokens})
-        else:
-            loss, _ = m.loss_fn(params, {"tokens": tokens}, remat=True, remat_policy="dots")
-            loss.backward()
-            assert all(p.grad is not None and torch.isfinite(p.grad).all()
-                       for p in params.parameters())
-            assert lsk.linear_scan_chunked.launches == before["scan"]
-            assert fp.flash_prefill.launches == before["flash"]
+                  (("scan", lsk.linear_scan_chunked), ("scan_bwd", lsk.linear_scan_chunked_bwd),
+                   ("flash", fp.flash_prefill))}
+        loss, _ = m.loss_fn(params, {"tokens": tokens}, remat=True, remat_policy="dots")
+        loss.backward()
+        assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in params.parameters())
+        layers = cfg.num_layers if scans else 0
+        assert lsk.linear_scan_chunked.launches == before["scan"] + 2 * layers
+        assert lsk.linear_scan_chunked_bwd.launches == before["scan_bwd"] + layers
+        assert fp.flash_prefill.launches == before["flash"]

@@ -8,7 +8,8 @@ Both packages start from the reference's f32 master weights
 (smoke configs: 2 layers, d_model 64; gemma3 at one unit of 5 local + 1
 global layers with ``local_window`` 8 and a logit softcap of 30, so the
 window and the cap bite at 32 positions).  The reference runs jitted on the CPU; the port's CPU tensors
-take the plain scan, and training never reaches a kernel.
+take the plain scan forward and its plain backward (``ref.linear_scan_bwd_ref``, through the
+scan's autograd.Function), and training never reaches a kernel.
 
 Limits, each measured on this file's inputs:
 
@@ -178,7 +179,8 @@ def test_loss_and_gradients_match_reference(arch):
         assert rel <= rel_max and cos >= cos_min, (name, rel, cos)
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen3-moe-235b-a22b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen3-moe-235b-a22b", "hymba-1.5b",
+                                  "rwkv6-3b"])
 def test_remat_variants_are_bit_equal(arch):
     base = port_grads(arch)
     for remat_policy in ("full", "dots"):
@@ -220,12 +222,13 @@ def test_training_reaches_no_kernel(monkeypatch):
 
 
 def test_kernel_wrappers_refuse_grad():
-    """The guard raises for an operand that requires grad on CUDA while grad
-    mode is on (``on_cuda=True`` stands for the card here), and is silent
-    under ``inference_mode`` / ``no_grad`` or for operands without grad."""
+    """The serving kernels' guard raises for an operand that requires grad on
+    CUDA while grad mode is on (``on_cuda=True`` stands for the card here),
+    and is silent under ``inference_mode`` / ``no_grad`` or for operands
+    without grad."""
     x = torch.ones(2, requires_grad=True)
-    with pytest.raises(RuntimeError, match="item 11") as err:
-        _build.refuse_grad("linear_scan_chunked", (x,), "hint", on_cuda=True)
+    with pytest.raises(RuntimeError, match="serving kernel has no backward") as err:
+        _build.refuse_grad("gear_decode", (x,), "hint", on_cuda=True)
     assert "hint" in str(err.value)
     with pytest.raises(RuntimeError, match="attention_train"):
         _build.refuse_grad("flash_prefill", (x,), "use attention_train", on_cuda=True)
@@ -238,6 +241,9 @@ def test_kernel_wrappers_refuse_grad():
 
 
 def test_every_kernel_wrapper_calls_the_guard():
+    """Every serving kernel's wrapper calls the guard before it launches;
+    ``linear_scan_chunked`` calls none and sends a call that needs a
+    gradient through its autograd.Function, whose backward is a kernel."""
     import inspect
 
     from repro_torch.kernels import (flash_prefill, gear_compress, gear_decode,
@@ -245,11 +251,15 @@ def test_every_kernel_wrapper_calls_the_guard():
     wrappers = (flash_prefill.flash_prefill, flash_prefill.flash_prefill_block,
                 gear_compress.gear_compress, gear_decode.gear_decode,
                 gear_decode.gear_decode_paged, gear_decode.gear_decode_history,
-                linear_scan_kernel.linear_scan_chunked, quant_pack.quant_pack)
+                quant_pack.quant_pack)
     for fn in wrappers:
         src = inspect.getsource(fn)
         assert "_build.refuse_grad(" in src and src.index("refuse_grad") < src.index(
             "launches += 1"), fn.__name__
+    scan = inspect.getsource(linear_scan_kernel)
+    assert "refuse_grad" not in scan and "_Scan.apply(" in inspect.getsource(
+        linear_scan_kernel.linear_scan_chunked)
+    assert "linear_scan_chunked_bwd(" in inspect.getsource(linear_scan_kernel._Scan.backward)
 
 
 # ---------------------------------------------------------------------------

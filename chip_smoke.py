@@ -76,7 +76,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    rows, Dk 16, Dv 64, one decay per row; S 512 in chunks of 64, a zero
    final-state gradient): every gradient within 2e-3 x max(1, max |plain|)
    of ``linear_scan_bwd_ref``'s overall and per row, two calls bit for bit,
-   timed beside the plain version and its f32 bound;
+   timed beside the plain version, its f32 bound and its bound with the
+   tensor-core products at the TF32 rate, with each CUDA kernel's time (a
+   profiler window) (with ``--parent-scan``, a parent
+   library's backward too, in turns, here and at the live backward calls of
+   phases 36-37, its gradients held to the same limit), and the pair
+   kernel's blocks per SM;
 9. ``quant_pack`` through its entry point ``repro_torch.kernels.quantize_chunk``
    on the 448 [64, 128] tiles of phase 5, at 2, 4 and 8 bits, f32 and bf16
    input: launches counted, packed codes, scale and zero bit for bit equal
@@ -1181,6 +1186,7 @@ SCAN_CASES = [
 
 
 PARENT_SCAN = None     # the parent tree's kernel, set by --parent-scan
+PARENT_SCAN_BWD = None  # its backward, where the parent's library exports one
 PARENT_KERNELS = {}    # kernel name -> the parent tree's version, set by --parent-kernels
 # kernels --parent-kernels builds: (wrapper module, its launcher, the C entry point)
 PARENT_SOURCES = {"flash_prefill_block": ("flash_prefill", "_block_launcher", "flash_block_launch"),
@@ -1226,12 +1232,13 @@ def ptxas_summary(log: str) -> str:
 
 def start_parent_build(src: pathlib.Path):
     """Start ``nvcc`` on a parent tree's ``<name>.cu`` beside this tree's
-    build; returns (process, library path)."""
+    build; returns (process, library path).  A header the parent's
+    directory lacks comes from this tree's ``csrc/`` (``-I``)."""
     from repro_torch.kernels import _build
 
     out = _build.BUILD / "parent" / f"lib{src.stem}_parent.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_build.nvcc(), *_build.FLAGS, "-o", str(out), str(src)]
+    cmd = [_build.nvcc(), *_build.FLAGS, "-I", str(_build.CSRC), "-o", str(out), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
 
 
@@ -1270,7 +1277,10 @@ def parent_scan(proc, lib_path: pathlib.Path):
     """The parent's kernel as a function of ``linear_scan_chunked``'s
     signature (operands as the wrapper checks them; it counts nothing).  A
     library that exports ``linear_scan_workspace_bytes`` takes a workspace
-    after the state pointer; an older one takes none."""
+    after the state pointer; an older one takes none.  Returns (forward,
+    backward): the backward, of ``linear_scan_chunked_bwd``'s signature, is
+    None unless the library exports ``linear_scan_bwd_launch`` and
+    ``linear_scan_bwd_workspace_bytes``."""
     import ctypes
 
     log, _ = proc.communicate()
@@ -1305,8 +1315,37 @@ def parent_scan(proc, lib_path: pathlib.Path):
             fail(f"the parent's linear_scan kernel: CUDA error {code}")
         return y, state
 
-    print(f"  parent linear_scan.cu built; {ptxas_summary(log)}")
-    return call
+    bwd_launch = getattr(lib, "linear_scan_bwd_launch", None)
+    bwd_ws = getattr(lib, "linear_scan_bwd_workspace_bytes", None)
+    call_bwd = None
+    if bwd_launch is not None and bwd_ws is not None:
+        bwd_launch.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        bwd_launch.restype = ctypes.c_int
+        bwd_ws.argtypes = [ctypes.c_int] * 6
+        bwd_ws.restype = ctypes.c_longlong
+
+        def call_bwd(r, k, v, log_w, u=None, *, chunk, mode, state0=None, dy, dstate=None):
+            def ptr(x):
+                return None if x is None else x.data_ptr()
+
+            BH, S, Dk = r.shape
+            Dv = v.shape[-1]
+            dr, dk, dv, dlw = (torch.empty_like(x) for x in (r, k, v, log_w))
+            du = torch.empty_like(u) if mode == "bonus" else None
+            ds0 = None if state0 is None else torch.empty_like(state0)
+            n = bwd_ws(BH, S, Dk, Dv, log_w.shape[-1], chunk)
+            buf = torch.empty(max(n, 16), dtype=torch.uint8, device=r.device)
+            code = bwd_launch(ptr(r), ptr(k), ptr(v), ptr(log_w), ptr(u), ptr(state0), ptr(dy),
+                              ptr(dstate), ptr(dr), ptr(dk), ptr(dv), ptr(dlw), ptr(du), ptr(ds0),
+                              ptr(buf), BH, S, Dk, Dv, log_w.shape[-1], chunk,
+                              int(mode == "bonus"), torch.cuda.current_stream().cuda_stream)
+            if code:
+                fail(f"the parent's linear_scan backward: CUDA error {code}")
+            return dr, dk, dv, dlw, du, ds0
+
+    print(f"  parent linear_scan.cu built ({'with' if call_bwd else 'without'} a backward); "
+          f"{ptxas_summary(log)}")
+    return call, call_bwd
 
 
 def scan_inputs(mode, BH, S, Dk, Dv, lw_cols, seed: int):
@@ -1460,7 +1499,10 @@ def scan_bwd_bytes_flops(r, k, v, lw, u, chunk: int, mode: str, state0=None, dst
     reverse state pass.  Where the chunk-start state is not zero (the chunks
     after the first, or every chunk from a ``state0``): 2 Dk Dv per token
     for g S_c^T, and 3 Dk Dv for the state's decay and d dl.  Returns
-    (bytes, operations)."""
+    (bytes, operations, the operations of these that the kernel runs on the
+    tensor cores): the pair products, the token-by-state products and g
+    S_c^T; the rest (factors, exponentials, the state passes, the cumsum)
+    runs in f32 on the CUDA cores."""
     BH, S, Dk = r.shape
     Dv, L = v.shape[-1], lw.shape[-1]
     W = chunk
@@ -1471,31 +1513,38 @@ def scan_bwd_bytes_flops(r, k, v, lw, u, chunk: int, mode: str, state0=None, dst
     if mode == "bonus":                         # beta, gamma, their terms in dr, dk, dv, du
         per_chunk += W * (3 * Dk + 2 * Dv + 6 * Dk + 2 * Dv)
     cross = W * 2 * Dk * Dv + 3 * Dk * Dv
-    flops = BH * (n * per_chunk + (n if state0 is not None else n - 1) * cross)
+    started = n if state0 is not None else n - 1
+    flops = BH * (n * per_chunk + started * cross)
+    mma = BH * (n * (pairs * 2 * (3 * Dk + 2 * Dv) + W * 8 * Dk * Dv) + started * W * 2 * Dk * Dv)
     tensors = [r, k, v, lw, u, state0, dstate]
     read = sum(x.numel() for x in tensors if x is not None) + BH * S * Dv       # + dy
     written = sum(x.numel() for x in (r, k, v, lw, u, state0) if x is not None)
-    return 4 * (read + written), flops
+    return 4 * (read + written), flops, mma
 
 
 def scan_bwd_check(fn, args: tuple, kw: dict, label: str, flush, report: dict,
                    iters: int = 20, list_kernels: bool = False):
     """Backward kernel vs ``linear_scan_bwd_ref`` on the same operands: each
     gradient within 2e-3 x max(1, max |plain|) overall and per row (as
-    ``scan_check`` holds y), two calls equal bit for bit; then its time, the
-    plain version's and the bound (f32 operations at the SIMT rate: the
-    kernel runs f32 FMAs), with ``list_kernels`` the device time of each of
-    its seven CUDA kernels (a profiler window).  Returns (ms, plain_ms,
-    bound_ms, bound_by)."""
+    ``scan_check`` holds y), two calls equal bit for bit; with
+    ``--parent-scan`` (a parent library with a backward) the parent's
+    gradients held within the same limit, and both timed in turns p1, c1,
+    c2, p2 on the same operands; the plain version's time and the call's
+    bounds: all operations at the f32 SIMT rate, and with the products the
+    kernel runs on the tensor cores (``scan_bwd_bytes_flops``' third count)
+    at the TF32 rate, three passes each; with ``list_kernels`` the device
+    time of each CUDA kernel of a call (a profiler window).  Returns (ms,
+    plain_ms, bound_ms, bound_by)."""
     from repro_torch.kernels.ref import linear_scan_bwd_ref
 
     got = fn(*args, **kw)
     again = fn(*args, **kw)
     want = linear_scan_bwd_ref(*args, **kw)
+    parent = None if PARENT_SCAN_BWD is None else PARENT_SCAN_BWD(*args, **kw)
     torch.cuda.synchronize()
     names = ("dr", "dk", "dv", "dlog_w", "du", "dstate0")
-    errs, ok, worst = {}, True, 0.0
-    for name, a, b, w in zip(names, got, again, want):
+    errs, ok, worst, parent_worst = {}, True, 0.0, 0.0
+    for i, (name, a, b, w) in enumerate(zip(names, got, again, want)):
         if (a is None) != (w is None):
             fail(f"{label}: {name} is {'missing' if a is None else 'unexpected'}")
         if w is None:
@@ -1508,26 +1557,40 @@ def scan_bwd_check(fn, args: tuple, kw: dict, label: str, flush, report: dict,
         ok = ok and err <= 2e-3 * scale and row <= 1.0 and bitwise
         worst = max(worst, err / scale)
         report["err"] = max(report.get("err", 0.0), err)
-    ms = time_ms(lambda: fn(*args, **kw), iters, flush)
+        if parent is not None:
+            perr = float((parent[i] - w).abs().max()) / scale
+            prow, _ = row_err(parent[i], w)
+            parent_worst = max(parent_worst, perr / 2e-3, prow)
+    timed = turns(lambda: fn(*args, **kw),
+                  None if PARENT_SCAN_BWD is None else lambda: PARENT_SCAN_BWD(*args, **kw),
+                  iters, flush)
+    ms = timed["c1"]
     plain_ms = time_ms(lambda: linear_scan_bwd_ref(*args, **kw), 3, flush)
     names = kernel_breakdown(lambda: fn(*args, **kw), 10, flush) if list_kernels else None
-    nbytes, flops = scan_bwd_bytes_flops(*args, kw["chunk"], kw["mode"], kw.get("state0"),
-                                         kw.get("dstate"))
+    nbytes, flops, mma = scan_bwd_bytes_flops(*args, kw["chunk"], kw["mode"], kw.get("state0"),
+                                              kw.get("dstate"))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_tc = max(t_bytes, (3 * mma / TF32_FLOPS + (flops - mma) / F32_FLOPS) * 1e3)
     print(f"  {label}: " + ", ".join(
         f"{n} max_abs_err={e:.3e} (tol 2e-3 x {sc:.3g}; worst row at {rw:.3g} of its limit"
-        f"{'' if bw else '; TWO CALLS DIFFER'})" for n, (e, sc, rw, bw) in errs.items()))
-    print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+        f"{'' if bw else '; TWO CALLS DIFFER'})" for n, (e, sc, rw, bw) in errs.items())
+        + ("" if parent is None else f"; the parent's worst at {parent_worst:.3g} of its limit"))
+    print(f"    kernel {times_text(timed)}, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
           f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at f32 {F32_FLOPS / 1e12:.0f} "
-          f"TFLOP/s), two calls bitwise equal: {all(e[3] for e in errs.values())}"
+          f"TFLOP/s); with its {mma / 1e9:.3f} GFLOP of products on the TF32 tensor cores "
+          f"({TF32_FLOPS / 1e12:.0f} TFLOP/s, 3 passes) {t_tc:.4f} ms; two calls bitwise "
+          f"equal: {all(e[3] for e in errs.values())}"
           + ("; CUDA kernels per call (ms): " + ", ".join(
               f"{key} {val:.4f}" for key, val in names.items()) if names else ""))
     if not ok:
         fail(f"{label} disagrees with its plain version")
+    if parent is not None and not parent_worst <= 1.0:
+        fail(f"{label}: the parent's backward disagrees with the plain version")
     report["err_over_scale"] = max(report.get("err_over_scale", 0.0), worst)
     report.setdefault("cases", []).append(
-        {"what": label, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        {"what": label, "ms": ms, **{f"ms_{key}": val for key, val in timed.items()},
+         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "bound_ms_tf32x3": t_tc}
         | ({"kernels": names} if names else {}))
     return ms, plain_ms, bound, by
 
@@ -1554,6 +1617,23 @@ def scan_bwd_case(case, flush, report: dict, dstate_zero: bool = False,
         f"linear_scan_chunked_bwd {mode} BH={BH} S={S} Dk={Dk} Dv={Dv} log_w[..,{lw_cols}] "
         f"chunk={chunk}" + (" from a non-zero state0 with a final-state gradient" if with_state
                             else ""), flush, report, list_kernels=list_kernels)
+
+
+def scan_bwd_occupancy() -> dict:
+    """Blocks of the backward's pair kernel resident on one SM at rwkv's Dk
+    64 and hymba's Dk 16 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    through the library's ``linear_scan_bwd_blocks_per_sm``)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load("linear_scan").linear_scan_bwd_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    out = {Dk: fn(Dk) for Dk in (64, 16)}
+    print(f"  linear_scan_chunked_bwd: pair-kernel blocks per SM by Dk {out}")
+    if min(out.values()) < 1:
+        fail(f"the backward's pair kernel fits no SM: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3888,7 +3968,7 @@ def adaptive_rank(flush) -> dict:
 
 
 def main() -> int:
-    global PARENT_SCAN
+    global PARENT_SCAN, PARENT_SCAN_BWD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="model depth of serving path 1, monolithic + dense (of 32); "
@@ -3896,7 +3976,8 @@ def main() -> int:
     ap.add_argument("--parent-scan", type=pathlib.Path, default=None,
                     help="a parent tree's csrc/linear_scan.cu: build it too and time it in "
                          "turns (parent, this tree, this tree, parent) beside every "
-                         "linear_scan_chunked case and live call")
+                         "linear_scan_chunked case and live call, and its backward (where it "
+                         "has one) beside every linear_scan_chunked_bwd case and live call")
     ap.add_argument("--parent-kernels", type=pathlib.Path, default=None,
                     help="a parent tree's csrc directory: build its flash_prefill_block.cu, "
                          "gear_compress.cu and quant_pack.cu too and time them in turns "
@@ -3932,7 +4013,7 @@ def main() -> int:
     for name, (sec, log) in sorted(built.items()):
         print(f"  {name}: built in {sec:.1f} s; {ptxas_summary(log)}")
     if parent is not None:
-        PARENT_SCAN = parent_scan(*parent)
+        PARENT_SCAN, PARENT_SCAN_BWD = parent_scan(*parent)
     for name, (proc, lib) in parents.items():
         PARENT_KERNELS[name] = parent_kernel(name, proc, lib)
     print(f"  build wall {time.perf_counter() - t0:.1f} s")
@@ -4006,12 +4087,13 @@ def main() -> int:
         scan_case(case, flush, reports["linear_scan_chunked"])
     bwd = reports["linear_scan_chunked_bwd"]
     for case in SCAN_CASES:
-        scan_bwd_case(case, flush, bwd)
+        scan_bwd_case(case, flush, bwd, list_kernels=True)
     for key, case in SCAN_BWD_TRAIN_CASES.items():
         timed = scan_bwd_case(case, flush, bwd, dstate_zero=True, list_kernels=True)
         names = ("ms", "plain_ms", "bound_ms", "bound_by")
         bwd.update(dict(zip(names, timed)) if key == "rwkv" else
                    {f"{n}_{key}": t for n, t in zip(names, timed)})
+    bwd["blocks_per_sm"] = scan_bwd_occupancy()
     phase("[9] quant_pack through kernels.quantize_chunk vs plain")
     quant_pack_phase(flush, reports["quant_pack"])
 

@@ -25,9 +25,12 @@ operand requires grad, :func:`linear_scan_chunked` runs through an
 ``autograd.Function`` whose backward is :func:`linear_scan_chunked_bwd`,
 the vector-Jacobian product of the chunked form (``ref.linear_scan_bwd_ref``
 on CPU tensors).  On the card it recomputes the forward's factors and
-chunk-start states (``scan_factors``, ``scan_states``) rather than saving
-them, then runs the reverse state pass, the intra-chunk terms and the decay
-gradient's reverse cumsum in f32 FMAs: seven launches, one count on
+chunk-start states (``scan_factors``, ``scan_states``, which also form
+q_facᵀ g and run the reverse state pass) rather than saving them, then the
+intra-chunk terms one 64-token tile pair a block (``bwd_pair``, its products
+on the tensor cores in 3xTF32; the off-diagonal pairs in a launch of their
+own when a chunk has more than one tile) and the decay gradient's reverse
+cumsum (``bwd_decay``): four or five launches, one count on
 ``linear_scan_chunked_bwd.launches``.  No float atomics: two calls give the
 same bits.
 """

@@ -512,6 +512,11 @@ SCAN_BWD_CASES = [
     ("inclusive", 6, 200, 200, 16, 100, 1, True),     # Dv over two 64-column slices
     ("bonus", 6, 37, 1, 64, 40, 64, True),            # chunk = 1
     ("inclusive", 6, 130, 65, 7, 33, 7, False),       # odd widths, a ragged tile
+    # the tile-pair kernels' edges
+    ("bonus", 4, 1024, 1024, 64, 64, 64, False),      # a chunk of 16 full tiles (120 pairs)
+    ("inclusive", 4, 192, 192, 16, 64, 1, False),     # exactly three tiles
+    ("inclusive", 4, 256, 64, 8, 64, 8, False),       # Dk 8: one column block, per-Dk decay
+    ("bonus", 4, 128, 64, 64, 64, 64, True),          # the clamp at rwkv's widths, from state0
 ]
 
 

@@ -7,9 +7,10 @@ gradients through the wrapper's ``autograd.Function`` against autograd
 through the plain forward.
 
 Cases: both modes; log_w of one column (hymba) and of Dk columns (RWKV6);
-aligned chunks, chunk = S, and chunks whose cumulative decay passes e^-30
-so that the clamps cut the gradient; with and without ``state0`` and a
-final-state gradient.  Inputs from numpy seeds.  Tolerances, each on
+aligned chunks, chunk = S (also at S = 200: four 64-token tiles, the last
+ragged, the shape class the card's backward splits into tile pairs), and
+chunks whose cumulative decay passes e^-30 so that the clamps cut the
+gradient; with and without ``state0`` and a final-state gradient.  Inputs from numpy seeds.  Tolerances, each on
 max |got - want| against max(1, max |want|) of the gradient:
 
 * against autograd through the plain forward: 1e-5 (the same f32 math in
@@ -35,7 +36,8 @@ from repro_torch.models import linear_scan as ls  # noqa: E402
 AUTOGRAD_TOL = 1e-5
 JAX_TOL = 1e-4
 B, H, Dk, Dv = 2, 2, 16, 24
-CHUNKS = {"aligned": (128, 32), "chunk=S": (96, 96), "clamp": (128, 64)}
+CHUNKS = {"aligned": (128, 32), "chunk=S": (96, 96), "clamp": (128, 64),
+          "chunk=S ragged": (200, 200)}
 NAMES = ("r", "k", "v", "log_w", "u", "state0")
 
 

@@ -329,9 +329,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
 37. training, path 26: hymba-1.5b at its published widths and 32 layers, as
     path 25 (its attention trains through ``attention_train``, its SSM
     heads' scans through the kernels), and its launcher run;
-38. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
+38. training, path 27: path 23's recipe (minicpm-2b, published widths, 40
+    layers, 4 x 512 tokens in 2 microbatches, its ``RunConfig``) through
+    ``train_loop(..., steps=3, mesh=make_test_mesh(1, 1))``, ZeRO-1 on, one
+    NCCL process: its three losses and grad norms equal to path 23's first
+    three, bit for bit, and no kernel launch; the step time beside path
+    23's, peak memory, and ``perf.roofline``'s row with ``model_flops`` (6
+    N D);
+39. training, path 28: PowerSGD on the pod mesh ``make_test_mesh(1, 1,
+    pod=1)``, minicpm-2b's smoke config, rank 8, ``powersgd_min_size`` 4096:
+    one step on the card against the CPU port from the same weights, batch
+    and start matrices (path 24's bounds), then ``python -m
+    repro_torch.launch.train --arch minicpm-2b --smoke --steps 2 --mesh
+    1x1x1 --powersgd --powersgd-min-size 4096`` as a subprocess, with no
+    ``--device``: exit 0, ``done at step 2`` and a logged
+    ``compressed_bytes`` above 0;
+40. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
     by path; the backward's on paths 25-26), the card's name and power
     limit, and the final ``{"ok": true, "device": {...}}`` line.
+
+Paths 23, 25, 26 and 27 print ``perf.roofline``'s row for their step: 8 N D
+executed operations, AdamW's 28 bytes a parameter, and the measured shares
+of the dense bf16 peak at 6 N D (``model_flops``) and at 8 N D.
 
 Kernel times come from ``time_ms``: the median over launches of CUDA
 events around one launch with a cold L2, behind a device-side wait that
@@ -360,8 +379,13 @@ import torch
 HERE = pathlib.Path(__file__).resolve().parent
 SRC = HERE / "src"
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12              # dense bf16 tensor cores
+sys.path.insert(0, str(SRC))
+try:
+    from repro_torch.perf.roofline import HW
+except ImportError:              # away from the repository: main() refuses to run
+    HW = {"peak_flops": float("nan"), "hbm_bw": float("nan")}
+HBM_BYTES_PER_S = HW["hbm_bw"]   # H100 SXM, NVIDIA data sheet (repro_torch.perf.roofline)
+BF16_FLOPS = HW["peak_flops"]    # dense bf16 tensor cores (repro_torch.perf.roofline)
 F32_FLOPS = 67e12                # f32 outside the tensor cores
 TF32_FLOPS = 495e12              # dense TF32 tensor cores
 
@@ -3758,6 +3782,7 @@ def training(flush, reports: dict, arch: str = TRAIN_ARCH, path: str = "train_fu
     peak = torch.cuda.max_memory_allocated() / 1e9
     flops = 8 * n_params * tokens
     share = flops / (step_ms / 1e3) / BF16_FLOPS
+    roof = train_roofline(cfg, n_params, step_ms)
     print(f"  kernel launches over the {TRAIN_STEPS} steps: {launches} (expected "
           f"{want or 'all 0'}" + (f": {2 * per_step} forward and {per_step} backward scans a "
                                   f"step" if scans else "") + ")")
@@ -3790,13 +3815,43 @@ def training(flush, reports: dict, arch: str = TRAIN_ARCH, path: str = "train_fu
           f"the dense bf16 peak; a profiled step's kernels {busy_s * 1e3:.1f} ms = "
           f"{busy_s * 1e3 / step_ms * 100:.1f}% of an unprofiled step; "
           f"{smi()}")
+    print(f"  {roofline_text(roof)}")
     del state, params, step, batches, holder
     gc.collect()
     torch.cuda.empty_cache()
     return out | {"tokens_per_step": tokens, "steps": rows, "step_ms": step_ms,
                   "tokens_per_s": tokens / (step_ms / 1e3), "peak_gb": peak,
                   "bf16_peak_share": share, "launches": launches,
-                  "device_ms_per_step": busy_s * 1e3, "card": smi()}
+                  "device_ms_per_step": busy_s * 1e3, "roofline": roof, "card": smi()}
+
+
+def train_roofline(cfg, n_params: int, step_ms: float) -> dict:
+    """``perf.roofline``'s row for one train step of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` tokens on one card: executed operations 8 N D (forward
+    and backward 6 N D, the ``dots`` remat's recompute 2 N D; N the counted
+    parameters), bytes AdamW's floor (p, g, m and v read, p, m and v
+    written: 28 B a parameter), no collective, and ``model_flops`` 6 N D (N
+    the config's analytic ``active_param_count``); beside it the measured
+    shares of the dense bf16 peak: 6 N D (``model_flops``) and 8 N D a
+    step over the step's time."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.perf.roofline import model_flops, roofline
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    shape = ShapeConfig("chip_smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    useful = model_flops(cfg, shape)
+    row = roofline(8.0 * n_params * tokens, 28.0 * n_params, 0.0, 1, useful).row()
+    sec = step_ms / 1e3
+    return row | {"share_6nd": useful / sec / HW["peak_flops"],
+                  "share_8n": 8.0 * n_params * tokens / sec / HW["peak_flops"]}
+
+
+def roofline_text(roof: dict) -> str:
+    return (f"roofline (perf.roofline, one card): compute {roof['compute_s'] * 1e3:.1f} ms, "
+            f"memory {roof['memory_s'] * 1e3:.2f} ms, bound by {roof['bottleneck']}; "
+            f"model_flops 6 N D = {roof['model_flops'] / 1e12:.2f} TFLOP (flops_eff "
+            f"{roof['flops_eff']:.3f} of 8 N D); measured share of the dense bf16 peak: "
+            f"6 N D {roof['share_6nd'] * 100:.2f}%, 8 N D {roof['share_8n'] * 100:.2f}%")
 
 
 def train_launcher(arch: str) -> dict:
@@ -3924,6 +3979,192 @@ def training_cross() -> dict:
     if resumed.step != 6 or diff >= RESTORE_ATOL:
         fail(f"restore: max diff {diff} (bound {RESTORE_ATOL}), step {resumed.step}")
     return out | {"restore_max_diff": diff}
+
+
+def training_mesh(path23: dict) -> dict:
+    """Path 27: path 23's recipe (its ``RunConfig``, weights, batches) through
+    ``train_loop(..., steps=3, mesh=make_test_mesh(1, 1))``, ZeRO-1 on, one
+    NCCL process: the mesh step's gathers, ZeRO-1 slices and data means over
+    axes of size 1.  Its three losses and grad norms must equal path 23's
+    first three bit for bit, and no kernel launches (as path 23).  Each
+    step is timed around ``make_train_step``'s step (device-synchronized),
+    beside path 23's; then, on the same state, a warm-up mesh step and the
+    one-device and mesh steps in turns (p1, m1, m2, p2): the mesh layer's
+    cost a step; peak memory over the loop; ``perf.roofline``'s row."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.train import loop
+    from repro_torch.train.state import RunConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    mesh = make_test_mesh(1, 1)
+    dc_ = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                     global_batch=TRAIN_BATCH)
+    rows, real = [], loop.make_train_step
+
+    def timed_step(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def run_step(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            rows.append({"ms": (time.perf_counter() - t) * 1e3} |
+                        {k: float(v) for k, v in met.items()})
+            return state, met
+
+        return run_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build = HERE / "build"
+    build.mkdir(exist_ok=True)
+    fns = zero_launches()
+    loop.make_train_step = timed_step
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as ckpt:
+            # path 23's RunConfig; the checkpoint directory is fresh (ckpt_every
+            # 0 writes nothing, and nothing there resumes)
+            run = RunConfig(total_steps=TRAIN_STEPS, warmup_steps=1, microbatches=TRAIN_MICRO,
+                            remat=True, remat_policy="dots", ckpt_every=0, log_every=1,
+                            ckpt_dir=ckpt)
+            state = loop.train_loop(model, run, dc_, steps=3, log_fn=lambda *_: None, mesh=mesh)
+    finally:
+        loop.make_train_step = real
+    launches = {name: fn.launches for name, fn in fns.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in state.params.parameters())
+    loop_steps = state.step
+    # the mesh layer's cost in turns on the same state (steps 3-7): a warm-up
+    # mesh step, then one-device p1, mesh m1, m2, one-device p2
+    batches = [make_batch(dc_, cfg, s_, DEV) for s_ in range(3, 8)]
+    steps = {"mesh": real(model, run, mesh), "one_device": real(model, run)}
+    turn_ms = {"mesh": [], "one_device": []}
+    for i, kind in enumerate(("mesh", "one_device", "mesh", "mesh", "one_device")):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = steps[kind](state, batches[i])
+        torch.cuda.synchronize()
+        if i:
+            turn_ms[kind].append((time.perf_counter() - t) * 1e3)
+    gap_ms = float(np.mean(turn_ms["mesh"]) - np.mean(turn_ms["one_device"]))
+    print(f"  in turns (p1, m1, m2, p2) on steps 4-7: one-device {turn_ms['one_device']} ms, "
+          f"mesh {turn_ms['mesh']} ms: the mesh layer costs {gap_ms:+.1f} ms a step")
+    want = path23["steps"][:3]
+    for i, (got, ref) in enumerate(zip(rows, want)):
+        print(f"  step {i}: loss {got['loss']!r} grad_norm {got['grad_norm']!r}, "
+              f"{got['ms']:.1f} ms (path 23: {ref['loss']!r} / {ref['grad_norm']!r}, "
+              f"{ref['ms']:.1f} ms)")
+    if len(rows) != 3 or loop_steps != 3 or any(
+            (g["loss"], g["grad_norm"]) != (r["loss"], r["grad_norm"]) for g, r in zip(rows, want)):
+        fail(f"path 27: the mesh step's losses / grad norms {rows} are not path 23's {want[:3]}")
+    if any(launches.values()):
+        fail(f"path 27: kernel launches {launches}, expected none")
+    step_ms = float(np.median([r["ms"] for r in rows[1:]]))
+    ref_ms = float(np.median([r["ms"] for r in want[1:3]]))
+    roof = train_roofline(cfg, n_params, step_ms)
+    print(f"  step {step_ms:.1f} ms (median of steps 1-2; path 23's steps 1-2 "
+          f"{ref_ms:.1f} ms, path 23's median {path23['step_ms']:.1f} ms), peak memory "
+          f"{peak:.2f} GB (path 23: {path23['peak_gb']:.2f} GB); {smi()}")
+    print(f"  {roofline_text(roof)}")
+    del state, steps, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": rows, "step_ms": step_ms, "path23_steps_1_2_ms": ref_ms,
+            "turns_ms": turn_ms, "mesh_layer_ms": gap_ms,
+            "peak_gb": peak, "launches": launches, "roofline": roof, "card": smi()}
+
+
+PSGD_RANK, PSGD_MIN_SIZE = 8, 4096   # path 28: minicpm-2b's smoke matrices are 2,048-32,768
+
+
+def training_powersgd() -> dict:
+    """Path 28: PowerSGD on the pod mesh ``make_test_mesh(1, 1, pod=1)``,
+    minicpm-2b's smoke config, rank 8, ``powersgd_min_size`` 4096: one mesh
+    step on the card against the same step on the CPU port from the same
+    weights (seeded on the CPU, then copied), batch and start matrices
+    (``grad_compress.draw_inits`` draws on the CPU), under path 24's bounds
+    (loss within ``TRAIN_LOSS_ATOL``, every update of >= 1,000 elements at
+    cosine >= ``TRAIN_STEP_COS``), ``compressed_bytes`` above 0 on both.
+    Then ``python -m repro_torch.launch.train --arch minicpm-2b --smoke
+    --steps 2 --mesh 1x1x1 --powersgd --powersgd-min-size 4096`` as a
+    subprocess, with no ``--device``: exit 0, ``done at step 2`` and a
+    logged ``compressed_bytes`` above 0 (at the launcher's default minimum
+    of 65,536 elements no smoke matrix is compressed)."""
+    import copy
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.state import RunConfig, init_train_state
+
+    mesh = make_test_mesh(1, 1, pod=1)
+    cfg = smoke_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    run = RunConfig(total_steps=6, warmup_steps=0, microbatches=2, remat=True,
+                    remat_policy="dots", ckpt_every=0, log_every=1, grad_compression="powersgd",
+                    powersgd_rank=PSGD_RANK, powersgd_min_size=PSGD_MIN_SIZE)
+    dc_ = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
+    cpu_params = model.init(seed=0, device="cpu", dtype=torch.float32)
+    card_params = copy.deepcopy(cpu_params).to(DEV)
+    before = {n: p.detach().clone() for n, p in cpu_params.named_parameters()}
+    met = {}
+    for key, dev, params in (("cpu", "cpu", cpu_params), ("cuda", DEV, card_params)):
+        state = init_train_state(params, run, mesh)
+        _, m = make_train_step(model, run, mesh)(state, make_batch(dc_, cfg, 0, dev))
+        met[key] = {k: float(v) for k, v in m.items()}
+    worst = 1.0
+    for (n, p), (_, q) in zip(cpu_params.named_parameters(), card_params.named_parameters()):
+        if p.numel() >= 1000:
+            a = (p.detach() - before[n]).double().flatten()
+            b = (q.detach().cpu() - before[n]).double().flatten()
+            worst = min(worst, float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300)))
+    gap = abs(met["cpu"]["loss"] - met["cuda"]["loss"])
+    print(f"  one PowerSGD step (rank {PSGD_RANK}, matrices of >= {PSGD_MIN_SIZE} elements) on "
+          f"the CPU and on the card: loss {met['cpu']['loss']:.6f} / {met['cuda']['loss']:.6f} "
+          f"(gap {gap:.2e}), least update cosine {worst:.6f}; compressed / exact bytes "
+          f"{met['cuda']['compressed_bytes']:.0f} / {met['cuda']['exact_bytes']:.0f} (CPU "
+          f"{met['cpu']['compressed_bytes']:.0f} / {met['cpu']['exact_bytes']:.0f}), n_dev "
+          f"{met['cuda']['n_dev']:.0f}")
+    if gap > TRAIN_LOSS_ATOL or worst < TRAIN_STEP_COS or not (
+            met["cuda"]["compressed_bytes"] > 0
+            and met["cuda"]["compressed_bytes"] == met["cpu"]["compressed_bytes"]):
+        fail(f"path 28: the card's PowerSGD step leaves the CPU port's: {met}, cosine {worst}")
+    dist.destroy_process_group()
+
+    build = HERE / "build"
+    build.mkdir(exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    with tempfile.TemporaryDirectory(dir=build) as ckpt:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke",
+               "--steps", "2", "--mesh", "1x1x1", "--powersgd", "--powersgd-min-size",
+               str(PSGD_MIN_SIZE), "--ckpt-dir", ckpt]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
+                              timeout=600)
+        sec = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    print(f"  {' '.join(cmd[1:-2])}: exit {proc.returncode} in {sec:.1f} s; " + " | ".join(lines))
+    logged = [float(x) for x in re.findall(r"compressed_bytes=(\S+)", proc.stdout)]
+    if proc.returncode != 0 or not lines or lines[-1] != "done at step 2" or not logged \
+            or not logged[0] > 0:
+        fail(f"the mesh launcher exited {proc.returncode}: {proc.stdout[-2000:]} "
+             f"{proc.stderr[-2000:]}")
+    return {"cpu": met["cpu"], "cuda": met["cuda"], "loss_gap": gap, "least_update_cos": worst,
+            "launcher": {"seconds": sec, "stdout": lines, "compressed_bytes": logged}}
 
 
 def adaptive_rank(flush) -> dict:
@@ -4272,7 +4513,15 @@ def main() -> int:
         summaries[key] = training(flush, reports, arch, key)
         summaries[key]["launcher"] = train_launcher(arch)
 
-    phase("[38] summary")
+    phase(f"[38] training, path 27: {TRAIN_ARCH} at full width and depth, path 23's recipe "
+          f"through train_loop on a 1 x 1 mesh (one NCCL process), ZeRO-1 on, 3 steps")
+    summaries["train_mesh"] = training_mesh(summaries["train_full"])
+    phase(f"[39] training, path 28: PowerSGD on a 1 x 1 x 1 (pod, data, model) mesh, "
+          f"{TRAIN_ARCH} smoke, one step on the card against the CPU port, then the mesh "
+          f"launcher")
+    summaries["train_powersgd"] = training_powersgd()
+
+    phase("[40] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for rep in reports.values():

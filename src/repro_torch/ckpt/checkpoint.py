@@ -18,7 +18,13 @@ The leaves are flattened in one fixed order: every parameter of
   manifest's before it writes anything;
 * **async**: :func:`save_async` copies to the host synchronously and writes
   on a background thread; :func:`wait_pending` joins the writes and raises
-  the first error one of them met.
+  the first error one of them met;
+* **mesh-independent**: on a mesh (``shardings``: the state's
+  :func:`~repro_torch.train.state.train_state_shardings`) each leaf is
+  gathered into its global array, rank 0 writes and the other processes
+  wait on a barrier; :func:`restore` slices each global array onto
+  whatever mesh the restarted job has (elastic rescale).  The PowerSGD
+  error feedback, which differs between pods, is stored as rank 0's.
 
 A bf16 leaf is stored as its 16-bit pattern (numpy has no bf16) and the
 manifest records ``bfloat16``.
@@ -36,6 +42,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["save", "save_async", "restore", "latest_step", "wait_pending"]
 
@@ -69,18 +76,52 @@ def _to_host(t: torch.Tensor) -> tuple:
     return arr, _dtype_name(t.dtype)
 
 
-def _host_leaves(state) -> list:
-    return [(name, *_to_host(t)) for name, t in _leaves(state)]
+def _by_name(shardings) -> dict:
+    """Each sharded leaf's :class:`~repro_torch.dist.sharding.Sharding`, by
+    leaf name (the error feedback and the host integers are whole)."""
+    out = {f"params.{n}": sh for n, sh in shardings.params.items()}
+    out.update({f"opt.mu.{n}": sh for n, sh in shardings.opt.mu.items()})
+    out.update({f"opt.nu.{n}": sh for n, sh in shardings.opt.nu.items()})
+    return out
 
 
-def save(ckpt_dir: str, step: int, state) -> str:
-    """Write ``state`` as checkpoint ``step``; returns its directory."""
-    return _write(ckpt_dir, step, _host_leaves(state))
+def _writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def save_async(ckpt_dir: str, step: int, state) -> None:
-    """:func:`save` with the host copy made now and the write on a thread."""
-    host = _host_leaves(state)
+def _host_leaves(state, shardings=None) -> list:
+    """(name, array, dtype) of every leaf, global arrays on a mesh (every
+    process takes part in the gathers; only the writer keeps the copies)."""
+    shs = {} if shardings is None else _by_name(shardings)
+    out = []
+    for name, t in _leaves(state):
+        if name in shs and not shs[name].trivial:
+            t = shs[name].full(t)
+        if _writer():
+            out.append((name, *_to_host(t)))
+    return out
+
+
+def _barrier(shardings) -> None:
+    if shardings is not None and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def save(ckpt_dir: str, step: int, state, shardings=None) -> str:
+    """Write ``state`` (on a mesh: with its ``shardings``) as checkpoint
+    ``step``; returns its directory."""
+    host = _host_leaves(state, shardings)
+    final = _write(ckpt_dir, step, host) if _writer() else _final(ckpt_dir, step)
+    _barrier(shardings)
+    return final
+
+
+def save_async(ckpt_dir: str, step: int, state, shardings=None) -> None:
+    """:func:`save` with the host copy made now and the write (rank 0's) on
+    a thread."""
+    host = _host_leaves(state, shardings)
+    if not _writer():
+        return
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     future = pool.submit(_write, ckpt_dir, step, host)
     pool.shutdown(wait=False)
@@ -97,8 +138,12 @@ def wait_pending() -> None:
         future.result()
 
 
+def _final(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
+
+
 def _write(ckpt_dir: str, step: int, host_leaves: list) -> str:
-    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    final = _final(ckpt_dir, step)
     tmp = final + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp, exist_ok=True)
@@ -128,13 +173,15 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, state):
+def restore(ckpt_dir: str, step: int, state, shardings=None):
     """Load checkpoint ``step`` into ``state``'s tensors (in place, on their
-    devices) and return the state with the checkpoint's ``step`` and
+    devices; on a mesh, each process's slice of each global array by
+    ``shardings``) and return the state with the checkpoint's ``step`` and
     ``opt.count``.  Raises ``IOError`` for a corrupt leaf and ``ValueError``
     for a checkpoint of another tree (names, shapes or dtypes), before
     anything is written."""
-    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    d = _final(ckpt_dir, step)
+    shs = {} if shardings is None else _by_name(shardings)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     leaves = _leaves(state)
@@ -146,6 +193,8 @@ def restore(ckpt_dir: str, step: int, state):
         arr = np.load(os.path.join(d, f"arr_{i}.npy"))
         if hashlib.sha1(arr.tobytes()).hexdigest() != meta["sha1"]:
             raise IOError(f"checkpoint leaf {i} ({name}) corrupt")
+        if name in shs:
+            arr = shs[name].local(torch.from_numpy(arr)).numpy()
         if list(arr.shape) != list(leaf.shape) or meta["dtype"] != _dtype_name(leaf.dtype):
             raise ValueError(f"checkpoint leaf {name} is {meta['dtype']} {arr.shape}, "
                              f"expected {leaf.dtype} {tuple(leaf.shape)}")

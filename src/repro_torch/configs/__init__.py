@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
 _MODULES = {
     "llama2-7b": "llama2_7b",
@@ -29,6 +29,16 @@ _MODULES = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
 }
+
+# the reference's registry order (``repro.configs``): llama2-7b, the paper's
+# model, last, and outside the assigned architectures
+ALL_ARCHS = ("gemma3-12b", "minicpm-2b", "gemma-2b", "starcoder2-3b", "paligemma-3b",
+             "qwen3-moe-235b-a22b", "llama4-scout-17b-a16e", "musicgen-medium", "hymba-1.5b",
+             "rwkv6-3b", "llama2-7b")
+ARCHS = tuple(k for k in ALL_ARCHS if k != "llama2-7b")
+
+# archs for which long_500k runs (the sub-quadratic families)
+LONG_CONTEXT_ARCHS = ("gemma3-12b", "hymba-1.5b", "rwkv6-3b")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -62,4 +72,17 @@ def smoke_config(name: str) -> ModelConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
-__all__ = ["ModelConfig", "get_config", "smoke_config"]
+def shapes_for(name: str) -> tuple[ShapeConfig, ...]:
+    """The assigned input shapes that apply to this arch: training, prefill
+    and decode, and ``long_500k`` for :data:`LONG_CONTEXT_ARCHS`."""
+    get_config(name)
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if name in LONG_CONTEXT_ARCHS:
+        out.append(SHAPES["long_500k"])
+    return tuple(out)
+
+
+__all__ = [
+    "ModelConfig", "ShapeConfig", "SHAPES", "ARCHS", "ALL_ARCHS", "LONG_CONTEXT_ARCHS",
+    "get_config", "smoke_config", "shapes_for",
+]

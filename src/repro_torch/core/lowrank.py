@@ -13,7 +13,9 @@ raises rather than drawing from torch.
 The QR is :func:`householder_q`, batched Householder with LAPACK's sign
 conventions, on every device; it agrees with LAPACK's Q to rounding.  ``A·Bᵀ``
 (and the decode path's ``(q·B)·Aᵀ``) would not depend on column signs or on
-the basis of the span in any case.
+the basis of the span in any case.  ``orthonormalizer="mgs"`` takes the
+reference's modified Gram-Schmidt (:func:`_mgs_q`) instead, as its gradient
+compressor (:mod:`repro_torch.optim.grad_compress`) does.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import numpy as np
 import torch
 
 __all__ = ["power_iteration", "householder_q", "pi_init", "apply_lowrank"]
+
+ORTHONORMALIZERS = ("qr", "mgs")
 
 _TABLE = pathlib.Path(__file__).with_name("_pi_init.npz")
 
@@ -88,14 +92,35 @@ def householder_q(x: torch.Tensor) -> torch.Tensor:
     return q
 
 
+def _mgs_q(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal basis of the columns of ``x`` [..., m, r] by modified
+    Gram-Schmidt, the reference's arithmetic: each column less its
+    projections on the earlier basis vectors in turn, divided by its norm
+    floored at 1e-12, in f32."""
+    xf = x.to(torch.float32)
+    cols = []
+    for j in range(xf.shape[-1]):
+        v = xf[..., j]
+        for q in cols:
+            v = v - torch.sum(q * v, dim=-1, keepdim=True) * q
+        norm = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+        cols.append(v / torch.clamp(norm, min=1e-12))
+    return torch.stack(cols, dim=-1)
+
+
 def power_iteration(x: torch.Tensor, rank: int, iters: int = 4,
-                    init: torch.Tensor | None = None):
+                    init: torch.Tensor | None = None, orthonormalizer: str = "qr"):
     """Approximate top-``rank`` factors of ``x`` [..., n, d] from the start
     matrix ``init`` [d, rank] (None: the reference's ``PRNGKey(0)`` draw,
-    :func:`pi_init`), broadcast over the leading dims.
+    :func:`pi_init`), broadcast over the leading dims; the final sweep's
+    orthonormalizer is :func:`householder_q` (``"qr"``) or :func:`_mgs_q`
+    (``"mgs"``, which the reference runs unscaled, so no rescale here).
 
     Returns (A [..., n, rank], B [..., d, rank]) in f32 with ``A @ Bᵀ ≈ x_r``.
     """
+    if orthonormalizer not in ORTHONORMALIZERS:
+        raise ValueError(f"orthonormalizer must be one of {ORTHONORMALIZERS}, "
+                         f"got {orthonormalizer!r}")
     n, d = x.shape[-2], x.shape[-1]
     lead = x.shape[:-2]
     xf = x.to(torch.float32)
@@ -108,7 +133,9 @@ def power_iteration(x: torch.Tensor, rank: int, iters: int = 4,
     a = torch.zeros(lead + (n, rank), dtype=torch.float32, device=xf.device)
     for it in range(iters):
         last = it == iters - 1
-        if last:
+        if last and orthonormalizer == "mgs":
+            b = _mgs_q(b)
+        elif last:
             # Q does not change when a column is scaled by a power of two (every
             # rounding scales with it), and at unit scale the QR's norms cannot
             # overflow: b has grown by sigma^2 a sweep (LAPACK's norms rescale)
@@ -116,7 +143,7 @@ def power_iteration(x: torch.Tensor, rank: int, iters: int = 4,
             b = householder_q(b)
         a = xf @ b
         if last:
-            a = householder_q(a)
+            a = _mgs_q(a) if orthonormalizer == "mgs" else householder_q(a)
         b = xf.transpose(-1, -2) @ a
     return a, b
 

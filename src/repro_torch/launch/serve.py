@@ -25,7 +25,8 @@ holds its image prefix too.
 ``--device`` (default ``cuda``) names the device; nothing falls back to the
 CPU when CUDA is absent.  ``--fidelity-every N`` turns on telemetry with the
 fidelity probes (one FP16 shadow prefill every Nth closed chunk).
-``--mesh`` (sharding, ROADMAP queue 1, item 10) exits with a message.
+``--mesh`` (serving on a device mesh, ROADMAP queue 1, item 10) exits with a
+message; training on a mesh is ``repro_torch.launch.train --mesh``.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ def main(argv=None) -> None:
                     help="device to serve on (default cuda; cpu for the plain kernel versions)")
     args = ap.parse_args(argv)
     if args.mesh:
-        raise SystemExit("--mesh: sharding over a device mesh is not ported "
+        raise SystemExit("--mesh: serving on a device mesh is not ported yet "
                          "(ROADMAP queue 1, item 10)")
     if args.metrics_json or args.trace_out or args.fidelity_every:
         args.obs = True

@@ -66,18 +66,22 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict, lr):
+def adamw_update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict, lr,
+                 gnorm: torch.Tensor | None = None):
     """One AdamW step of ``params`` from ``grads`` (name -> tensor) at rate
     ``lr`` (an f32 scalar: :func:`repro_torch.optim.schedule.lr_at`).
     ``params`` and ``state``'s moments are updated in place (they must be
-    contiguous).  Returns (params, the new :class:`AdamWState`,
-    {"grad_norm": the unclipped global norm}).
+    contiguous).  ``gnorm`` is the global norm to clip by, when ``grads``
+    are slices of the gradient (ZeRO-1: each process updates its slice);
+    None computes it from ``grads``.  Returns (params, the new
+    :class:`AdamWState`, {"grad_norm": the unclipped global norm}).
 
     The arithmetic is the reference's compiled step: ``mu = fma(b1, mu, (1 -
     b1) g)``, ``nu = fma(b2, nu, (1 - b2) g g)`` and ``p = fma(-lr, step +
     wd p, p)``, each rounded once."""
     f32 = torch.float32
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     dev = gnorm.device
 
     def const(v):

@@ -531,8 +531,21 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
     assert "[step 0]" in out and "grad_norm=" in out and out.strip().endswith("done at step 4")
 
 
-def test_launcher_mesh_names_item_10():
-    with pytest.raises(SystemExit, match="item 10"):
-        launch_train.main(["--mesh", "2x2"])
-    with pytest.raises(SystemExit, match="item 10"):
-        launch_train.main(["--production-mesh"])
+@pytest.mark.parametrize("flags,exit_match", [
+    (["--mesh", "1x1"], None),
+    (["--mesh", "2x2"], "world size of 4, and this job has 1.*torchrun --nproc-per-node 4"),
+    (["--production-mesh"], "world size of 256, and this job has 1"),
+], ids=["mesh-1x1-trains", "mesh-2x2-needs-4", "production-mesh-needs-256"])
+def test_launcher_mesh_flags(flags, exit_match, tmp_path, capsys):
+    """``--mesh 1x1`` trains on a one-process mesh (gloo on the CPU); a mesh
+    larger than the job's world size exits naming the size it needs."""
+    argv = flags + ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "4", "--seq",
+                    "32", "--ckpt-dir", str(tmp_path)]
+    if exit_match is not None:
+        with pytest.raises(SystemExit, match=exit_match):
+            launch_train.main(argv)
+    else:
+        launch_train.main(argv)
+        out = capsys.readouterr().out
+        assert "[step 0]" in out and out.strip().endswith("done at step 2")
+    assert not torch.distributed.is_initialized()

@@ -102,6 +102,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernel) against the portable ``cache.attend`` on the same cache (atol
    3e-2, the reference's bound for its f32 / bf16 pair) (no profiler
    window, for time: ``PERF.md`` §5 keeps an earlier reading);
+10.1. serving on a device mesh, path 29: path 1's model and weights through
+    ``Engine(..., mesh=make_test_mesh(1, 1))`` (one NCCL process; every
+    axis of size 1, so every parameter is shared with path 1's model and no
+    collective is issued), gear_kcvt4, monolithic prefill, dense layout,
+    path 1's first 4 requests, 32 new tokens each: greedy tokens equal to
+    the first 32 of path 1's, bit for bit,
+    exactly path 1's ``flash_prefill`` launches per prefill and
+    ``gear_decode`` launches per step and no other kernel, no
+    ``torch.distributed`` collective called; decode tok/s and peak memory
+    beside path 1's (its launcher run is in phase 21);
 11. serving, path 2: the same requests through llama2-7b at all its 32
     layers with ``prefill_mode="streaming", layout="paged"`` and a pool of
     two thirds of the dense-equivalent pages, so that a decode step runs
@@ -159,12 +169,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
     the live layer-0 prefill scan (S = chunk = 859) and decode scan (S = 1,
     from the slots' states) are held against their plain versions and
     timed (no profiler window);
-16. serving, path 7: wave mode on phase 10's llama2-7b (``--layers`` cuts
-    it too): ``Engine(batch=4, capacity=1152)`` dense and ``Scheduler.run``
+16. serving, path 7: wave mode on phase 10's llama2-7b at 8 of its layers
+    (32 until path 29 came; ``--layers`` cuts it further):
+    ``Engine(batch=4, capacity=1152)`` dense and ``Scheduler.run``
     over the 8 requests in two waves, left-padded to 859 and 899 tokens,
     each prefilled at batch 4 (``flash_prefill`` at BHq = 128) and decoded
     in lockstep; every request must end ``OK`` with 96 in-vocab tokens, each
-    wave prefill launch exactly 32 ``flash_prefill`` and each decode step 32
+    wave prefill launch exactly 8 ``flash_prefill`` and each decode step 8
     ``gear_decode``; the live layer-0 ``flash_prefill`` call (BHq 128) is
     held against its plain version and timed beside SDPA, one live decode
     step's layer-0 cache against the plain version, and each wave row's
@@ -198,11 +209,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
     for bit path 5's in both; no probe error, at least one probe, every
     layer in a report with finite K/V errors, 32 ``flash_prefill`` launches
     (the FP16 shadow prefill) per probe;
-21. the launcher: ``python -m repro_torch.launch.serve`` at full width as
-    subprocesses, once in wave mode (batch 4, prompt 512, 16 tokens) and once
-    in continuous + paged mode with ``--obs``, ``--metrics-json`` and
-    ``--trace-out`` under ``build/serve/``; each must exit 0 and print the
-    reference launcher's lines, and both JSON files must parse;
+21. the launcher: ``python -m repro_torch.launch.serve`` at full width,
+    three subprocesses with no ``--device`` started together: wave mode
+    (batch 4, prompt 512, 16 tokens), continuous + paged mode with
+    ``--obs``, ``--metrics-json`` and ``--trace-out`` under
+    ``build/serve/``, and path 29's wave mode with ``--mesh 1x1``; each must
+    exit 0 and print the reference launcher's lines, and both JSON files
+    must parse;
 22. serving, path 12: gemma-2b at its published widths (18 layers, d_model
     2048, 8 heads over 1 kv head of 256, d_ff 16384, GeGLU, vocab 256000
     tied and scaled by sqrt(d_model)), gear_kcvt4, monolithic prefill, dense
@@ -323,12 +336,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
     x 2 ``linear_scan_chunked`` launches a step (the forward and the
     ``dots`` remat's recompute) and 32 x 2 ``linear_scan_chunked_bwd``
     launches, no other kernel; the first live backward call held against
-    the plain backward and timed; then ``python -m repro_torch.launch.train
-    --arch rwkv6-3b --smoke --steps 4`` as a subprocess, with no
-    ``--device``: exit 0 and ``done at step 4``;
+    the plain backward and timed (its launcher run is in phase 40);
 37. training, path 26: hymba-1.5b at its published widths and 32 layers, as
     path 25 (its attention trains through ``attention_train``, its SSM
-    heads' scans through the kernels), and its launcher run;
+    heads' scans through the kernels);
 38. training, path 27: path 23's recipe (minicpm-2b, published widths, 40
     layers, 4 x 512 tokens in 2 microbatches, its ``RunConfig``) through
     ``train_loop(..., steps=3, mesh=make_test_mesh(1, 1))``, ZeRO-1 on, one
@@ -339,12 +350,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
 39. training, path 28: PowerSGD on the pod mesh ``make_test_mesh(1, 1,
     pod=1)``, minicpm-2b's smoke config, rank 8, ``powersgd_min_size`` 4096:
     one step on the card against the CPU port from the same weights, batch
-    and start matrices (path 24's bounds), then ``python -m
-    repro_torch.launch.train --arch minicpm-2b --smoke --steps 2 --mesh
-    1x1x1 --powersgd --powersgd-min-size 4096`` as a subprocess, with no
-    ``--device``: exit 0, ``done at step 2`` and a logged
+    and start matrices (path 24's bounds);
+40. the training launcher: ``python -m repro_torch.launch.train --smoke``
+    for rwkv6-3b and hymba-1.5b (``--steps 4``) and minicpm-2b's PowerSGD
+    mesh (``--steps 2 --mesh 1x1x1 --powersgd --powersgd-min-size 4096``),
+    three subprocesses with no ``--device`` started together: each must
+    exit 0 and end ``done at step N``, the PowerSGD run with a logged
     ``compressed_bytes`` above 0;
-40. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
+41. summary: one ``{"kernels": [...]}`` JSON line (each kernel's launches
     by path; the backward's on paths 25-26), the card's name and power
     limit, and the final ``{"ok": true, "device": {...}}`` line.
 
@@ -2007,7 +2020,8 @@ def serving(model, params, cfg, layers: int, flush, reports: dict) -> dict:
     # and (path 10b) its gear_attend output against the portable attend
     cap = Capture(ops, "gear_decode", 40 * layers)
     att = CallCheck(ops, "gear_attend", 40 * layers, portable_attend_check)
-    summary = drive(eng, cfg, requests(cfg), [cap, att])
+    LIVE["path1"] = {}
+    summary = drive(eng, cfg, requests(cfg), [cap, att], keep=LIVE["path1"])
     launches, steps = summary["launches"], summary["decode_steps"]
     if launches["flash_prefill"] != N_REQUESTS * layers:
         fail(f"flash_prefill launches {launches['flash_prefill']} != 8 prefills x {layers}")
@@ -2031,6 +2045,91 @@ def serving(model, params, cfg, layers: int, flush, reports: dict) -> dict:
         fail(f"the portable attend disagrees with gear_attend on a live cache: {err}")
     summary.update(layers=layers, portable_attend_err=err,
                    cache_nbytes=cache_nbytes(model, pol))
+    return summary
+
+
+MESH_REQUESTS = 4             # path 29: path 1's first 4 requests
+MESH_TOKENS = 32              # path 29: the first 32 of each one's 96 tokens
+WAVE_LAYERS = 8               # path 7's depth (32 until path 29 came: cut to make its room)
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter",
+               "reduce_scatter_tensor", "broadcast", "all_to_all", "all_to_all_single",
+               "send", "recv", "barrier")
+
+
+class CollectiveCalls:
+    """Counts the calls of every ``torch.distributed`` collective while
+    installed (``with CollectiveCalls() as c: ...``; ``c.calls``).  Every
+    collective of the port goes through these functions.  The dry run's
+    counter, ``perf.comm_stats.CollectiveCounter``, also reads bytes, but
+    routes each of the run's ops through Python and would slow the step
+    read beside it (its docstring says which counter is for what)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.dist, self.calls, self.real = dist, {}, {}
+        for name in COLLECTIVES:
+            self.real[name] = fn = getattr(dist, name)
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _fn(*a, **k)
+
+            setattr(dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.dist, name, fn)
+
+
+def serving_mesh(model, params, cfg, layers: int, flush, reports: dict, path1: dict) -> dict:
+    """Path 29: path 1's engine (its weights, gear_kcvt4, monolithic prefill,
+    dense layout) on ``make_test_mesh(1, 1)``, one NCCL process, over path
+    1's first 4 requests: greedy tokens equal to path 1's bit for bit,
+    exactly path 1's ``flash_prefill`` launches per prefill and
+    ``gear_decode`` launches per step, no collective (every axis has size
+    1), peak memory and decode tok/s beside path 1's.  Its launcher run
+    (``--mesh 1x1``) is in phase 21, with the others (:func:`launcher_runs`)."""
+    from repro_torch.core.policy import named_policy
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = named_policy("gear_kcvt4")
+    mesh = make_test_mesh(1, 1)
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=CAP_SERVE, policy=pol),
+                 mesh=mesh)
+    shared = sum(p is q for p, q in zip(eng.params.parameters(), params.parameters()))
+    print(f"  the mesh engine stores {shared} of {len(list(params.parameters()))} parameters "
+          f"shared with path 1's model (nothing split on a 1 x 1 mesh)")
+    keep = {}
+    with CollectiveCalls() as coll:
+        summary = drive(eng, cfg, requests(cfg)[:MESH_REQUESTS], [], MESH_TOKENS, keep=keep)
+    launches, steps = summary["launches"], summary["decode_steps"]
+    ref = path1["launches"]
+    per_step = launches["gear_decode"] / steps
+    ref_per_step = ref["gear_decode"] / path1["decode_steps"]
+    print(f"  per prefill {launches['flash_prefill'] / MESH_REQUESTS:g} flash_prefill (path 1: "
+          f"{ref['flash_prefill'] / N_REQUESTS:g}); per step {per_step:g} gear_decode (path 1: "
+          f"{ref_per_step:g}); collectives {coll.calls or 'none'}")
+    if launches["flash_prefill"] != MESH_REQUESTS * layers or per_step != ref_per_step or any(
+            n for k, n in launches.items() if k not in ("flash_prefill", "gear_decode")):
+        fail(f"path 29: launches {launches} over {steps} steps are not path 1's per prefill and "
+             f"step ({ref} over {path1['decode_steps']} steps)")
+    if coll.calls:
+        fail(f"path 29: a 1 x 1 mesh issued collectives {coll.calls}")
+    mismatch = [rid for rid, r in keep["results"].items() if not np.array_equal(
+        r.tokens, LIVE["path1"]["results"][rid].tokens[:MESH_TOKENS])]
+    print(f"  greedy tokens of requests 0-{MESH_REQUESTS - 1} bit for bit path 1's first "
+          f"{MESH_TOKENS}: "
+          f"{not mismatch}; decode {summary['decode_tok_per_s']:.1f} tok/s (path 1: "
+          f"{path1['decode_tok_per_s']:.1f} over 8 requests), peak "
+          f"{summary['max_memory_allocated_gb']:.2f} GB (path 1: "
+          f"{path1['max_memory_allocated_gb']:.2f} GB); {smi()}")
+    if mismatch:
+        fail(f"path 29: requests {mismatch} leave path 1's tokens")
+    record_launches(reports, "mesh_dense", launches)
+    summary.update(layers=layers, collectives=coll.calls, shared_params=shared)
     return summary
 
 
@@ -2891,53 +2990,94 @@ def serving_telemetry(model, params, cfg, layers: int, flush, reports: dict,
     return out
 
 
+# the serving launcher's runs, at full width (a smoke config's head_dim 16 has
+# no kernel build); "mesh_wave" is path 29's, the wave run on a 1 x 1 mesh
+WAVE_ARGS = ["--arch", "llama2-7b", "--batch", "4", "--prompt", "512", "--gen", "16"]
+WAVE_LINE = (r"generated \(4, 16\); prefill [0-9.]+s, decode [0-9.]+s \([0-9.]+ tok/s\), "
+             r"cache [0-9.]+ MB")
 LAUNCHER_RUNS = {
-    "wave": ["--arch", "llama2-7b", "--batch", "4", "--prompt", "512", "--gen", "16"],
+    "wave": WAVE_ARGS,
     "continuous": ["--arch", "llama2-7b", "--batch", "4", "--prompt", "512", "--gen", "16",
                    "--mode", "continuous", "--layout", "paged", "--requests", "8", "--obs",
                    "--metrics-json", "build/serve/metrics.json",
                    "--trace-out", "build/serve/trace.json"],
+    "mesh_wave": WAVE_ARGS + ["--mesh", "1x1"],
 }
 LAUNCHER_LINES = {
-    "wave": [r"generated \(4, 16\); prefill [0-9.]+s, decode [0-9.]+s \([0-9.]+ tok/s\), "
-             r"cache [0-9.]+ MB"],
+    "wave": [WAVE_LINE],
     "continuous": [r"served 8 requests \(128 tokens\) in [0-9.]+s; attend=fused layout=paged; "
                    r"pool \d+/\d+ pages used, \d+ shared",
                    r"obs: traces 8/8 rids complete=True",
                    r"obs: metrics snapshot -> build/serve/metrics\.json",
                    r"obs: chrome trace -> build/serve/trace\.json"],
+    "mesh_wave": [WAVE_LINE],
 }
+
+
+def run_together(cmds: dict, timeout: float = 600.0) -> dict:
+    """Start every command of ``cmds`` (name -> arguments after ``python``)
+    at once, from the repository root with ``src`` on the path, and wait for
+    all of them: name -> ``{"returncode", "stdout" (lines), "stderr",
+    "seconds"}``, ``seconds`` from the common start to when this process saw
+    the command's end.  Output goes to files under ``build/runs/`` (no pipe
+    to fill).  A command still running at ``timeout`` is killed; every
+    process started has ended when this returns."""
+    import os
+
+    out_dir = HERE / "build" / "runs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for name, argv in cmds.items():
+            with open(out_dir / f"{name}.out", "w") as so, open(out_dir / f"{name}.err", "w") as se:
+                procs[name] = subprocess.Popen([sys.executable, *argv], cwd=HERE, env=env,
+                                               stdout=so, stderr=se, text=True)
+        done = {}
+        for name, proc in procs.items():
+            try:
+                proc.wait(timeout=max(timeout - (time.perf_counter() - t0), 1.0))
+            except subprocess.TimeoutExpired:
+                pass
+            done[name] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {name: {"returncode": proc.returncode,
+                   "stdout": (out_dir / f"{name}.out").read_text().strip().splitlines(),
+                   "stderr": (out_dir / f"{name}.err").read_text(), "seconds": done[name]}
+            for name, proc in procs.items()}
 
 
 def launcher_runs(extra: tuple = ()) -> dict:
     """``python -m repro_torch.launch.serve`` at full width, as a user runs
-    it, once in wave mode and once in continuous + paged + telemetry mode;
-    each must exit 0 and print the reference launcher's lines, and the
-    metrics and trace JSON must parse."""
-    import os
-
+    it, with no ``--device`` (so on the card): in wave mode on one device,
+    in continuous + paged + telemetry mode, and path 29's wave run on a
+    1 x 1 mesh (``--mesh 1x1``), the three started together
+    (:func:`run_together`); each must exit 0 and print the reference
+    launcher's lines, and the metrics and trace JSON must parse."""
     out_dir = HERE / "build" / "serve"
     for f in ("metrics.json", "trace.json"):
         (out_dir / f).unlink(missing_ok=True)
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    runs = run_together({name: ["-m", "repro_torch.launch.serve", *argv, *extra]
+                         for name, argv in LAUNCHER_RUNS.items()})
     summary = {}
-    for name, argv in LAUNCHER_RUNS.items():
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv, *extra]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
-                              timeout=600)
-        sec = time.perf_counter() - t0
-        lines = proc.stdout.strip().splitlines()
-        print(f"  {' '.join(cmd[1:])}: exit {proc.returncode} in {sec:.1f} s")
+    for name, run in runs.items():
+        lines = run["stdout"]
+        print(f"  -m repro_torch.launch.serve {' '.join([*LAUNCHER_RUNS[name], *extra])}: exit "
+              f"{run['returncode']}, ended by {run['seconds']:.1f} s")
         for line in lines:
             print(f"    {line}")
-        if proc.returncode != 0:
-            fail(f"the launcher ({name}) exited {proc.returncode}: {proc.stderr[-2000:]}")
+        if run["returncode"] != 0:
+            fail(f"the launcher ({name}) exited {run['returncode']}: {run['stderr'][-2000:]}")
         want = LAUNCHER_LINES[name]
         if len(lines) != len(want) or not all(re.fullmatch(w, line)
                                               for w, line in zip(want, lines)):
             fail(f"the launcher ({name}) printed {lines}, not {want}")
-        summary[name] = {"seconds": sec, "stdout": lines}
+        summary[name] = {"seconds": run["seconds"], "stdout": lines}
     metrics = json.loads((out_dir / "metrics.json").read_text())
     trace = json.loads((out_dir / "trace.json").read_text())
     series = {m["name"]: m["series"] for m in metrics["metrics"]}
@@ -3854,31 +3994,6 @@ def roofline_text(roof: dict) -> str:
             f"6 N D {roof['share_6nd'] * 100:.2f}%, 8 N D {roof['share_8n'] * 100:.2f}%")
 
 
-def train_launcher(arch: str) -> dict:
-    """``python -m repro_torch.launch.train --arch <arch> --smoke --steps 4``
-    as a user runs it, without ``--device`` (so on the card), checkpoints
-    into a fresh directory under ``build/``: it must exit 0 and end with
-    ``done at step 4``."""
-    import os
-    import tempfile
-
-    build = HERE / "build"
-    build.mkdir(exist_ok=True)
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
-    with tempfile.TemporaryDirectory(dir=build) as ckpt:
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
-               "--steps", "4", "--ckpt-dir", ckpt]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
-                              timeout=600)
-        sec = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
-    print(f"  {' '.join(cmd[1:-2])}: exit {proc.returncode} in {sec:.1f} s; " + " | ".join(lines))
-    if proc.returncode != 0 or not lines or lines[-1] != "done at step 4":
-        fail(f"the training launcher ({arch}) exited {proc.returncode}: {proc.stderr[-2000:]}")
-    return {"seconds": sec, "stdout": lines}
-
-
 def training_cross() -> dict:
     """Path 24: the smoke configs of ``CROSS_ARCHS``.  For each, one
     ``make_train_step`` on the CPU port and on the card from the same f32
@@ -4093,14 +4208,9 @@ def training_powersgd() -> dict:
     (``grad_compress.draw_inits`` draws on the CPU), under path 24's bounds
     (loss within ``TRAIN_LOSS_ATOL``, every update of >= 1,000 elements at
     cosine >= ``TRAIN_STEP_COS``), ``compressed_bytes`` above 0 on both.
-    Then ``python -m repro_torch.launch.train --arch minicpm-2b --smoke
-    --steps 2 --mesh 1x1x1 --powersgd --powersgd-min-size 4096`` as a
-    subprocess, with no ``--device``: exit 0, ``done at step 2`` and a
-    logged ``compressed_bytes`` above 0 (at the launcher's default minimum
-    of 65,536 elements no smoke matrix is compressed)."""
+    Its launcher run is in phase 40, with the others
+    (:func:`train_launchers`)."""
     import copy
-    import os
-    import tempfile
 
     import torch.distributed as dist
 
@@ -4144,27 +4254,50 @@ def training_powersgd() -> dict:
             and met["cuda"]["compressed_bytes"] == met["cpu"]["compressed_bytes"]):
         fail(f"path 28: the card's PowerSGD step leaves the CPU port's: {met}, cosine {worst}")
     dist.destroy_process_group()
+    return {"cpu": met["cpu"], "cuda": met["cuda"], "loss_gap": gap, "least_update_cos": worst}
+
+
+# the training launcher's runs, each as a user runs it, without ``--device``
+# (so on the card): paths 25 and 26's archs, and path 28's PowerSGD on a
+# 1 x 1 x 1 mesh (at the launcher's default minimum of 65,536 elements no
+# smoke matrix is compressed, hence --powersgd-min-size)
+TRAIN_LAUNCHER_RUNS = {
+    "train_rwkv": (["--arch", "rwkv6-3b", "--smoke", "--steps", "4"], 4),
+    "train_hymba": (["--arch", "hymba-1.5b", "--smoke", "--steps", "4"], 4),
+    "train_powersgd": (["--arch", TRAIN_ARCH, "--smoke", "--steps", "2", "--mesh", "1x1x1",
+                        "--powersgd", "--powersgd-min-size", str(PSGD_MIN_SIZE)], 2),
+}
+
+
+def train_launchers() -> dict:
+    """``python -m repro_torch.launch.train`` for every run of
+    :data:`TRAIN_LAUNCHER_RUNS`, started together (:func:`run_together`),
+    each checkpointing into a fresh directory under ``build/``: each must
+    exit 0 and end with ``done at step N``, and the PowerSGD run log a
+    ``compressed_bytes`` above 0."""
+    import tempfile
 
     build = HERE / "build"
     build.mkdir(exist_ok=True)
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
     with tempfile.TemporaryDirectory(dir=build) as ckpt:
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke",
-               "--steps", "2", "--mesh", "1x1x1", "--powersgd", "--powersgd-min-size",
-               str(PSGD_MIN_SIZE), "--ckpt-dir", ckpt]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True,
-                              timeout=600)
-        sec = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
-    print(f"  {' '.join(cmd[1:-2])}: exit {proc.returncode} in {sec:.1f} s; " + " | ".join(lines))
-    logged = [float(x) for x in re.findall(r"compressed_bytes=(\S+)", proc.stdout)]
-    if proc.returncode != 0 or not lines or lines[-1] != "done at step 2" or not logged \
-            or not logged[0] > 0:
-        fail(f"the mesh launcher exited {proc.returncode}: {proc.stdout[-2000:]} "
-             f"{proc.stderr[-2000:]}")
-    return {"cpu": met["cpu"], "cuda": met["cuda"], "loss_gap": gap, "least_update_cos": worst,
-            "launcher": {"seconds": sec, "stdout": lines, "compressed_bytes": logged}}
+        runs = run_together({
+            name: ["-m", "repro_torch.launch.train", *argv, "--ckpt-dir", f"{ckpt}/{name}"]
+            for name, (argv, _) in TRAIN_LAUNCHER_RUNS.items()})
+    out = {}
+    for name, run in runs.items():
+        argv, steps = TRAIN_LAUNCHER_RUNS[name]
+        lines = run["stdout"]
+        print(f"  -m repro_torch.launch.train {' '.join(argv)}: exit {run['returncode']}, ended "
+              f"by {run['seconds']:.1f} s; " + " | ".join(lines))
+        logged = [float(x) for x in re.findall(r"compressed_bytes=(\S+)", "\n".join(lines))]
+        if run["returncode"] != 0 or not lines or lines[-1] != f"done at step {steps}" or (
+                name == "train_powersgd" and not (logged and logged[0] > 0)):
+            fail(f"the training launcher ({name}) exited {run['returncode']}: {lines[-20:]} "
+                 f"{run['stderr'][-2000:]}")
+        out[name] = {"seconds": run["seconds"], "stdout": lines}
+        if name == "train_powersgd":
+            out[name]["compressed_bytes"] = logged
+    return out
 
 
 def adaptive_rank(flush) -> dict:
@@ -4367,6 +4500,12 @@ def main() -> int:
         if layers not in built_models:
             built_models[layers] = build(dc.replace(full, num_layers=layers), full.num_layers)
         summaries[key] = fn(*built_models[layers], layers, flush, reports)
+        if key == "monolithic_dense":
+            phase(f"[10.1] serving on a 1 x 1 mesh, path 29: path 1's llama2-7b (depth "
+                  f"{layers}), Engine(mesh=make_test_mesh(1, 1)), one NCCL process, path 1's "
+                  f"first {MESH_REQUESTS} requests (its launcher run is in phase 21)")
+            summaries["mesh_dense"] = serving_mesh(*built_models[layers], layers, flush,
+                                                   reports, summaries[key])
     built_models.clear()                  # free llama2-7b before hymba's peak is read
     torch.cuda.empty_cache()
 
@@ -4391,12 +4530,13 @@ def main() -> int:
     gc.collect()                          # free rwkv6-3b before llama2-7b is built again
     torch.cuda.empty_cache()
 
+    wave_layers = min(args.layers, WAVE_LAYERS)
     phase(f"[16] serving llama2-7b, gear_kcvt4, wave mode (Scheduler.run: monolithic prefill of "
-          f"each wave at batch {B_SERVE}, dense layout), depth {args.layers}"
-          + ("" if args.layers == full.num_layers else
-             f" (cut from {full.num_layers} by --layers)"))
-    built_models[args.layers] = build(dc.replace(full, num_layers=args.layers), full.num_layers)
-    summaries["wave_dense"] = serving_wave(*built_models[args.layers], args.layers, flush,
+          f"each wave at batch {B_SERVE}, dense layout), depth {wave_layers} (cut from "
+          f"{full.num_layers} to make room for path 29, which took "
+          f"{PHASE_S['[11]'] - PHASE_S['[10.1]']:.1f} s)")
+    built_models[wave_layers] = build(dc.replace(full, num_layers=wave_layers), full.num_layers)
+    summaries["wave_dense"] = serving_wave(*built_models[wave_layers], wave_layers, flush,
                                            reports)
     phase(f"[17] serving llama2-7b, gear_kcvt4, streaming prefill, paged pool, prefix trie, "
           f"telemetry and injected faults, depth {full.num_layers}")
@@ -4425,8 +4565,11 @@ def main() -> int:
     built_models.clear()                  # the launcher builds its own model
     gc.collect()
     torch.cuda.empty_cache()
-    phase("[21] the launcher, python -m repro_torch.launch.serve, llama2-7b at full width")
+    phase("[21] the launcher, python -m repro_torch.launch.serve, llama2-7b at full width: "
+          "wave mode, continuous + paged mode, and path 29's wave mode on a 1 x 1 mesh, "
+          "started together")
     summaries["launcher"] = launcher_runs()
+    summaries["mesh_dense"]["launcher"] = summaries["launcher"]["mesh_wave"]
 
     gemma = get_config("gemma-2b")
     phase(f"[22] serving gemma-2b, gear_kcvt4, monolithic prefill, dense layout, depth "
@@ -4511,17 +4654,19 @@ def main() -> int:
               f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} "
               f"microbatches, remat dots, the scan's backward kernel")
         summaries[key] = training(flush, reports, arch, key)
-        summaries[key]["launcher"] = train_launcher(arch)
 
     phase(f"[38] training, path 27: {TRAIN_ARCH} at full width and depth, path 23's recipe "
           f"through train_loop on a 1 x 1 mesh (one NCCL process), ZeRO-1 on, 3 steps")
     summaries["train_mesh"] = training_mesh(summaries["train_full"])
     phase(f"[39] training, path 28: PowerSGD on a 1 x 1 x 1 (pod, data, model) mesh, "
-          f"{TRAIN_ARCH} smoke, one step on the card against the CPU port, then the mesh "
-          f"launcher")
+          f"{TRAIN_ARCH} smoke, one step on the card against the CPU port")
     summaries["train_powersgd"] = training_powersgd()
+    phase("[40] the training launcher, python -m repro_torch.launch.train: paths 25 and 26's "
+          "archs and path 28's PowerSGD mesh, smoke configs, started together")
+    for key, run in train_launchers().items():
+        summaries[key]["launcher"] = run
 
-    phase("[40] summary")
+    phase("[41] summary")
     keys = ("name", "route", "source", "replaces", "launches", "err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for rep in reports.values():

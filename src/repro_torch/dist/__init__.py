@@ -4,10 +4,12 @@
 legalization, and the rules for parameters, optimizer moments, batches and
 GEAR caches) and :class:`~repro_torch.dist.sharding.Sharding`, a spec on a
 ``DeviceMesh``; ``repro_torch.dist.compat`` the process groups of a mesh's
-axes and the collectives over them.
+axes and the collectives over them; ``repro_torch.dist.whole`` the
+whole-model module a process's forward runs on, gathered from its stored
+shards (the mesh train step's and the mesh engine's).
 """
 
-from repro_torch.dist import compat, sharding
+from repro_torch.dist import compat, sharding, whole
 from repro_torch.dist.sharding import (
     PartitionSpec,
     Sharding,
@@ -22,6 +24,7 @@ from repro_torch.dist.sharding import (
 __all__ = [
     "compat",
     "sharding",
+    "whole",
     "PartitionSpec",
     "Sharding",
     "fit_spec",

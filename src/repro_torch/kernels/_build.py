@@ -105,6 +105,15 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(_target(name)))
 
 
+def runs_plain(x: torch.Tensor) -> bool:
+    """Whether ``x``'s device takes a kernel's plain version: the CPU, and
+    the meta device, where the dry run (``repro_torch.launch.dryrun``)
+    traces the port's step and counts its operations without computing (the
+    twin of the reference's dry run, whose ops take their XLA paths off the
+    TPU).  A CUDA tensor launches the kernel; any other device raises."""
+    return x.device.type in ("cpu", "meta")
+
+
 def refuse_grad(who: str, operands, hint: str = "", on_cuda: bool | None = None) -> None:
     """Raise ``RuntimeError`` when grad mode is on and an operand on CUDA
     requires grad: a serving kernel has no backward, and its call would cut

@@ -3,10 +3,10 @@ and ``csrc/flash_prefill_block.cu``.
 
 Ports of ``repro.kernels.flash_prefill.flash_prefill`` (contract of
 ``ref.flash_prefill_ref``) and ``flash_prefill_block`` (contract of
-``ref.flash_block_ref``).  A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises.  Any sequence length is legal: the
-kernel masks the ragged tail itself, so the reference wrapper's block-size
-snapping is not needed.
+``ref.flash_block_ref``).  A CPU or meta tensor takes the plain version
+(``_build.runs_plain``); a CUDA tensor launches the kernel or raises.
+Any sequence length is legal: the kernel masks the ragged tail itself, so
+the reference wrapper's block-size snapping is not needed.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def flash_prefill(q, k, v, *, window: int = 0, prefix_len: int = 0,
                   softcap: float = 0.0, kv_repeat: int = 1):
     """q [BHq, S, Dh]; k, v [BHq / kv_repeat, S, Dh] -> [BHq, S, Dh] in q's dtype."""
     kw = dict(window=window, prefix_len=prefix_len, softcap=softcap, kv_repeat=kv_repeat)
-    if q.device.type == "cpu":
+    if _build.runs_plain(q):
         return flash_prefill_ref(q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: no kernel for device {q.device}")
@@ -90,7 +90,7 @@ def flash_prefill_block(q, k, v, kv_len, *, scale: float, softcap: float = 0.0,
     ``n`` sees keys ``j <= t``, ``j < kv_len[n]``).  Returns (acc [N, T, Dh],
     m [N, T], l [N, T]) in f32."""
     kw = dict(scale=scale, softcap=softcap, kv_repeat=kv_repeat)
-    if q.device.type == "cpu":
+    if _build.runs_plain(q):
         return flash_block_ref(q, k, v, kv_len, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill_block: no kernel for device {q.device}")

@@ -3,8 +3,8 @@
 Port of ``repro.kernels.gear_compress.gear_compress`` (contract of
 ``ref.gear_compress_ref``): outliers, quantization, packing, stats and the
 f32 residual of a batch of ``[nb, d]`` chunk tiles in one launch.  A CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+or meta tensor takes the plain version (``_build.runs_plain``); a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ def gear_compress(x: torch.Tensor, *, bits: int, scheme: str, group: int | None 
     sp_idx, resid) as :func:`repro_torch.kernels.ref.gear_compress_ref`
     (sp_* None when ``n_out == 0``)."""
     kw = dict(bits=bits, scheme=scheme, group=group, n_out=n_out, stat_dtype=stat_dtype)
-    if x.device.type == "cpu":
+    if _build.runs_plain(x):
         return gear_compress_ref(x, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"gear_compress: no kernel for device {x.device}")

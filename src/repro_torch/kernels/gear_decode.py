@@ -5,8 +5,9 @@ Ports of ``repro.kernels.gear_decode.gear_decode`` and its paged twin
 ``gear_decode_paged`` (contracts of ``ref.gear_decode_ref`` and
 ``ref.gear_decode_paged_ref``), and ``gear_decode_history``: the same
 function over every in-flight block of a streaming prefill layer in one
-launch (contract of ``ref.gear_decode_history_ref``).  A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises.  ``m`` and
+launch (contract of ``ref.gear_decode_history_ref``).  A CPU or meta tensor
+takes the plain version (``_build.runs_plain``); a CUDA tensor launches
+the kernel or raises.  ``m`` and
 ``l`` come back as ``[BH, G]`` (the reference's 128-lane padding is a TPU
 layout artifact).
 
@@ -225,7 +226,7 @@ def gear_decode(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, n_comp,
     kw = dict(bits=bits, chunk=chunk, scale_factor=scale_factor, k_a=k_a, k_b=k_b,
               v_a=v_a, v_b=v_b, k_sp_val=k_sp_val, k_sp_idx=k_sp_idx,
               v_sp_val=v_sp_val, v_sp_idx=v_sp_idx)
-    if q.device.type == "cpu":
+    if _build.runs_plain(q):
         return gear_decode_ref(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero,
                                n_comp, **kw)
     if q.device.type != "cuda":
@@ -265,7 +266,7 @@ def gear_decode_paged(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero, n
     kw = dict(bits=bits, chunk=chunk, scale_factor=scale_factor, k_a=k_a, k_b=k_b,
               v_a=v_a, v_b=v_b, k_sp_val=k_sp_val, k_sp_idx=k_sp_idx,
               v_sp_val=v_sp_val, v_sp_idx=v_sp_idx)
-    if q.device.type == "cpu":
+    if _build.runs_plain(q):
         return gear_decode_paged_ref(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero,
                                      n_comp, block_tables, **kw)
     if q.device.type != "cuda":
@@ -312,7 +313,7 @@ def gear_decode_history(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero,
     kw = dict(bits=bits, chunk=chunk, scale_factor=scale_factor, k_a=k_a, k_b=k_b,
               v_a=v_a, v_b=v_b, k_sp_val=k_sp_val, k_sp_idx=k_sp_idx,
               v_sp_val=v_sp_val, v_sp_idx=v_sp_idx)
-    if q.device.type == "cpu":
+    if _build.runs_plain(q):
         return gear_decode_history_ref(q, k_packed, k_scale, k_zero, v_packed, v_scale, v_zero,
                                        extents, **kw)
     if q.device.type != "cuda":

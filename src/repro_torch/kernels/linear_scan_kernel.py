@@ -3,11 +3,11 @@
 
 Port of ``repro.kernels.linear_scan_kernel.linear_scan_chunked`` (contract
 of ``ref.linear_scan_ref``, i.e. the reference's ``chunked_scan`` with the
-leading dims flattened).  A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises.  Any chunk that divides S is legal,
-chunk = S included.  The scan starts from a zero state or from ``state0``
-(RWKV6's decode step), as the reference's ``chunked_scan`` does; its TPU
-kernel starts from zero only.
+leading dims flattened).  A CPU or meta tensor takes the plain version
+(``_build.runs_plain``); a CUDA tensor launches the kernel or raises.
+Any chunk that divides S is legal, chunk = S included.  The scan starts
+from a zero state or from ``state0`` (RWKV6's decode step), as the
+reference's ``chunked_scan`` does; its TPU kernel starts from zero only.
 
 Forward, two regimes chosen by the chunk: chunk = 1 (RWKV6's decode step)
 is one ``scan_step`` launch that streams the state once; a longer chunk is
@@ -86,7 +86,7 @@ def _validate(who: str, r, k, v, log_w, u, chunk: int, mode: str):
         raise ValueError(f"{who}: chunk={chunk} does not divide S={S}")
     if mode == "bonus" and u is None:
         raise ValueError(f"{who}: mode='bonus' needs u")
-    if r.device.type not in ("cpu", "cuda"):
+    if not (_build.runs_plain(r) or r.device.type == "cuda"):
         raise ValueError(f"{who}: no kernel for device {r.device}")
 
 
@@ -123,7 +123,7 @@ def _ptr(x):
 
 
 def _forward(r, k, v, log_w, u, chunk: int, mode: str, state0):
-    if r.device.type == "cpu":
+    if _build.runs_plain(r):
         return linear_scan_ref(r, k, v, log_w, u, chunk=chunk, mode=mode, state0=state0)
     _check_scan("linear_scan_chunked", r, k, v, log_w, u, mode, state0)
     BH, S, Dk = r.shape
@@ -190,7 +190,7 @@ def linear_scan_chunked_bwd(r, k, v, log_w, u=None, *, chunk: int, mode: str = "
     shaped as log_w, du [BH, Dk] or None for ``inclusive``, dstate0 or None
     without ``state0``), f32; the contract of ``ref.linear_scan_bwd_ref``."""
     _validate("linear_scan_chunked_bwd", r, k, v, log_w, u, chunk, mode)
-    if r.device.type == "cpu":
+    if _build.runs_plain(r):
         return linear_scan_bwd_ref(r, k, v, log_w, u, chunk=chunk, mode=mode, state0=state0,
                                    dy=dy, dstate=dstate)
     who = "linear_scan_chunked_bwd"

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.cache import (CacheConfig, GEARLayerCache, PagedGEARLayerCache,
                                     chunk_prefix_view, streaming_supported)
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_block
 from repro_torch.kernels.gear_decode import (device_extents, gear_decode, gear_decode_history,
                                               gear_decode_paged)
@@ -171,7 +171,7 @@ def gear_attend_block(cfg: CacheConfig, cache: GEARLayerCache, q: torch.Tensor,
     kw = dict(bits=pol.bits, chunk=nb, scale_factor=scale)
 
     # --- compressed history: one unnormalized (acc, m, l) per block --------
-    if q.device.type == "cpu":
+    if _build.runs_plain(q):
         hist = []
         for i in range(NB):
             view = chunk_prefix_view(cfg, cache, max(-(-n_comp[i] // nb), 1))
@@ -194,7 +194,7 @@ def gear_attend_block(cfg: CacheConfig, cache: GEARLayerCache, q: torch.Tensor,
     if isinstance(blk_len, int):
         kv_len = torch.full((BH * NB * G,), blk_len, dtype=torch.int32, device=q.device)
     else:
-        lens = (torch.tensor(blk_len, dtype=torch.int32) if q.device.type == "cpu"
+        lens = (torch.tensor(blk_len, dtype=torch.int32, device=q.device) if _build.runs_plain(q)
                 else device_extents(tuple(int(n) for n in blk_len), q.device))
         kv_len = lens.view(1, NB, 1).expand(BH, NB, G).reshape(-1).contiguous()
     acc_b, m_b, l_b = flash_prefill_block(q_blk, k_blk, v_blk, kv_len, scale=scale,

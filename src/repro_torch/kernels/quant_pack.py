@@ -6,8 +6,9 @@ column over its n rows (whole-column groups, the KCVT layout) and packed
 into int32 lanes, without integer codes ever reaching memory.  The kernel
 equals the plain version bit for bit on every input: a column holding a
 NaN gets NaN zero and scale (and codes 0), as the reference's kernel gives,
-so the cache's numeric guard sees it.  A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises.
+so the cache's numeric guard sees it.  A CPU or meta tensor takes the
+plain version (``_build.runs_plain``); a CUDA tensor launches the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def quant_pack(x: torch.Tensor, bits: int):
     if n < 1 or d % per:
         raise ValueError(f"quant_pack: tile [{n}, {d}] unsupported at {bits} bits "
                          f"(d must be a multiple of {per})")
-    if x.device.type == "cpu":
+    if _build.runs_plain(x):
         return quant_pack_ref(x, bits)
     if x.device.type != "cuda":
         raise ValueError(f"quant_pack: no kernel for device {x.device}")

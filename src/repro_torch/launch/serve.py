@@ -25,8 +25,16 @@ holds its image prefix too.
 ``--device`` (default ``cuda``) names the device; nothing falls back to the
 CPU when CUDA is absent.  ``--fidelity-every N`` turns on telemetry with the
 fidelity probes (one FP16 shadow prefill every Nth closed chunk).
-``--mesh`` (serving on a device mesh, ROADMAP queue 1, item 10) exits with a
-message; training on a mesh is ``repro_torch.launch.train --mesh``.
+
+``--mesh dxm`` (``pxdxm`` adds a ``pod`` axis) serves on a data × model
+mesh (:mod:`repro_torch.launch.mesh`), one process per device:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --mesh 2x2 --device cpu ...
+
+Every process serves the same requests and keeps its shard of the weights
+and the caches (:class:`~repro_torch.serving.Engine` with ``mesh``); only
+rank 0 prints.  A mesh that is not the job's world size exits with the
+mesh's message; the paged layout exits on a mesh, as the reference's.
 """
 
 from __future__ import annotations
@@ -37,11 +45,14 @@ import pathlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.policy import named_policy
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models.model import build_model
 from repro_torch.serving import Engine, EngineConfig, ObsConfig, Request, Scheduler
+from repro_torch.serving.engine import PAGED_ON_MESH
 
 
 def main(argv=None) -> None:
@@ -53,7 +64,7 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--buffer", type=int, default=0, help="override n_b")
-    ap.add_argument("--mesh", default="")
+    ap.add_argument("--mesh", default="", help="e.g. 2x2 or 2x2x2 (pod,data,model)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--mode", default="wave", choices=["wave", "continuous"])
     ap.add_argument("--layout", default="dense", choices=["dense", "paged"])
@@ -73,9 +84,29 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (default cuda; cpu for the plain kernel versions)")
     args = ap.parse_args(argv)
+    mesh = None
     if args.mesh:
-        raise SystemExit("--mesh: serving on a device mesh is not ported yet "
-                         "(ROADMAP queue 1, item 10)")
+        dims = [int(v) for v in args.mesh.split("x")]
+        if len(dims) not in (2, 3):
+            raise SystemExit(f"--mesh {args.mesh}: expected dxm or pxdxm")
+        if args.layout == "paged":
+            raise SystemExit(f"--layout paged: {PAGED_ON_MESH}")
+        try:
+            mesh = make_test_mesh(*dims[-2:], pod=dims[0] if len(dims) == 3 else 0,
+                                  device=args.device)
+        except RuntimeError as e:
+            raise SystemExit(str(e)) from None
+    try:
+        _serve(args, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _serve(args, mesh) -> None:
+    # every process serves; only rank 0 of a mesh prints and writes files
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *_: None)
     if args.metrics_json or args.trace_out or args.fidelity_every:
         args.obs = True
 
@@ -97,7 +128,7 @@ def main(argv=None) -> None:
                               pool_bytes=args.pool_bytes,
                               obs=(ObsConfig(fidelity_every_n=max(args.fidelity_every, 0))
                                    if args.obs else None)),
-                 device=args.device)
+                 device=args.device, mesh=mesh)
     rng = np.random.RandomState(1)
 
     if args.mode == "continuous":
@@ -120,22 +151,22 @@ def main(argv=None) -> None:
             p = st["pool"]
             line += (f"; pool {p['used_pages']}/{p['used_pages'] + p['free_pages']}"
                      f" pages used, {p['shared_pages']} shared")
-        print(line)
+        say(line)
         if eng.obs is not None:
             cov = eng.obs.tracer.coverage([r.rid for r in results])
             line = (f"obs: traces {len(cov['statuses'])}/{len(results)} rids"
                     f" complete={cov['complete']}")
             if eng.obs.fidelity is not None:
                 line += f", fidelity probes {len(eng.obs.fidelity.reports)}"
-            print(line)
-            if args.metrics_json:
+            say(line)
+            if args.metrics_json and lead:
                 pathlib.Path(args.metrics_json).parent.mkdir(parents=True, exist_ok=True)
                 eng.obs.write_metrics_json(args.metrics_json)
-                print(f"obs: metrics snapshot -> {args.metrics_json}")
-            if args.trace_out:
+                say(f"obs: metrics snapshot -> {args.metrics_json}")
+            if args.trace_out and lead:
                 pathlib.Path(args.trace_out).parent.mkdir(parents=True, exist_ok=True)
                 eng.obs.write_trace(args.trace_out)
-                print(f"obs: chrome trace -> {args.trace_out}")
+                say(f"obs: chrome trace -> {args.trace_out}")
         return
 
     shape = (args.batch, args.prompt) + ((cfg.num_codebooks,) if cfg.modality == "audio" else ())
@@ -144,7 +175,7 @@ def main(argv=None) -> None:
         img = rng.standard_normal((args.batch, cfg.num_prefix_tokens, cfg.d_model))
         batch["img_embeds"] = torch.from_numpy(img.astype(np.float32)).to(torch.bfloat16)
     toks, stats = eng.generate(batch, args.gen)
-    print(f"generated {toks.shape}; prefill {stats['prefill_s']:.2f}s, "
+    say(f"generated {toks.shape}; prefill {stats['prefill_s']:.2f}s, "
           f"decode {stats['decode_s']:.2f}s ({stats['decode_tok_per_s']:.1f} tok/s), "
           f"cache {stats['cache_bytes']/1e6:.1f} MB")
 

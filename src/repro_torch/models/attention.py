@@ -5,6 +5,13 @@ decode over a dense or paged layer cache of any kind, and the training
 path's differentiable full-sequence attention (port of
 ``repro.models.attention``'s flash, streaming, decode and chunked paths).
 
+On a device mesh whose ``model`` axis splits the KV heads of the serving
+cache, each serving path takes a :class:`HeadSplit`: the process projects
+Q/K/V as usual, keeps its contiguous block of KV heads (and their
+``kv_repeat`` query heads each), attends over its own cache slice, and
+all-gathers the per-head outputs over ``model`` before the output
+projection.  A head is computed exactly as without the split.
+
 Monolithic prefill always takes the flash path, on the card and on the CPU —
 the path the reference takes on a TPU (and under ``fused="interpret"``).
 Training takes :func:`attention_train`, plain PyTorch that autograd
@@ -14,6 +21,9 @@ the ``flash_prefill`` kernel has no backward.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import numpy as np
 import torch
 
@@ -22,7 +32,7 @@ from repro_torch.core import cache as cache_lib
 from repro_torch.kernels import ops
 from repro_torch.models.common import rmsnorm, rotate, rowwise
 
-__all__ = ["rope_theta_for", "attention_prefill", "attention_train",
+__all__ = ["HeadSplit", "rope_theta_for", "attention_prefill", "attention_train",
            "streaming_prefill_supported", "attention_prefill_streaming", "attention_decode"]
 
 NEG_INF = -1e30
@@ -36,11 +46,41 @@ def rope_theta_for(cfg: ModelConfig, kind: str) -> float:
     return cfg.rope_theta
 
 
-def _project_qkv(cfg: ModelConfig, layer, x: torch.Tensor, rope):
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """One process's share of every layer's heads on a mesh's ``model``
+    axis: of ``count`` contiguous blocks of heads it computes block
+    ``index``.  ``gather(t, dim)`` concatenates every process's ``t`` along
+    ``dim`` in axis order (a collective over ``model``)."""
+
+    index: int
+    count: int
+    gather: Callable
+
+    def block(self, n: int) -> slice:
+        """This process's block of ``n`` heads."""
+        w = n // self.count
+        return slice(self.index * w, (self.index + 1) * w)
+
+
+def local_heads(n: int, heads: HeadSplit | None) -> int:
+    """How many of ``n`` heads this process computes."""
+    return n if heads is None else n // heads.count
+
+
+def merge_heads(out: torch.Tensor, heads: HeadSplit | None) -> torch.Tensor:
+    """Per-head outputs [..., H_local, Dh] -> [..., H * Dh]: flattened, and
+    on a split gathered over ``model`` in head order."""
+    out = out.reshape(out.shape[:-2] + (-1,))
+    return out if heads is None else heads.gather(out, out.dim() - 1)
+
+
+def _project_qkv(cfg: ModelConfig, layer, x: torch.Tensor, rope, heads: HeadSplit | None = None):
     """x [B, S, d] -> q [B, S, Hq, Dh], k/v [B, S, Hkv, Dh]; ``rope`` is the
     forward's (cos, sin) tables of this layer's kind (``common.rope_tables``)
     for q and k.  With QK-norm, q and k are RMS-normed over each head's Dh
-    (the ``(1 + scale)`` gain) before the rotation, as the reference."""
+    (the ``(1 + scale)`` gain) before the rotation, as the reference.  With
+    ``heads``, only this process's block of KV heads and of query heads."""
     B, S, _ = x.shape
     dh = cfg.head_dim
     q = (x @ layer.wq.to(x.dtype)).reshape(B, S, cfg.num_heads, dh)
@@ -48,7 +88,11 @@ def _project_qkv(cfg: ModelConfig, layer, x: torch.Tensor, rope):
     v = (x @ layer.wv.to(x.dtype)).reshape(B, S, cfg.num_kv_heads, dh)
     if cfg.qk_norm:
         q, k = rmsnorm(q, layer.q_norm), rmsnorm(k, layer.k_norm)
-    return rotate(q, *rope), rotate(k, *rope), v
+    q, k = rotate(q, *rope), rotate(k, *rope)
+    if heads is not None:
+        q = q[:, :, heads.block(cfg.num_heads)]
+        k, v = (t[:, :, heads.block(cfg.num_kv_heads)] for t in (k, v))
+    return q, k, v
 
 
 def _sdpa_flash(cfg: ModelConfig, q, k, v, kind: str, prefix_len: int):
@@ -69,15 +113,14 @@ def _sdpa_flash(cfg: ModelConfig, q, k, v, kind: str, prefix_len: int):
 
 
 def attention_prefill(cfg: ModelConfig, layer, x: torch.Tensor, rope, kind: str = "global",
-                      prefix_len: int = 0):
+                      prefix_len: int = 0, heads: HeadSplit | None = None):
     """Full-sequence attention of a layer of ``kind`` ("global" or "local"),
     with a bidirectional prefix of ``prefix_len`` positions (a VLM's image
     tokens).  Returns (out [B, S, d], (k, v)) with k/v laid out [B, Hkv, S,
-    Dh] for the cache build."""
-    q, k, v = _project_qkv(cfg, layer, x, rope)
-    out = _sdpa_flash(cfg, q, k, v, kind, prefix_len)
-    B, S = x.shape[:2]
-    out = out.reshape(B, S, cfg.q_dim).to(x.dtype) @ layer.wo.to(x.dtype)
+    Dh] for the cache build (this process's KV heads under ``heads``)."""
+    q, k, v = _project_qkv(cfg, layer, x, rope, heads)
+    out = merge_heads(_sdpa_flash(cfg, q, k, v, kind, prefix_len), heads)
+    out = out.to(x.dtype) @ layer.wo.to(x.dtype)
     return out, (k.transpose(1, 2), v.transpose(1, 2))
 
 
@@ -166,7 +209,7 @@ def streaming_prefill_supported(cfg: ModelConfig, kind: str,
 def attention_prefill_streaming(cfg: ModelConfig, layer, x: torch.Tensor, rope,
                                 cache_cfg: cache_lib.CacheConfig, *, cache=None,
                                 start_pos: int = 0, padded_tail: bool = False,
-                                true_len: int | None = None):
+                                true_len: int | None = None, heads: HeadSplit | None = None):
     """Streaming prefill of one attention layer: Q/K/V are projected one
     chunk at a time, so the full-sequence FP16 K/V never exists; every
     closed chunk is compressed in one fused event, and each chunk's queries
@@ -178,6 +221,7 @@ def attention_prefill_streaming(cfg: ModelConfig, layer, x: torch.Tensor, rope,
     holds the ``start_pos / n_b`` prefix chunks already spliced in, and the
     new chunks are stored after them.  ``padded_tail`` / ``true_len`` take
     the length-bucketed path (``true_len`` counts this call's tokens).
+    ``heads``: this process's KV heads only (``cache_cfg`` counts them).
     Returns (out [B, S, d], layer cache)."""
     B, S, _ = x.shape
     nb = cache_cfg.chunk
@@ -188,21 +232,22 @@ def attention_prefill_streaming(cfg: ModelConfig, layer, x: torch.Tensor, rope,
     cos, sin = rope
 
     def project(t0: int, t1: int):
-        q, k, v = _project_qkv(cfg, layer, x[:, t0:t1], (cos[t0:t1], sin[t0:t1]))
+        q, k, v = _project_qkv(cfg, layer, x[:, t0:t1], (cos[t0:t1], sin[t0:t1]), heads)
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     if cache is None:
         cache = cache_lib.init_layer_cache(cache_cfg, torch.bfloat16, x.device)
     cache, out = cache_lib.streaming_prefill_pipeline(
-        cache_cfg, cache, S, cfg.num_heads, project, cfg.head_dim ** -0.5,
+        cache_cfg, cache, S, local_heads(cfg.num_heads, heads), project, cfg.head_dim ** -0.5,
         start_chunk=start_pos // nb, tail_is_padded=padded_tail, true_n=true_len)
-    out = out.transpose(1, 2).reshape(B, S, cfg.q_dim).to(x.dtype)
+    out = merge_heads(out.transpose(1, 2), heads).to(x.dtype)
     return rowwise(lambda o: o @ layer.wo.to(o.dtype), out), cache
 
 
 def attention_decode(cfg: ModelConfig, layer, x_t: torch.Tensor, rope, cache,
                      cache_cfg: cache_lib.CacheConfig, lengths: np.ndarray,
-                     block_tables: cache_lib.BlockTables | None = None, fused: str = "auto"):
+                     block_tables: cache_lib.BlockTables | None = None, fused: str = "auto",
+                     heads: HeadSplit | None = None):
     """One-token attention against a layer cache.  x_t [B, 1, d]; ``rope``
     the (cos, sin) tables of the per-slot positions [B, 1]; ``lengths`` the
     host copy of the cache's per-slot lengths before this step.  Appends
@@ -216,9 +261,9 @@ def attention_decode(cfg: ModelConfig, layer, x_t: torch.Tensor, rope, cache,
     ``gear_attend_paged`` (the ``gear_decode`` kernels on the card);
     otherwise the portable :func:`repro_torch.core.cache.attend` /
     ``attend_paged``.  It never depends on whether a kernel builds: a
-    kernel that fails raises."""
-    B = x_t.shape[0]
-    q, k, v = _project_qkv(cfg, layer, x_t, rope)
+    kernel that fails raises.  ``heads``: this process's KV heads only
+    (``cache_cfg`` and ``cache`` count them)."""
+    q, k, v = _project_qkv(cfg, layer, x_t, rope, heads)
     scale = cfg.head_dim ** -0.5
     kernel = fused != "off" and ops.fused_supported(cache_cfg)
     if isinstance(cache, cache_lib.PagedGEARLayerCache):
@@ -232,4 +277,4 @@ def attention_decode(cfg: ModelConfig, layer, x_t: torch.Tensor, rope, cache,
         cache_lib.append_token(cache_cfg, cache, k[:, 0], v[:, 0], lengths)
         attend = ops.gear_attend if kernel else cache_lib.attend
         out = attend(cache_cfg, cache, q[:, 0], scale)
-    return out.reshape(B, 1, cfg.q_dim) @ layer.wo.to(out.dtype)
+    return merge_heads(out[:, None], heads) @ layer.wo.to(out.dtype)

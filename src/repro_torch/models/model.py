@@ -57,23 +57,23 @@ class Model:
     @torch.inference_mode()
     def prefill(self, params: tfm.Transformer, batch: dict, policy: CompressionPolicy,
                 capacity: int, prefill_mode: str = "monolithic", padded_tail: bool = False,
-                true_len: int | None = None):
+                true_len: int | None = None, heads=None):
         """Prefill of ``batch["tokens"]`` [B, S] on the weights' device, after
         ``batch["img_embeds"]`` [B, P, d] for a VLM when the batch has them,
         ``prefill_mode`` "monolithic" or "streaming" (same caches; see
         :func:`repro_torch.models.transformer.forward_prefill`, also for the
-        bucketing hooks ``padded_tail`` / ``true_len``).  Returns (logits
-        [B, 1, V], per-layer caches)."""
+        bucketing hooks ``padded_tail`` / ``true_len``, and the mesh's head
+        split ``heads``).  Returns (logits [B, 1, V], per-layer caches)."""
         tokens = torch.as_tensor(batch["tokens"], device=params.device)
         img = batch.get("img_embeds")
         img = None if img is None else torch.as_tensor(img, device=params.device)
         return tfm.forward_prefill(params, tokens, policy, capacity, prefill_mode,
-                                   padded_tail, true_len, img_embeds=img)
+                                   padded_tail, true_len, img_embeds=img, heads=heads)
 
     @torch.inference_mode()
     def prefill_suffix(self, params: tfm.Transformer, batch: dict, caches: list, start_pos: int,
                        policy: CompressionPolicy, capacity: int, padded_tail: bool = False,
-                       true_len: int | None = None):
+                       true_len: int | None = None, heads=None):
         """Suffix prefill over a cache tree holding a chunk-aligned prefix.
 
         ``batch`` covers only the tokens after the cached prefix; ``caches``
@@ -88,21 +88,22 @@ class Model:
         (logits [B, 1, V], caches)."""
         tokens = torch.as_tensor(batch["tokens"], device=params.device)
         return tfm.forward_prefill(params, tokens, policy, capacity, "streaming", padded_tail,
-                                   true_len, start_pos=start_pos, init_caches=caches)
+                                   true_len, start_pos=start_pos, init_caches=caches, heads=heads)
 
     @torch.inference_mode()
     def decode_step(self, params: tfm.Transformer, token_batch: dict, caches, pos,
                     policy: CompressionPolicy, capacity: int, lengths=None, block_tables=None,
-                    fused: str = "auto"):
+                    fused: str = "auto", heads=None):
         """One decode step; ``pos`` is a scalar or a per-slot [B] vector of
         absolute positions; ``block_tables`` (a
         :class:`~repro_torch.core.cache.BlockTables`) is required for caches
         built with ``layout="paged"``; ``fused="off"`` sends every layer
-        through the portable ``cache.attend``.  The caches advance in place;
-        returns (logits [B, 1, V], caches)."""
+        through the portable ``cache.attend``; ``heads`` the mesh's head
+        split.  The caches advance in place; returns (logits [B, 1, V],
+        caches)."""
         tokens = torch.as_tensor(token_batch["tokens"], device=params.device)
         logits = tfm.decode_tokens(params, tokens, caches, pos, policy, capacity, lengths,
-                                   block_tables, fused)
+                                   block_tables, fused, heads)
         return logits, caches
 
     def init_caches(self, policy: CompressionPolicy, batch: int, capacity: int, device=None,

@@ -32,6 +32,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import linear_scan
+from repro_torch.models.attention import HeadSplit, merge_heads
 from repro_torch.models.common import silu
 
 __all__ = ["RWKVState", "TimeMix", "ChannelMix", "time_mix_apply", "channel_mix_apply",
@@ -132,29 +133,33 @@ def _group_norm_heads(x: torch.Tensor, scale, bias, H: int, eps: float = 64e-5):
 
 
 def time_mix_apply(cfg: ModelConfig, layer, x: torch.Tensor, state: RWKVState | None = None,
-                   chunk: int = 64):
+                   chunk: int = 64, heads: HeadSplit | None = None):
     """x [B, S, d] -> (y [B, S, d], (shift carry [B, d], wkv state [B, H, Dk,
     Dv] f32)); ``layer.tm`` holds the weights.  A prompt whose length is not
     a multiple of ``chunk`` is scanned as ONE chunk of S tokens, as the
-    reference does (``eff_chunk``; ROADMAP §3)."""
+    reference does (``eff_chunk``; ROADMAP §3).  With ``heads`` (a mesh's
+    ``model`` axis splitting the state), the scan runs this process's block
+    of heads from its slice of ``state.wkv``, returns that slice, and the
+    heads' outputs are gathered before the GroupNorm."""
     tm = layer.tm
     H, dh = cfg.num_heads, cfg.head_dim
     B, S, d = x.shape
     xr, xk, xv, xw, xg = _ddlerp(tm, x, _shifted(x, None if state is None else state.shift_tm))
+    mine = slice(None) if heads is None else heads.block(H)
 
-    def heads(t):
-        return t.reshape(B, S, H, dh).transpose(1, 2)
+    def split(t):
+        return t.reshape(B, S, H, dh).transpose(1, 2)[:, mine]
 
-    r, k = heads(xr @ tm.wr.to(x.dtype)), heads(xk @ tm.wk.to(x.dtype))
-    v = heads(xv @ tm.wv.to(x.dtype))
+    r, k = split(xr @ tm.wr.to(x.dtype)), split(xk @ tm.wk.to(x.dtype))
+    v = split(xv @ tm.wv.to(x.dtype))
     g = silu(xg @ tm.wg.to(x.dtype))
     dec = tm.w0 + torch.tanh(xw @ tm.decay_lora_a.to(x.dtype)) @ tm.decay_lora_b.to(x.dtype)
-    log_w = heads(-torch.exp(dec.to(torch.float32)))                     # ≤ 0
+    log_w = split(-torch.exp(dec.to(torch.float32)))                     # ≤ 0
     eff_chunk = chunk if S % chunk == 0 else S
-    y, wkv = linear_scan.chunked_scan(r, k, v, log_w, chunk=eff_chunk, u=tm.u,
+    y, wkv = linear_scan.chunked_scan(r, k, v, log_w, chunk=eff_chunk, u=tm.u[mine],
                                       state0=None if state is None else state.wkv,
                                       mode="bonus")
-    y = y.transpose(1, 2).reshape(B, S, d)
+    y = merge_heads(y.transpose(1, 2), heads)
     y = _group_norm_heads(y, tm.ln_scale, tm.ln_bias, H)
     return (y * g) @ tm.wo.to(x.dtype), (x[:, -1, :], wkv)
 
@@ -180,10 +185,11 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
         wkv=torch.zeros((batch, H, dh, dh), dtype=torch.float32, device=device))
 
 
-def time_mix_decode(cfg: ModelConfig, layer, x_t: torch.Tensor, state: RWKVState):
+def time_mix_decode(cfg: ModelConfig, layer, x_t: torch.Tensor, state: RWKVState,
+                    heads: HeadSplit | None = None):
     """x_t [B, 1, d]: one token through the same code path (S = chunk = 1,
     from ``state``).  Returns (y, new state); ``state`` is left as it was."""
-    out, (shift, wkv) = time_mix_apply(cfg, layer, x_t, state=state, chunk=1)
+    out, (shift, wkv) = time_mix_apply(cfg, layer, x_t, state=state, chunk=1, heads=heads)
     return out, dataclasses.replace(state, shift_tm=shift, wkv=wkv)
 
 

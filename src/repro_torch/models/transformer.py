@@ -32,6 +32,7 @@ uses it in f32.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -52,7 +53,7 @@ from repro_torch.models.mlp import GATED_KINDS, MLP_KINDS, mlp_apply
 
 __all__ = ["COMPUTE_DTYPE", "Block", "RWKVBlock", "Transformer", "check_supported",
            "check_serving", "is_hybrid", "layer_kinds", "cache_cfg_for", "init_caches",
-           "embed_tokens", "final_norm", "logits_from_hidden", "forward_prefill",
+           "local_cache_cfg", "embed_tokens", "final_norm", "logits_from_hidden", "forward_prefill",
            "decode_tokens", "pick_q_chunk", "forward_train"]
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -289,6 +290,14 @@ def cache_cfg_for(cfg: ModelConfig, kind: str, policy: CompressionPolicy, batch:
                                  kind="fp16" if policy.is_fp16 else "gear")
 
 
+def local_cache_cfg(ccfg: cache_lib.CacheConfig,
+                    heads: attn_lib.HeadSplit | None) -> cache_lib.CacheConfig:
+    """``ccfg`` with only this process's KV heads under a head split."""
+    if heads is None:
+        return ccfg
+    return dataclasses.replace(ccfg, kv_heads=attn_lib.local_heads(ccfg.kv_heads, heads))
+
+
 def init_caches(cfg: ModelConfig, policy: CompressionPolicy, batch: int, capacity: int,
                 device, dtype=torch.bfloat16, layout: str = "dense", pool_pages: int = 0) -> list:
     """One empty layer cache per layer, by its kind (:func:`cache_cfg_for`):
@@ -389,7 +398,8 @@ def _rope_by_kind(cfg: ModelConfig, positions: torch.Tensor) -> dict:
 def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: CompressionPolicy,
                     capacity: int, prefill_mode: str = "monolithic", padded_tail: bool = False,
                     true_len: int | None = None, start_pos: int = 0, init_caches=None,
-                    img_embeds: torch.Tensor | None = None):
+                    img_embeds: torch.Tensor | None = None,
+                    heads: attn_lib.HeadSplit | None = None):
     """Prefill of ``tokens`` [B, S] (an audio model's [B, S, K]; a VLM's
     ``img_embeds`` [B, P, d] before them: :func:`embed_tokens`).  Returns
     (logits [B, 1, V] of the last real position, [B, 1, K, V] for audio, one
@@ -418,7 +428,12 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
     ``true_len - 1`` of this call's tokens.  Both need every layer to
     stream, and neither can resume a recurrent state, so both raise for
     RWKV6, hybrid, local:global and VLM models (which therefore prefill
-    unbucketed), as in the reference."""
+    unbucketed), as in the reference.
+
+    ``heads`` (a mesh's ``model`` axis splitting the cache's KV heads, or
+    RWKV6's per-head state): each attention layer computes this process's
+    block of heads and caches only those
+    (:class:`~repro_torch.models.attention.HeadSplit`)."""
     if prefill_mode not in ("monolithic", "streaming"):
         raise ValueError(f"prefill_mode must be monolithic/streaming, got {prefill_mode!r}")
     if start_pos and prefill_mode != "streaming":
@@ -432,7 +447,7 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
     if cfg.rwkv:
         caches = []
         for blk in model.blocks:
-            h, (shift_tm, wkv) = rwkv_lib.time_mix_apply(cfg, blk, blk.ln1(x))
+            h, (shift_tm, wkv) = rwkv_lib.time_mix_apply(cfg, blk, blk.ln1(x), heads=heads)
             x = x + h
             h, shift_cm = rwkv_lib.channel_mix_apply(cfg, blk, blk.ln2(x))
             x = x + h
@@ -444,7 +459,8 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
     positions = torch.arange(start_pos, start_pos + S, dtype=torch.int32, device=x.device)
     ropes = _rope_by_kind(cfg, positions)
     prefix_len = cfg.num_prefix_tokens if cfg.modality == "vlm" else 0   # image rows
-    ccfgs = {kind: cache_cfg_for(cfg, kind, policy, B, capacity) for kind in cfg.layer_pattern}
+    ccfgs = {kind: local_cache_cfg(cache_cfg_for(cfg, kind, policy, B, capacity), heads)
+             for kind in cfg.layer_pattern}
     stream = {kind: prefill_mode == "streaming"
               and attn_lib.streaming_prefill_supported(cfg, kind, c) for kind, c in ccfgs.items()}
     if start_pos or padded_tail:
@@ -463,9 +479,10 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
         if stream[kind]:
             h, cache = attn_lib.attention_prefill_streaming(
                 cfg, blk, xin, rope, ccfg, start_pos=start_pos, padded_tail=padded_tail,
-                true_len=true_len, cache=None if init_caches is None else init_caches[i])
+                true_len=true_len, cache=None if init_caches is None else init_caches[i],
+                heads=heads)
         else:
-            h, (k, v) = attn_lib.attention_prefill(cfg, blk, xin, rope, kind, prefix_len)
+            h, (k, v) = attn_lib.attention_prefill(cfg, blk, xin, rope, kind, prefix_len, heads)
             cache = cache_lib.prefill_layer_cache(
                 ccfg, cache_lib.init_layer_cache(ccfg, torch.bfloat16, x.device), k, v)
         if hybrid:
@@ -486,7 +503,7 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, policy: Compressio
 def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
                   policy: CompressionPolicy, capacity: int, lengths=None,
                   block_tables: cache_lib.BlockTables | None = None,
-                  fused: str = "auto") -> torch.Tensor:
+                  fused: str = "auto", heads: attn_lib.HeadSplit | None = None) -> torch.Tensor:
     """One decode step.  tokens [B, 1] ([B, 1, K] for audio); ``pos`` [B]
     per-slot absolute
     positions; ``lengths`` the host copy of the caches' per-slot lengths
@@ -499,12 +516,13 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
     Updates ``caches`` in place; returns logits [B, 1, V] ([B, 1, K, V] for
     audio).  An RWKV6 model
     reads neither ``pos`` nor lengths: each layer advances its
-    :class:`~repro_torch.models.rwkv.RWKVState` by one token."""
+    :class:`~repro_torch.models.rwkv.RWKVState` by one token.  ``heads``:
+    the caches hold this process's KV heads (as :func:`forward_prefill`)."""
     cfg = model.cfg
     x = embed_tokens(model, tokens)
     if cfg.rwkv:
         for blk, st in zip(model.blocks, caches):
-            h, new = rwkv_lib.time_mix_decode(cfg, blk, blk.ln1(x), st)
+            h, new = rwkv_lib.time_mix_decode(cfg, blk, blk.ln1(x), st, heads=heads)
             x = x + h
             h, new = rwkv_lib.channel_mix_decode(cfg, blk, blk.ln2(x), new)
             x = x + h
@@ -520,12 +538,13 @@ def decode_tokens(model: Transformer, tokens: torch.Tensor, caches: list, pos,
     # a copy: for a CPU cache ``.cpu().numpy()`` shares the first layer's
     # ``length``, which its append advances before the next layer reads it
     lengths = np.array(lengths, dtype=np.int64)
-    ccfgs = {kind: cache_cfg_for(cfg, kind, policy, B, capacity) for kind in cfg.layer_pattern}
+    ccfgs = {kind: local_cache_cfg(cache_cfg_for(cfg, kind, policy, B, capacity), heads)
+             for kind in cfg.layer_pattern}
     for blk, kind, cache in zip(model.blocks, layer_kinds(cfg), caches):
         gear, st = cache if hybrid else (cache, None)
         xin = blk.norm1(x)
         h = attn_lib.attention_decode(cfg, blk, xin, ropes[kind], gear, ccfgs[kind], lengths,
-                                      block_tables, fused)
+                                      block_tables, fused, heads)
         if hybrid:
             h2, new = ssm_lib.ssm_decode(cfg, blk, xin, st)
             st.conv.copy_(new.conv)

@@ -1,4 +1,5 @@
-"""Serving engine: prefill + GEAR-cached decode on one device.
+"""Serving engine: prefill + GEAR-cached decode on one device or on a
+device mesh.
 
 Port of ``repro.serving.engine.Engine``.  ``fused="auto"`` decodes a cache
 in the ``gear_decode`` layout through the kernels (the CUDA kernels on a
@@ -61,6 +62,24 @@ batch-1 prefill into a slot (:meth:`Engine.prefill_slot`).
   prefills against an FP16 shadow prefill (:mod:`repro_torch.obs.fidelity`).
 * Fault injection (:mod:`repro_torch.serving.faults`): ``attach_faults``
   wires an injector into the numeric guard and the page pool.
+* On a device mesh (``mesh=``, :mod:`repro_torch.launch.mesh`), the
+  reference's "layout, not semantics": every process of the job runs the
+  same host program on the same requests, and each stores only its shard of
+  the weights (``param_pspecs``) and of the caches (``cache_pspecs``: its
+  data group's batch rows, and its block of KV heads where ``model``
+  divides them; the per-slot ``length`` whole).  Each call gathers the
+  weights over ``model`` into the whole-model module
+  (:class:`~repro_torch.dist.whole.WholeModel`) and releases them after it.
+  A layer whose cache is split over heads attends its own heads and
+  all-gathers their outputs over ``model`` before the output projection
+  (:class:`~repro_torch.models.attention.HeadSplit`).  Decode and wave
+  prefill run the data group's rows and all-gather the logits over the
+  data axes; a slot's batch-1 prefill runs in every data group (so every
+  process has its logits and the prefix trie's payloads of its heads, with
+  no broadcast) and is spliced into the owning group's rows only.  The
+  paged layout is refused, as in the reference.  A mesh axis of size 1
+  issues no collective: on a 1 × 1 mesh the engine computes what the
+  one-device engine does, bit for bit.
 
 The cache tree is a list of per-layer caches that the engine updates in
 place: ``decode``, ``prefill_slot`` and ``reset_slot`` return the same tree
@@ -76,14 +95,20 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import cache as cache_lib
 from repro_torch.core.policy import FP16, CompressionPolicy
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.compat import all_gather_cat, axis_group, axis_index, axis_size
+from repro_torch.dist.whole import WholeModel, local_module
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.launch.mesh import MODEL, mesh_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import cache_cfg_for, check_serving, layer_kinds
+from repro_torch.models.transformer import (cache_cfg_for, check_serving, layer_kinds,
+                                            local_cache_cfg)
 from repro_torch.obs import FidelityProbe, Observability, ObsConfig
 from repro_torch.obs.tracing import profiler_span
 from repro_torch.prefixcache import PrefixCache, extract_tree_chunks, splice_tree_chunks
@@ -91,7 +116,7 @@ from repro_torch.serving.pagedpool import PagePool, PagePoolStore, pages_needed
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.views import DenseCacheView, PagedCacheView
 
-__all__ = ["EngineConfig", "Engine", "prefix_cache_unsupported_reason"]
+__all__ = ["EngineConfig", "Engine", "prefix_cache_unsupported_reason", "PAGED_ON_MESH"]
 
 _CHOICES = {
     "fused": ("auto", "interpret", "off"),
@@ -192,14 +217,22 @@ def prefix_cache_unsupported_reason(cfg, policy: CompressionPolicy,
 
 
 class Engine:
-    def __init__(self, model: Model, params, ecfg: EngineConfig, device=None, clock=None):
-        self.device = resolve_device(device)
+    def __init__(self, model: Model, params, ecfg: EngineConfig, device=None, clock=None,
+                 mesh=None):
+        self.device = resolve_device(device) if mesh is None else _mesh_engine_device(mesh, device)
         if params.device != self.device:
             raise ValueError(f"weights live on {params.device}, engine device is {self.device}")
         self.model = model
         self.cfg = model.cfg
         self.ecfg = ecfg
-        self.params = params
+        self.mesh = mesh
+        # on one device: no head split, every batch row stored, no cache specs
+        self._whole = self._heads = self._cache_specs = None
+        self._rows = slice(0, ecfg.batch)
+        if mesh is None:
+            self.params = params
+        else:
+            self._init_mesh(params)
         # injectable monotonic clock of the prefix cache's TTL and of the
         # telemetry (tests pass a fake one); None is real time
         self._clock = clock
@@ -214,12 +247,13 @@ class Engine:
         # every layer's batch-1 cache config, the geometry of one request's
         # prefill (None for an RWKV6 layer); ``_ccfg`` / ``_ccfg1`` are the
         # global layers' (the prefix cache's, whose models have no other
-        # kind), None without any
-        self._ccfgs1 = [None if kind == "rwkv" else
-                        cache_cfg_for(self.cfg, kind, ecfg.policy, 1, self._cap())
+        # kind), None without any; each counts this process's KV heads under
+        # a mesh's head split
+        self._ccfgs1 = [None if kind == "rwkv" else local_cache_cfg(
+                            cache_cfg_for(self.cfg, kind, ecfg.policy, 1, self._cap()), self._heads)
                         for kind in layer_kinds(self.cfg)]
-        self._ccfg = (None if self.cfg.rwkv else
-                      cache_cfg_for(self.cfg, "global", ecfg.policy, ecfg.batch, self._cap()))
+        self._ccfg = (None if self.cfg.rwkv else local_cache_cfg(
+            cache_cfg_for(self.cfg, "global", ecfg.policy, ecfg.batch, self._cap()), self._heads))
         self._ccfg1 = None if self._ccfg is None else dataclasses.replace(self._ccfg, batch=1)
         if ecfg.layout == "paged" and ecfg.policy.is_fp16:
             raise ValueError("paged layout requires a compressed (GEAR) policy: fp16 caches "
@@ -243,7 +277,7 @@ class Engine:
         if (self.obs is not None and obs_cfg.fidelity_every_n > 0
                 and not ecfg.policy.is_fp16 and self.cfg.modality == "text"):
             self.obs.fidelity = FidelityProbe(
-                ref_prefill=lambda b: self.model.prefill(self.params, b, FP16, self._cap()),
+                ref_prefill=lambda b: self._model_prefill(b, policy=FP16),
                 cache_cfgs=self._ccfgs1,
                 policy=ecfg.policy, registry=self.obs.registry,
                 every_n=obs_cfg.fidelity_every_n, budget_frac=obs_cfg.fidelity_budget_frac)
@@ -251,6 +285,130 @@ class Engine:
     def _cap(self) -> int:
         nb = self.ecfg.policy.buffer_size
         return (self.ecfg.capacity + nb - 1) // nb * nb
+
+    # -- device mesh ----------------------------------------------------------
+    def _init_mesh(self, params) -> None:
+        """Keep this process's slice of every parameter and read the cache's
+        layout off ``cache_pspecs``: this group's rows (``_rows``, a slice of
+        the batch) and the head split (``_heads``)."""
+        if self.ecfg.layout == "paged":
+            raise NotImplementedError(PAGED_ON_MESH)
+        mesh, cfg, ecfg = self.mesh, self.cfg, self.ecfg
+        pshard = shd.shardings_for(mesh, shd.param_pspecs(cfg, params, mesh))
+        self._whole = WholeModel(cfg, pshard)
+        self.params = local_module(params, pshard)
+        whole_tree = self.model.init_caches(ecfg.policy, ecfg.batch, self._cap(), "meta")
+        self._cache_specs = shd.cache_pspecs(cfg, whole_tree, mesh, ecfg.batch)
+        self._whole_cache_bytes = self.cache_nbytes(whole_tree)
+        head_split = False
+        for layer, specs in zip(whole_tree, self._cache_specs):
+            for part, pspecs in zip(cache_lib._parts(layer), _spec_parts(specs)):
+                for name, spec in pspecs.items():
+                    if axis_size(mesh, MODEL) == 1 or MODEL not in _spec_axes(spec):
+                        continue
+                    if not _is_head_leaf(part, name):
+                        raise NotImplementedError(
+                            f"cache_pspecs splits {type(part).__name__}.{name} over 'model', "
+                            "which the engine does not compute by heads")
+                    head_split = True
+        if head_split:
+            self._heads = attn_lib.HeadSplit(
+                axis_index(mesh, MODEL), axis_size(mesh, MODEL),
+                lambda t, dim: all_gather_cat(t, mesh, MODEL, dim))
+        # this data group's batch rows: every [B, ...] leaf's batch-dim entry
+        # is the same, so the first layer's first such leaf gives it
+        batch_spec = next(spec for spec in _spec_parts(self._cache_specs[0])[0].values()
+                          if len(spec) > 1)
+        self._row_shard = shd.Sharding(mesh, shd.P(batch_spec[0]))
+        idx = self._row_shard.local(torch.arange(ecfg.batch))
+        self._rows = slice(int(idx[0]), int(idx[-1]) + 1)
+
+    @contextlib.contextmanager
+    def _weights(self):
+        """The weights a call runs on: the one-device engine's, or on a mesh
+        the whole-model module, each layer's split weights gathered as the
+        forward reaches the layer and released as it leaves it."""
+        if self._whole is None:
+            yield self.params
+            return
+        with self._whole.gathered(self.params, by_block=True) as module:
+            yield module
+
+    def _model_prefill(self, batch: dict, policy=None, **kw):
+        """``Model.prefill`` of ``batch`` on this engine's weights (and head
+        split)."""
+        with self._weights() as params:
+            return self.model.prefill(params, batch, policy or self.ecfg.policy, self._cap(),
+                                      heads=self._heads, **kw)
+
+    def _local_tree(self, batch: int) -> list:
+        """This process's slices of an empty ``batch``-row cache tree, each
+        leaf allocated at its local shape (never built whole and cut)."""
+        ecfg = self.ecfg
+        whole_tree = self.model.init_caches(ecfg.policy, batch, self._cap(), "meta")
+        specs = (self._cache_specs if batch == ecfg.batch
+                 else shd.cache_pspecs(self.cfg, whole_tree, self.mesh, batch))
+
+        def part(p, spec):
+            empty = getattr(p, "EMPTY", {})
+            return dataclasses.replace(p, **{
+                name: torch.full(shd.Sharding(self.mesh, spec[name]).local(t).shape,
+                                 empty.get(name, 0), dtype=t.dtype, device=self.device)
+                for name, t in p.tensors().items()})
+
+        out = []
+        for layer, layer_specs in zip(whole_tree, specs):
+            parts = tuple(part(p, sp) for p, sp in zip(cache_lib._parts(layer),
+                                                        _spec_parts(layer_specs)))
+            out.append(parts if isinstance(layer, tuple) else parts[0])
+        return out
+
+    def _row_view(self, caches: list) -> list:
+        """The stored tree as the decode computes on it: every leaf as stored
+        (this group's rows) but ``length``, stored whole, of which it takes a
+        copy of this group's rows."""
+        def part(p):
+            if not hasattr(p, "length"):
+                return p
+            return dataclasses.replace(p, length=p.length[self._rows].clone())
+
+        return [tuple(part(p) for p in layer) if isinstance(layer, tuple) else part(layer)
+                for layer in caches]
+
+    def _heads_agree(self, ok: bool) -> bool:
+        """``ok`` on every process of this one's ``model`` group (under a
+        head split each sees only its heads' values)."""
+        if self._heads is None:
+            return ok
+        flag = torch.tensor([float(ok)], device=mesh_device(self.mesh))
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=axis_group(self.mesh, MODEL))
+        return bool(flag.item())
+
+    def _write_slot(self, caches: list, one: list | None, slot: int) -> None:
+        """Write batch-1 tree ``one`` into batch row ``slot`` of the stored
+        dense tree, in place; None writes the empty state instead (every
+        leaf zeroed but a window ring's ``pos``, back to -1: each part's
+        ``EMPTY``).  On a mesh a leaf that ``cache_pspecs`` splits over the
+        data axes holds this group's rows (``_rows``) and takes the write in
+        the owning group only; the per-slot ``length``, stored whole, takes
+        it everywhere.  On one device every leaf holds every row."""
+        rows = self._rows
+        for i, layer in enumerate(caches):
+            srcs = None if one is None else cache_lib._parts(one[i])
+            specs = None if self._cache_specs is None else _spec_parts(self._cache_specs[i])
+            for j, part in enumerate(cache_lib._parts(layer)):
+                empty = getattr(part, "EMPTY", {})
+                for name, dst in part.tensors().items():
+                    if specs is None or specs[j][name][0] is None:     # every row stored
+                        row = dst[slot]
+                    elif rows.start <= slot < rows.stop:
+                        row = dst[slot - rows.start]
+                    else:
+                        continue
+                    if srcs is None:
+                        row.fill_(empty.get(name, 0))
+                    else:
+                        row.copy_(getattr(srcs[j], name)[0])
 
     @property
     def attend_path(self) -> str:
@@ -327,7 +485,7 @@ class Engine:
         :class:`NumericFault` on NaN/Inf, with the shared tree untouched."""
         if self._faults is not None:
             one = self._faults.corrupt_tree(one)
-        if self.ecfg.numeric_guard and not bool(cache_lib.tree_finite(one)):
+        if self.ecfg.numeric_guard and not self._heads_agree(bool(cache_lib.tree_finite(one))):
             if self.obs is not None:
                 self.obs.quarantine()
                 self.obs.tracer.event_bound("quarantine")
@@ -380,34 +538,62 @@ class Engine:
         nb = ecfg.policy.buffer_size
         with profiler_span("gear.prefill", self._prof):
             if not self._can_bucket or n % nb == 0:
-                return self.model.prefill(self.params, {"tokens": tokens}, ecfg.policy,
-                                          self._cap(), prefill_mode=ecfg.prefill_mode)
+                return self._model_prefill({"tokens": tokens}, prefill_mode=ecfg.prefill_mode)
             padded = torch.nn.functional.pad(tokens, (0, -n % nb))
-            return self.model.prefill(self.params, {"tokens": padded}, ecfg.policy, self._cap(),
-                                      prefill_mode="streaming", padded_tail=True, true_len=n)
+            return self._model_prefill({"tokens": padded}, prefill_mode="streaming",
+                                       padded_tail=True, true_len=n)
 
     def prefill(self, batch: dict):
         """Full-batch prefill of ``batch["tokens"]`` [B, S] (an audio model's
         codebook ids [B, S, K]; wave mode, the dense layout only), after
         ``batch["img_embeds"]`` [B, P, d] for a VLM (a text model ignores
         them, as the reference's).  Returns (logits [B, 1, V] ([B, 1, K, V]
-        for audio), a fresh cache tree)."""
+        for audio), a fresh cache tree).  On a mesh each data group prefills
+        its rows, and the logits of every row reach every process."""
         if self.ecfg.layout == "paged":
             raise NotImplementedError(
                 "full-batch wave prefill is dense-only; paged engines serve "
                 "through Engine.prefill_slot / Scheduler.run_continuous")
         _check_batch(self.cfg, batch)
         batch = dict(batch, tokens=torch.as_tensor(batch["tokens"]).to(torch.int32))
+        if self.mesh is not None:
+            batch = {k: v[self._rows] for k, v in batch.items()}
         with profiler_span("gear.prefill", self._prof):
-            return self.model.prefill(self.params, batch, self.ecfg.policy, self._cap(),
-                                      prefill_mode=self.ecfg.prefill_mode)
+            logits, caches = self._model_prefill(batch, prefill_mode=self.ecfg.prefill_mode)
+        if self.mesh is None:
+            return logits, caches
+        for layer in caches:                       # ``length`` is stored whole
+            for part in cache_lib._parts(layer):
+                if hasattr(part, "length"):
+                    part.length = self._row_shard.full(part.length)
+        return self._row_shard.full(logits), caches
 
-    def decode(self, token_batch: dict, caches: list, pos):
-        """One decode step over all slots (``pos``: scalar or per-slot [B])."""
-        with profiler_span("gear.decode", self._prof):
-            return self.model.decode_step(self.params, token_batch, caches, pos,
-                                          self.ecfg.policy, self._cap(),
-                                          block_tables=self.block_tables, fused=self.ecfg.fused)
+    def decode(self, token_batch: dict, caches: list, pos, lengths=None):
+        """One decode step over all slots (``pos``: scalar or per-slot [B];
+        ``lengths``: the host copy of the slots' lengths, read from the
+        cache when None).  On a mesh each data group steps its rows, and the
+        logits of every row reach every process."""
+        ecfg = self.ecfg
+        tokens = token_batch["tokens"]
+        view = caches
+        if self.mesh is not None:
+            rows = self._rows
+            tokens = torch.as_tensor(tokens)[rows]
+            pos = pos if np.ndim(pos) == 0 else np.asarray(pos)[rows]
+            lengths = None if lengths is None else np.asarray(lengths)[rows]
+            view = self._row_view(caches)
+        with profiler_span("gear.decode", self._prof), self._weights() as params:
+            logits, _ = self.model.decode_step(params, {"tokens": tokens}, view, pos, ecfg.policy,
+                                               self._cap(), lengths=lengths,
+                                               block_tables=self.block_tables, fused=ecfg.fused,
+                                               heads=self._heads)
+        if self.mesh is None:
+            return logits, caches
+        for layer in caches:                       # every slot advanced one token
+            for part in cache_lib._parts(layer):
+                if hasattr(part, "length"):
+                    part.length += 1
+        return self._row_shard.full(logits), caches
 
     def prefill_slot(self, batch1: dict, caches: list, slot: int, admit: bool = True,
                      reserve_tokens: int | None = None):
@@ -434,8 +620,7 @@ class Engine:
             return self._prefill_slot_paged(batch1, caches, slot, admit, reserve_tokens)
 
         def commit(one, n_hit, _):
-            for full, one_layer in zip(caches, one):
-                cache_lib.splice_slot(full, one_layer, slot)
+            self._write_slot(caches, one, slot)
 
         logits = self._prefill_via_trie(
             batch1, admit, commit,
@@ -489,6 +674,8 @@ class Engine:
     def _fresh_batch1(self) -> list:
         """An empty batch-1 cache tree for a suffix prefill's scaffold (the
         pipeline writes into it in place, so each hit takes a new one)."""
+        if self.mesh is not None:
+            return self._local_tree(1)
         return self.model.init_caches(self.ecfg.policy, 1, self._cap(), self.device)
 
     def _prefill_suffix(self, tokens: np.ndarray, n_hit: int, one1: list):
@@ -499,14 +686,14 @@ class Engine:
         suf = torch.as_tensor(np.asarray(tokens[n_hit * nb:], np.int32))[None]
         n_suf = suf.shape[1]
         start = n_hit * nb
-        with profiler_span("gear.prefill_suffix", self._prof):
+        with profiler_span("gear.prefill_suffix", self._prof), self._weights() as params:
             if n_suf % nb == 0:
-                return self.model.prefill_suffix(self.params, {"tokens": suf}, one1, start,
-                                                 ecfg.policy, self._cap())
+                return self.model.prefill_suffix(params, {"tokens": suf}, one1, start,
+                                                 ecfg.policy, self._cap(), heads=self._heads)
             padded = torch.nn.functional.pad(suf, (0, -n_suf % nb))
-            return self.model.prefill_suffix(self.params, {"tokens": padded}, one1, start,
+            return self.model.prefill_suffix(params, {"tokens": padded}, one1, start,
                                              ecfg.policy, self._cap(), padded_tail=True,
-                                             true_len=n_suf)
+                                             true_len=n_suf, heads=self._heads)
 
     def _prefill_slot_paged(self, batch1, caches, slot, admit, reserve_tokens):
         nb = self.ecfg.policy.buffer_size
@@ -595,10 +782,12 @@ class Engine:
         """Swap the served weights.  Bumps :attr:`weight_version` and
         invalidates every prefix-cache entry (chunks compressed under the old
         weights must never be spliced into a new-weights prefill; the trie
-        prunes them lazily, counted as ``version_evictions``)."""
+        prunes them lazily, counted as ``version_evictions``).  On a mesh
+        ``params`` is the whole model, of which this process keeps its
+        slices."""
         if params.device != self.device:
             raise ValueError(f"weights live on {params.device}, engine device is {self.device}")
-        self.params = params
+        self.params = params if self.mesh is None else local_module(params, self._whole.shardings)
         self.weight_version += 1
         if self.prefix_cache is not None:
             self.prefix_cache.bump_version()
@@ -619,8 +808,7 @@ class Engine:
                 for name in ("buf_k", "buf_v", "length"):
                     getattr(lyr, name)[slot].zero_()
             return caches
-        for layer in caches:
-            cache_lib.reset_slot(layer, slot)
+        self._write_slot(caches, None, slot)
         return caches
 
     def init_caches(self) -> list:
@@ -631,6 +819,8 @@ class Engine:
             self._new_pool()
             return self.model.init_caches(ecfg.policy, ecfg.batch, self._cap(), self.device,
                                           layout="paged", pool_pages=self._n_pages)
+        if self.mesh is not None:
+            return self._local_tree(ecfg.batch)
         return self.model.init_caches(ecfg.policy, ecfg.batch, self._cap(), self.device)
 
     def new_view(self):
@@ -687,6 +877,9 @@ class Engine:
             "decode_tok_per_s": self._decode_tok_per_s(toks, t_decode, active),
             "cache_bytes": self.cache_nbytes(caches),
         }
+        if self.mesh is not None:       # the whole tree's bytes, and this process's
+            stats.update(cache_bytes=self._whole_cache_bytes,
+                         cache_bytes_per_process=self.cache_nbytes(caches))
         return toks, stats
 
     def _sync(self) -> None:
@@ -723,6 +916,44 @@ class Engine:
         included)."""
         return sum(t.numel() * t.element_size() for layer in caches
                    for part in cache_lib._parts(layer) for t in part.tensors().values())
+
+
+# why a mesh engine refuses the paged layout (the reference's words)
+PAGED_ON_MESH = ("paged layout is single-host for now: the block tables are engine-owned host "
+                 "state (ROADMAP: sharded pool)")
+
+
+def _mesh_engine_device(mesh, device) -> torch.device:
+    """The device an engine on ``mesh`` runs on: the one this process drives,
+    or, named by the caller, the meta device (the dry run's trace)."""
+    dev = mesh_device(mesh)
+    if device is None:
+        return dev
+    want = torch.device(device)
+    if want.type == "meta":
+        return want
+    if want.type != dev.type:
+        raise ValueError(f"Engine: device {device!r} is not the mesh's {mesh.device_type!r}")
+    return dev
+
+
+def _spec_parts(specs) -> tuple:
+    """A layer's spec dicts, one per cache part (as ``cache._parts``)."""
+    return specs if isinstance(specs, tuple) else (specs,)
+
+
+def _spec_axes(spec) -> set:
+    return {a for e in spec for a in shd._axes_of(e)}
+
+
+def _is_head_leaf(part, name: str) -> bool:
+    """Whether leaf ``name`` of a layer-cache part is laid out [B, H, ...]
+    over the KV heads: every leaf of an attention cache but the per-slot
+    ``length`` and a window ring's ``pos``, and RWKV6's per-head state."""
+    if isinstance(part, (cache_lib.GEARLayerCache, cache_lib.FP16LayerCache,
+                         cache_lib.WindowLayerCache)):
+        return name not in ("length", "pos")
+    return name == "wkv"
 
 
 def _check_batch(cfg, batch: dict) -> None:

@@ -32,10 +32,10 @@ from repro_torch.ckpt import checkpoint as ckpt_lib
 from repro_torch.data.synthetic import DataConfig, make_batch
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.compat import all_reduce_mean_, axis_group
+from repro_torch.dist.whole import WholeModel
 from repro_torch.launch.mesh import DATA, POD, axis_sizes, dp_axes, mesh_device
 from repro_torch.models.common import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import Transformer
 from repro_torch.optim.adamw import adamw_update, global_norm
 from repro_torch.optim.grad_compress import CompressorConfig, compressed_psum, draw_inits
 from repro_torch.optim.schedule import lr_at
@@ -118,7 +118,8 @@ class _MeshStep:
       :func:`~repro_torch.optim.grad_compress.compressed_psum` over ``pod``).
     * Each process stores its shard of every parameter (``param_pspecs``).
       At the step, a parameter's shards are gathered over ``model`` into a
-      whole-model module that the forward runs on, so the forward, attention
+      whole-model module that the forward runs on
+      (:class:`~repro_torch.dist.whole.WholeModel`), so the forward, attention
       and the scan kernels see plain tensors; a parameter the layout does not
       split is that module's own parameter, shared, never copied.  The
       gathered copies are dropped after the step.
@@ -141,36 +142,17 @@ class _MeshStep:
         # decided once per parameter: whether the layout splits it (gathered
         # at each step), and over which data axes the moments' slice is
         # narrower than the stored shard (ZeRO-1: gathered back after AdamW)
-        self.split = {n for n, sh in self.sh.params.items() if not sh.trivial}
+        self.whole = WholeModel(model.cfg, self.sh.params, requires_grad=True)
+        self.split = self.whole.split
         self.zero1_axes = {n: tuple(_spec_axes(osh.spec) - _spec_axes(self.sh.params[n].spec))
                            for n, osh in self.sh.opt.mu.items()
                            if not osh.same_slices(self.sh.params[n])}
-        self._whole = None                      # the whole-model module the forward runs on
-        self._owner = None                      # the stored module it shares parameters with
-
-    def _gather(self, params: Transformer) -> Transformer:
-        """The whole-model module: shared parameters where the layout keeps
-        them whole, gathered copies where it splits them."""
-        if self._owner is not params:
-            self._whole, self._owner = Transformer(self.model.cfg, "meta"), params
-            for n, p in params.named_parameters():
-                if n not in self.split:
-                    _set_param(self._whole, n, p)
-        for n, p in params.named_parameters():
-            if n in self.split:
-                full = self.sh.params[n].full(p)
-                _set_param(self._whole, n, torch.nn.Parameter(full, requires_grad=True))
-        return self._whole
-
-    def _release(self) -> None:
-        for n in self.split:
-            _set_param(self._whole, n, None)
 
     def __call__(self, state: TrainState, batch: dict):
         run, mesh, cfg = self.run, self.mesh, self.model.cfg
         bsh = shd.shardings_for(mesh, shd.batch_pspecs(cfg, batch, mesh))
         local = {k: v if bsh[k].trivial else bsh[k].local(v) for k, v in batch.items()}
-        whole = self._gather(state.params)
+        whole = self.whole.gather(state.params)
         try:
             loss, metrics, grads = _accum_grads(self.model, whole, local, run)
             extra = {}
@@ -206,18 +188,13 @@ class _MeshStep:
         finally:
             for p in whole.parameters():
                 p.grad = None
-            self._release()
+            self.whole.release()
         metrics = dict(metrics, loss=loss, lr=lr, **om, **extra)
         return TrainState(params=state.params, opt=opt, step=state.step + 1, ef=ef), metrics
 
 
 def _spec_axes(spec) -> set:
     return {a for e in spec for a in shd._axes_of(e)}
-
-
-def _set_param(module: torch.nn.Module, name: str, value) -> None:
-    owner, _, attr = name.rpartition(".")
-    setattr(module.get_submodule(owner) if owner else module, attr, value)
 
 
 class _Preemption:

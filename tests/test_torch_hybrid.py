@@ -52,6 +52,7 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
 from repro_torch.serving.scheduler import Request, Scheduler  # noqa: E402
+from torch_fake_device import elsewhere  # noqa: E402
 
 ARCH = "hymba-1.5b"
 POLICY = "gear_kcvt4"
@@ -431,13 +432,18 @@ def test_scan_state0_on_a_card_raises():
     CPU, ``chunked_scan(..., state0=...)`` reaches the ``linear_scan_chunked``
     wrapper, which launches the kernel on a CUDA tensor and raises for a
     device without one; nothing runs the plain version there.  Checked
-    without a card through meta-device tensors."""
+    without a card through tensors of a device that has neither a kernel
+    nor a plain version (``torch_fake_device``); meta tensors, the dry
+    run's, take the plain version as CPU ones do."""
     r = torch.zeros(1, 2, 64, 16, device="meta")
     st0 = torch.zeros(1, 2, 16, 16, device="meta")
+    y, st = ls.chunked_scan(r, r, r, r[..., :1], state0=st0)
+    assert y.device.type == "meta" and y.shape == r.shape and st.shape == st0.shape
+    r, lw, st0 = elsewhere(r), elsewhere(torch.zeros(1, 2, 64, 1)), elsewhere(st0)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ls.chunked_scan(r, r, r, r[..., :1], state0=st0)
+        ls.chunked_scan(r, r, r, lw, state0=st0)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ls.chunked_scan(r, r, r, r, u=torch.zeros(2, 16, device="meta"), state0=st0,
-                        mode="bonus")
+        ls.chunked_scan(r, r, r, r, u=elsewhere(torch.zeros(2, 16)), state0=st0, mode="bonus")
+    r0 = elsewhere(torch.zeros(2, 64, 16))
     with pytest.raises(ValueError, match="no kernel for device"):
-        linear_scan_chunked(r[0], r[0], r[0], r[0, ..., :1], chunk=64)
+        linear_scan_chunked(r0, r0, r0, elsewhere(torch.zeros(2, 64, 1)), chunk=64)

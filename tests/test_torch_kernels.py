@@ -41,6 +41,7 @@ from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import gear_decode as gd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import flash_prefill_ref, gear_decode_ref  # noqa: E402
+from torch_fake_device import elsewhere  # noqa: E402
 
 DECODE_ATOL = 1e-4
 
@@ -175,8 +176,12 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     x = torch.randn(2, 40, 16)
     fp.flash_prefill(x, x, x)
     assert (gd.gear_decode.launches, fp.flash_prefill.launches) == before
+    # meta tensors (the dry run) take the plain version too, without counting
+    assert fp.flash_prefill(x.to("meta"), x.to("meta"), x.to("meta")).shape == x.shape
+    assert (gd.gear_decode.launches, fp.flash_prefill.launches) == before
+    # a device with neither a kernel nor a plain version
     with pytest.raises(ValueError, match="no kernel for device"):
-        fp.flash_prefill(x.to("meta"), x.to("meta"), x.to("meta"))
+        fp.flash_prefill(elsewhere(x), elsewhere(x), elsewhere(x))
 
 
 def test_plain_versions_are_the_wrapped_ones():

@@ -31,6 +31,7 @@ from repro_torch.core import packing  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.quant_pack import quant_pack  # noqa: E402
 from repro_torch.kernels.ref import quant_pack_ref  # noqa: E402
+from torch_fake_device import elsewhere  # noqa: E402
 
 CODE_FLIP_BUDGET = 1e-3
 SHAPES = [(4, 64, 128), (2, 16, 64), (1, 64, 256), (8, 32, 32)]   # tests/test_kernels.py:19
@@ -114,7 +115,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take_and_cpu_does_not_count():
     port_kernels.quantize_chunk(x, 4)
     quant_pack(x.to(torch.bfloat16), 8)
     assert quant_pack.launches == before                   # CPU tensors: the plain version
+    meta = port_kernels.quantize_chunk(x.to("meta"), 4)    # meta (the dry run): the plain version
+    assert [t.shape for t in meta] == [t.shape for t in port_kernels.quantize_chunk(x, 4)]
+    assert quant_pack.launches == before
+    # a device with neither a kernel nor a plain version
     with pytest.raises(ValueError, match="no kernel for device"):
-        port_kernels.quantize_chunk(x.to("meta"), 4)
+        port_kernels.quantize_chunk(elsewhere(x), 4)
     assert port_kernels.quantize_chunk is ops.quantize_chunk
     assert "quantize_chunk" in port_kernels.__all__

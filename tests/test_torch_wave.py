@@ -248,12 +248,13 @@ def test_launcher_continuous_paged_obs(capsys, tmp_path):
 @pytest.mark.parametrize("flag,item", [(["--mesh", "2x2"], "item 10"),
                                        (["--fidelity-every", "2"], "item 7")])
 def test_launcher_unported_flags_exit(flag, item, capsys):
-    """``--mesh`` exits naming its ROADMAP item.  ``--fidelity-every`` (the
-    case keeps its id from when it exited naming item 7) now serves with
-    telemetry and the probes on, and prints the probes beside the traces,
-    as the reference launcher does."""
+    """Both cases keep their ids from when the flag exited naming its ROADMAP
+    item.  ``--mesh`` now serves on a mesh, and in a job of one process a
+    2×2 mesh exits with the mesh's message, naming the world size it needs.
+    ``--fidelity-every`` now serves with telemetry and the probes on, and
+    prints the probes beside the traces, as the reference launcher does."""
     if flag[0] == "--mesh":
-        with pytest.raises(SystemExit, match=item):
+        with pytest.raises(SystemExit, match="needs a world size of 4, and this job has 1"):
             serve.main(["--smoke", "--device", "cpu", *flag])
         return
     serve.main(["--smoke", "--device", "cpu", "--requests", "3", "--prompt", "40", "--buffer", "16", "--gen",

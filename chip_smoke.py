@@ -330,7 +330,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
     and 3 more (parameters within 1e-5);
 35. adaptive rank at ``benchmarks/bench_adaptive.py``'s shape (8 heads of
     [512, 128] seeded KV-like residuals), ranks 2, 4 and 8 on the card
-    against the CPU port: ranks equal, errors within 1e-3;
+    against the CPU port: ranks equal, errors within 1e-3; then the paper's
+    error table at ``benchmarks/bench_error.py``'s shape (4 heads of [1024,
+    128] from the same generator): ``approx_error`` of its ten policies on K
+    and on V, ``bench_ablation.py``'s Fig. 4a variants (sparsity 0 / 0.01 /
+    0.02 / 0.05 at rank 4, rank 0 / 2 / 4 / 8 at 2%), kivi2's
+    ``quant_error``, and ``lowrank_approx`` against ``svd_topr`` on kivi2's
+    K residual with its top-8 singular values over the first (Fig. 2b), on
+    the card against the CPU port: each within 1e-3, each ``size_bytes``
+    equal, each card ``approx_error`` call timed; the orderings that
+    ``bench_error.py`` asserts are printed, not gated (the data are
+    synthetic);
 36. training, path 25: rwkv6-3b at its published widths and 32 layers (3.1 B
     parameters), path 23's recipe: the gates of path 23, and exactly 2 x 32
     x 2 ``linear_scan_chunked`` launches a step (the forward and the
@@ -3831,6 +3841,14 @@ RESTORE_ATOL = 1e-5            # 6 steps straight against 3 + restore + 3 (the r
 # 32-column subspace to rounding: on the CPU a one-ulp nudge of the input
 # moves the errors by up to 1.4e-4 (r 8); an H100 read 2.2e-4 at r 4
 ADAPTIVE_ERR_ATOL = 1e-3
+# the error table's relative errors, card against the CPU port: f32 norms and
+# products summed in another order, and the power iteration's trailing
+# columns left to rounding as above (the CPU tests hold the CPU port to the
+# reference within 1e-5)
+ERROR_TABLE_ATOL = 1e-3
+# benchmarks/bench_error.py's METHODS_2BIT + METHODS_4BIT
+ERROR_METHODS = ("per_token_q2", "kivi2", "outlier_kivi2", "gear_l_kivi2", "gear_kivi2",
+                 "per_token_q4", "kcvt4", "kivi4", "gear_l_kcvt4", "gear_kcvt4")
 
 
 def zero_launches() -> dict:
@@ -4324,11 +4342,7 @@ def adaptive_rank(flush) -> dict:
     for r in (2, 4, 8):
         want = adaptive_error_vs_uniform(resid, r)
         got = adaptive_error_vs_uniform(card, r)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        adaptive_error_vs_uniform(card, r)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3
+        _, ms = on_card_ms(lambda: adaptive_error_vs_uniform(card, r))
         gaps = {k: abs(got[k] - want[k]) for k in ("uniform", "adaptive")}
         gain = (got["uniform"] - got["adaptive"]) / got["uniform"] * 100
         print(f"  r={r}: uniform {got['uniform']:.4f} adaptive {got['adaptive']:.4f} (gain "
@@ -4338,7 +4352,126 @@ def adaptive_rank(flush) -> dict:
         if got["ranks"] != want["ranks"] or max(gaps.values()) > ADAPTIVE_ERR_ATOL:
             fail(f"adaptive rank r={r} on the card: {got} against the CPU port's {want}")
         out[f"r{r}"] = dict(got, ms=ms, gain_pct=gain)
+    out["error_table"] = error_table(g)
     return out
+
+
+def kv_like(g: torch.Generator, shape: tuple, outlier_p: float = 0.005,
+            outlier_scale: float = 8.0, corr_rank: int = 16) -> torch.Tensor:
+    """``benchmarks/common.kv_like``'s recipe on a torch generator (CPU, f32):
+    a normal base plus a shared rank-``corr_rank`` token structure, 3% of
+    channels scaled 5x, a fraction ``outlier_p`` of entries scaled by ``1 +
+    outlier_scale``."""
+    *lead, n, d = shape
+    lead = tuple(lead)
+    base = torch.randn(shape, generator=g)
+    u = torch.randn(lead + (n, corr_rank), generator=g)
+    v = torch.randn(lead + (corr_rank, d), generator=g)
+    chan = 1.0 + 4.0 * (torch.rand(lead + (1, d), generator=g) < 0.03).float()
+    x = (base + 1.2 * u @ v / corr_rank ** 0.5) * chan
+    return x * (1 + outlier_scale * (torch.rand(shape, generator=g) < outlier_p).float())
+
+
+def on_card_ms(fn):
+    """``fn()`` and its host-clock milliseconds, the device synchronized
+    before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def error_table(g: torch.Generator) -> dict:
+    """The paper's error table at ``benchmarks/bench_error.py``'s shape, 4
+    heads of [1024, 128] KV-like values drawn from ``g``, on the card against
+    the CPU port: ``approx_error`` of the ten policies on K and V (each card
+    call timed, each compressed size equal), ``bench_ablation.py``'s Fig. 4a
+    variants on its input, kivi2's ``quant_error``, and on kivi2's K
+    residual ``lowrank_approx`` and ``svd_topr`` at rank 4 (their relative
+    errors) and the top-8 singular values over the first of head 0 (Fig.
+    2b).  Every gap within ``ERROR_TABLE_ATOL``."""
+    from repro_torch.core import gear, lowrank, quant
+    from repro_torch.core.policy import named_policy
+
+    shape = (1, 4, 1024, 128)
+    x = kv_like(g, shape)
+    x4a = (kv_like(g, shape, outlier_p=0.003, outlier_scale=5.0, corr_rank=8)
+           + 2.0 * kv_like(g, shape, outlier_p=0.0, corr_rank=4))
+    card = {"x": x.to(DEV), "x4a": x4a.to(DEV)}
+    cpu = {"x": x, "x4a": x4a}
+    cases = {f"{name}/{kind}": ("x", named_policy(name), kind)
+             for name in ERROR_METHODS for kind in ("k", "v")}
+    base = named_policy("gear_kivi2")
+    for sp in (0.0, 0.01, 0.02, 0.05):
+        pol = dc.replace(base, sparsity=max(sp, 1e-9), method="gear" if sp > 0 else "gear_l")
+        cases[f"fig4a s={sp}"] = ("x4a", pol, "k")
+    for r in (0, 2, 4, 8):
+        pol = dc.replace(base, rank=max(r, 1), method="gear" if r > 0 else "outlier_quant")
+        cases[f"fig4a r={r}"] = ("x4a", pol, "k")
+    gear.approx_error(card["x"], base, "k")          # the first call's one-time costs
+    rows, sizes_equal = {}, True
+    for label, (src, pol, kind) in cases.items():
+        want = float(gear.approx_error(cpu[src], pol, kind))
+        got, ms = on_card_ms(lambda: gear.approx_error(card[src], pol, kind))
+        got = float(got)
+        row = {"err": got, "gap": abs(got - want), "ms": ms}
+        if not label.startswith("fig4a"):
+            row["bytes"] = gear.compress_matrix(card[src], pol, kind).size_bytes()
+            row["bytes_cpu"] = gear.compress_matrix(cpu[src], pol, kind).size_bytes()
+            sizes_equal &= row["bytes"] == row["bytes_cpu"]
+        rows[label] = row
+        if not np.isfinite(got) or row["gap"] > ERROR_TABLE_ATOL:
+            fail(f"approx_error {label} on the card: {got} against the CPU port's {want}")
+    for name in ERROR_METHODS:
+        k, v = rows[f"{name}/k"], rows[f"{name}/v"]
+        print(f"  {name:14s} K {k['err']:.4f} V {v['err']:.4f} (gaps {k['gap']:.1e} / "
+              f"{v['gap']:.1e}; {k['bytes']} / {v['bytes']} B, equal to the CPU port's: "
+              f"{k['bytes'] == k['bytes_cpu'] and v['bytes'] == v['bytes_cpu']}); "
+              f"{k['ms']:.1f} / {v['ms']:.1f} ms a call (host clock)")
+    print("  fig4a " + "; ".join(f"{lb[6:]} {r['err']:.4f} (gap {r['gap']:.1e}, {r['ms']:.1f} ms)"
+                                 for lb, r in rows.items() if lb.startswith("fig4a")))
+    if not sizes_equal:
+        fail("size_bytes of a compressed matrix on the card differs from the CPU port's")
+    e = {name: rows[f"{name}/k"]["err"] for name in ERROR_METHODS}
+    order = {"gear_kivi2 < gear_l_kivi2 < kivi2 < per_token_q2":
+             e["gear_kivi2"] < e["gear_l_kivi2"] < e["kivi2"] < e["per_token_q2"],
+             "outlier_kivi2 < kivi2": e["outlier_kivi2"] < e["kivi2"]}
+    print(f"  bench_error.py's orderings on K (reported, not gated): {order}")
+
+    kivi2 = named_policy("kivi2")
+    extra = {}
+    for kind in ("k", "v"):
+        scheme = kivi2.scheme_for(kind)
+        want = float(quant.quant_error(cpu["x"], kivi2.bits, *scheme))
+        got = float(quant.quant_error(card["x"], kivi2.bits, *scheme))
+        extra[f"quant_error/{kind}"] = (got, abs(got - want))
+
+    def residual_errors(xk: torch.Tensor) -> dict:
+        resid = xk - quant.dequantize(quant.quantize(xk, kivi2.bits, *kivi2.scheme_for("k")))
+        norm = torch.linalg.vector_norm(resid)
+        sv = torch.linalg.svdvals(resid[0, 0])
+        return {"lowrank_approx r=4": float(torch.linalg.vector_norm(
+                    resid - lowrank.lowrank_approx(resid, 4)) / norm),
+                "svd_topr r=4": float(torch.linalg.vector_norm(
+                    resid - lowrank.svd_topr(resid, 4)) / norm),
+                "spectrum": (sv[:8] / sv[0]).cpu()}
+    want, got = residual_errors(cpu["x"]), residual_errors(card["x"])
+    for key in ("lowrank_approx r=4", "svd_topr r=4"):
+        extra[key] = (got[key], abs(got[key] - want[key]))
+    spectrum_gap = float((got["spectrum"] - want["spectrum"]).abs().max())
+    extra["spectrum top8"] = (got["spectrum"].tolist(), spectrum_gap)
+    print("  " + "; ".join(f"{key} {val if isinstance(val, list) else round(val, 4)} "
+                           f"(gap {gap:.1e})" for key, (val, gap) in extra.items()
+                           if key != "spectrum top8"))
+    print(f"  kivi2 K residual, head 0, sigma_i / sigma_0 for i < 8: "
+          f"{[round(v, 3) for v in extra['spectrum top8'][0]]} (gap {spectrum_gap:.1e})")
+    worst = max([r["gap"] for r in rows.values()] + [gap for _, gap in extra.values()])
+    print(f"  error table: largest card-against-CPU gap {worst:.1e} (bound {ERROR_TABLE_ATOL})")
+    if not worst <= ERROR_TABLE_ATOL:                # NaN fails too
+        fail(f"error table on the card: {extra} (bound {ERROR_TABLE_ATOL})")
+    return {"rows": rows, "extra": {k: {"value": v, "gap": gap} for k, (v, gap) in extra.items()},
+            "orderings": order, "largest_gap": worst, "sizes_equal": sizes_equal}
 
 
 def main() -> int:
@@ -4646,8 +4779,9 @@ def main() -> int:
     phase(f"[34] training, path 24: {len(CROSS_ARCHS)} smoke configs, one step on the CPU port "
           f"and on the card, then {TRAIN_ARCH} 6 steps straight against 3 + restore + 3")
     summaries["train_cross"] = training_cross()
-    phase("[35] adaptive rank at bench_adaptive.py's shape (8 heads of [512, 128]), card "
-          "against the CPU port")
+    phase("[35] adaptive rank at bench_adaptive.py's shape (8 heads of [512, 128]), then the "
+          "paper's error table at bench_error.py's shape (4 heads of [1024, 128]), card against "
+          "the CPU port")
     summaries["adaptive_rank"] = adaptive_rank(flush)
     for num, arch, key in ((36, "rwkv6-3b", "train_rwkv"), (37, "hymba-1.5b", "train_hymba")):
         phase(f"[{num}] training, path {num - 11}: {arch} at full width and depth, "

@@ -49,6 +49,7 @@ Two more ways in and one more layout come from the reference:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -58,13 +59,15 @@ from repro_torch.core import lowrank as lr_lib
 from repro_torch.core import packing
 from repro_torch.core.outlier import outlier_count
 from repro_torch.core.policy import CompressionPolicy
+from repro_torch.core.quant import as_dtype
 from repro_torch.kernels.gear_compress import gear_compress
 from repro_torch.models.common import resolve_device
 
 __all__ = [
     "CacheConfig", "GEARLayerCache", "FP16LayerCache", "WindowLayerCache", "NumericFault",
     "init_layer_cache", "prefill_layer_cache", "append_token",
-    "splice_slot", "reset_slot", "tree_finite", "FIELDS",
+    "splice_slot", "reset_slot", "fresh_batch1_cache", "prefill_into_slot", "tree_finite",
+    "FIELDS",
     "streaming_supported", "chunk_prefix_view", "streaming_prefill_layer_cache",
     "PagedGEARLayerCache", "BlockTables", "POOLED_FIELDS", "paged_supported",
     "page_field_shapes", "page_nbytes", "init_paged_layer_cache", "paged_to_dense",
@@ -820,6 +823,37 @@ def reset_slot(cache, slot: int):
         for name, t in part.tensors().items():
             t[slot].fill_(empty.get(name, 0))
     return cache
+
+
+@functools.lru_cache(maxsize=64)
+def _fresh_batch1_cached(cfg1: CacheConfig, dtype: torch.dtype, device: torch.device):
+    return init_layer_cache(cfg1, dtype, device)
+
+
+def fresh_batch1_cache(cfg: CacheConfig, dtype=torch.bfloat16, device=None):
+    """Memoised empty batch-1 layer cache of ``cfg``'s geometry on ``device``
+    (CUDA unless the caller names another): one object per (geometry,
+    dtype, device).  The tree is shared, so callers must not write into it;
+    :func:`prefill_into_slot` fills a copy."""
+    cfg1 = cfg if cfg.batch == 1 else dataclasses.replace(cfg, batch=1)
+    return _fresh_batch1_cached(cfg1, as_dtype(dtype), resolve_device(device))
+
+
+def prefill_into_slot(cfg: CacheConfig, cache, k: torch.Tensor, v: torch.Tensor, slot: int,
+                      key=None, dtype=torch.bfloat16):
+    """Prefill one request's K/V [1, H, n, Dh] into batch row ``slot`` of
+    ``cache`` (in place; returns it): a batch-1 :func:`prefill_layer_cache`
+    on a copy of :func:`fresh_batch1_cache`'s tree on ``k``'s device, then
+    :func:`splice_slot`.  The reference's ``key`` picks the power
+    iteration's start matrix, which here is always its key-0 draw, so only
+    ``key=None`` is taken."""
+    if key is not None:
+        raise ValueError("prefill_into_slot: the port's power iteration starts from the "
+                         "reference's PRNGKey(0) draw; pass key=None")
+    cfg1 = dataclasses.replace(cfg, batch=1)
+    empty = fresh_batch1_cache(cfg1, dtype, k.device)
+    one = dataclasses.replace(empty, **{n: t.clone() for n, t in empty.tensors().items()})
+    return splice_slot(cache, prefill_layer_cache(cfg1, one, k, v), slot)
 
 
 def tree_finite(caches) -> torch.Tensor:

@@ -26,7 +26,8 @@ import pathlib
 import numpy as np
 import torch
 
-__all__ = ["power_iteration", "householder_q", "pi_init", "apply_lowrank"]
+__all__ = ["power_iteration", "householder_q", "pi_init", "apply_lowrank",
+           "lowrank_approx", "svd_topr"]
 
 ORTHONORMALIZERS = ("qr", "mgs")
 
@@ -151,3 +152,22 @@ def power_iteration(x: torch.Tensor, rank: int, iters: int = 4,
 def apply_lowrank(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Materialize ``A @ Bᵀ`` in f32."""
     return a.to(torch.float32) @ b.to(torch.float32).transpose(-1, -2)
+
+
+def lowrank_approx(x: torch.Tensor, rank: int, iters: int = 4, key=None) -> torch.Tensor:
+    """``A @ Bᵀ`` of :func:`power_iteration` on ``x`` [..., n, d], in f32.
+
+    The reference's ``key`` picks its start matrix; here the start is always
+    the reference's key-0 draw (:func:`pi_init`), so only ``key=None`` is
+    taken."""
+    if key is not None:
+        raise ValueError("lowrank_approx: the port's start matrix is the reference's "
+                         "PRNGKey(0) draw (pi_init); pass key=None")
+    return apply_lowrank(*power_iteration(x, rank, iters))
+
+
+def svd_topr(x: torch.Tensor, rank: int) -> torch.Tensor:
+    """Exact best rank-``rank`` approximation of ``x`` [..., n, d] in f32 (an
+    oracle for tests and benchmarks, as in the reference)."""
+    u, s, vh = torch.linalg.svd(x.to(torch.float32), full_matrices=False)
+    return (u[..., :rank] * s[..., None, :rank]) @ vh[..., :rank, :]

@@ -33,6 +33,10 @@ class SparseOutliers:
     d: int
     k: int
 
+    def size_bytes(self) -> int:
+        """Two bytes a kept value and an int32 index, as the reference counts."""
+        return self.values.numel() * 2 + self.indices.numel() * 4
+
 
 def outlier_count(vec_len: int, s: float) -> int:
     """Entries kept per extreme for sparsity fraction ``s`` (e.g. 0.02)."""

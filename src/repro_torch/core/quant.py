@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core import packing
 
-__all__ = ["QuantizedTensor", "quantize", "dequantize", "SCHEMES", "as_dtype"]
+__all__ = ["QuantizedTensor", "quantize", "dequantize", "quant_error", "SCHEMES", "as_dtype"]
 
 SCHEMES = ("per_token_group", "per_channel", "per_token")
 
@@ -50,6 +50,15 @@ class QuantizedTensor:
     group: int
     n: int
     d: int
+
+    @property
+    def nbytes_packed(self) -> int:
+        return self.packed.numel() * 4
+
+    def size_bytes(self) -> int:
+        """Compressed bytes as the reference counts them: int32 codes, and 2
+        bytes for each scale and zero (whatever ``stat_dtype`` holds them)."""
+        return self.nbytes_packed + self.scale.numel() * 2 + self.zero.numel() * 2
 
 
 def _group_minmax(x: torch.Tensor, scheme: str, group: int):
@@ -117,3 +126,10 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     scale = _expand_groups(qt.scale.to(torch.float32), qt.scheme, qt.group, qt.n, qt.d)
     zero = _expand_groups(qt.zero.to(torch.float32), qt.scheme, qt.group, qt.n, qt.d)
     return (codes * scale + zero).to(dtype)
+
+
+def quant_error(x: torch.Tensor, bits: int, scheme: str, group: int | None = None) -> torch.Tensor:
+    """Relative Frobenius error of plain quantization, a 0-d tensor on
+    ``x``'s device (the reference's ``_EPS`` floor on the norm)."""
+    xh = dequantize(quantize(x, bits, scheme, group))
+    return torch.linalg.vector_norm(x - xh) / torch.clamp_min(torch.linalg.vector_norm(x), _EPS)

@@ -1,10 +1,12 @@
 """Public serving API (port of ``repro.serving``, limited to what the port has).
 
-* :class:`Engine` / :class:`EngineConfig`;
+* :class:`Engine` / :class:`EngineConfig` with the typed knobs
+  :class:`AttendPath`, :class:`PrefillMode` and :class:`CacheLayout`
+  (their strings are taken too);
 * :class:`Scheduler` with :class:`Request` / :class:`Result`: wave and
   continuous batching;
-* :class:`DenseCacheView` / :class:`PagedCacheView`, the slot views the
-  scheduler drives;
+* :class:`CacheView` (:class:`DenseCacheView` / :class:`PagedCacheView`),
+  the slot protocol the scheduler drives;
 * the paged pool primitives (:class:`PagePool`, :class:`PagePoolStore`,
   :class:`PoolExhausted`, :class:`PoolSnapshot`, :func:`pages_needed`);
 * the resilience layer: :class:`RequestStatus` / :class:`RetryPolicy` /
@@ -18,19 +20,21 @@
 from repro_torch.core.cache import NumericFault
 from repro_torch.obs import Observability, ObsConfig
 from repro_torch.prefixcache import PrefixSnapshot
-from repro_torch.serving.engine import Engine, EngineConfig, prefix_cache_unsupported_reason
+from repro_torch.serving.engine import (AttendPath, CacheLayout, Engine, EngineConfig,
+                                        PrefillMode, prefix_cache_unsupported_reason)
 from repro_torch.serving.faults import FakeClock, FaultEvent, FaultInjector, InjectedFault
 from repro_torch.serving.pagedpool import (PagePool, PagePoolStore, PoolExhausted,
                                            PoolSnapshot, pages_needed)
 from repro_torch.serving.resilience import AdmissionValve, RequestStatus, RetryPolicy
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.scheduler import Request, Result, Scheduler
-from repro_torch.serving.views import DenseCacheView, PagedCacheView
+from repro_torch.serving.views import CacheView, DenseCacheView, PagedCacheView
 
 __all__ = [
+    "AttendPath", "PrefillMode", "CacheLayout",
     "Engine", "EngineConfig", "prefix_cache_unsupported_reason",
     "Scheduler", "Request", "Result",
-    "DenseCacheView", "PagedCacheView",
+    "CacheView", "DenseCacheView", "PagedCacheView",
     "PagePool", "PagePoolStore", "PoolExhausted", "pages_needed",
     "RequestStatus", "RetryPolicy", "AdmissionValve", "NumericFault",
     "FaultInjector", "FaultEvent", "FakeClock", "InjectedFault",

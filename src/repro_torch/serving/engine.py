@@ -9,8 +9,11 @@ policy, per-token K stats) through the portable ``cache.attend``;
 reference's Pallas interpret lane) raises ``NotImplementedError``: CUDA has
 no interpret mode.  ``prefill_mode`` is "monolithic" or "streaming" (a
 layer the pipeline cannot take prefills monolithically); ``layout`` is
-"dense" or "paged" (the fp16 policy is dense only).  Two batching modes sit on top
-(:mod:`repro_torch.serving.scheduler`): wave mode, where
+"dense" or "paged" (the fp16 policy is dense only).  The three knobs are
+the ``str`` enums :class:`AttendPath`, :class:`PrefillMode` and
+:class:`CacheLayout`; ``EngineConfig`` takes a member or its string and
+stores the member, which compares equal to its string.  Two batching modes
+sit on top (:mod:`repro_torch.serving.scheduler`): wave mode, where
 :meth:`Engine.generate` prefills the whole batch at once and decodes it in
 lockstep (dense layout only), and continuous mode, where the scheduler
 drives :meth:`Engine.decode` step by step and splices each request's
@@ -90,6 +93,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import enum
 import time
 from typing import Any
 
@@ -116,17 +120,50 @@ from repro_torch.serving.pagedpool import PagePool, PagePoolStore, pages_needed
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.views import DenseCacheView, PagedCacheView
 
-__all__ = ["EngineConfig", "Engine", "prefix_cache_unsupported_reason", "PAGED_ON_MESH"]
+__all__ = ["AttendPath", "PrefillMode", "CacheLayout", "EngineConfig", "Engine",
+           "prefix_cache_unsupported_reason", "PAGED_ON_MESH"]
 
-_CHOICES = {
-    "fused": ("auto", "interpret", "off"),
-    "prefill_mode": ("monolithic", "streaming"),
-    "layout": ("dense", "paged"),
+
+class AttendPath(str, enum.Enum):
+    """Decode and prefill attend path: ``AUTO`` takes the kernels where the
+    cache layout has them (their plain versions for CPU tensors), ``OFF``
+    the portable ``cache.attend``.  ``INTERPRET``, the reference's Pallas
+    interpret lane, is refused."""
+    AUTO = "auto"
+    INTERPRET = "interpret"
+    OFF = "off"
+
+    __str__ = str.__str__
+
+
+class PrefillMode(str, enum.Enum):
+    """``MONOLITHIC`` (full-sequence attention, one compression event per
+    layer) or ``STREAMING`` (compress as the chunks close); both build the
+    same caches."""
+    MONOLITHIC = "monolithic"
+    STREAMING = "streaming"
+
+    __str__ = str.__str__
+
+
+class CacheLayout(str, enum.Enum):
+    """``DENSE`` per-slot arrays, or ``PAGED`` pooled chunk pages behind
+    per-slot block tables."""
+    DENSE = "dense"
+    PAGED = "paged"
+
+    __str__ = str.__str__
+
+
+_KNOBS = {
+    "fused": AttendPath,
+    "prefill_mode": PrefillMode,
+    "layout": CacheLayout,
 }
 _NOT_PORTED = {
-    ("fused", "interpret"): "the reference's Pallas interpret lane; CUDA has no interpret "
-                            "mode (CPU tensors take the kernels' plain versions under "
-                            "fused='auto')",
+    AttendPath.INTERPRET: "the reference's Pallas interpret lane; CUDA has no interpret "
+                          "mode (CPU tensors take the kernels' plain versions under "
+                          "fused='auto')",
 }
 
 
@@ -138,8 +175,8 @@ class EngineConfig:
     temperature: float = 0.0
     top_k: int = 0
     eos_id: int = -1               # -1: never stop early
-    fused: str = "auto"
-    prefill_mode: str = "monolithic"
+    fused: AttendPath = AttendPath.AUTO
+    prefill_mode: PrefillMode = PrefillMode.MONOLITHIC
     # the radix trie over compressed chunks (streaming prefill only), its
     # eviction byte budget, TTL in seconds from insert (0: never; hits do
     # not refresh it) and budget-pressure victim policy ("lru" / "lfu");
@@ -149,7 +186,7 @@ class EngineConfig:
     prefix_cache_ttl: float = 0.0
     prefix_cache_eviction: str = "lru"
     numeric_guard: bool = True
-    layout: str = "dense"
+    layout: CacheLayout = CacheLayout.DENSE
     # paged pool sizing, at most one of the two: ``pool_pages`` counts the
     # zero page; ``pool_bytes`` is a device byte budget (pages = pool_bytes
     # // page_bytes + 1); both 0 give batch * n_chunks allocatable pages
@@ -168,13 +205,16 @@ class EngineConfig:
                 object.__setattr__(self, "obs", ObsConfig(**self.obs))
             else:
                 raise ValueError(f"obs must be an ObsConfig, bool, or dict, got {self.obs!r}")
-        for knob, options in _CHOICES.items():
+        for knob, cls in _KNOBS.items():
             value = str(getattr(self, knob))
-            if value not in options:
-                raise ValueError(f"{knob} must be {'/'.join(options)}, got {value!r}")
-            if (knob, value) in _NOT_PORTED:
-                raise NotImplementedError(f"{knob}={value!r}: {_NOT_PORTED[knob, value]}")
-            object.__setattr__(self, knob, value)
+            try:
+                member = cls(value)
+            except ValueError:
+                options = "/".join(m.value for m in cls)
+                raise ValueError(f"{knob} must be {options}, got {value!r}") from None
+            if member in _NOT_PORTED:
+                raise NotImplementedError(f"{knob}={value!r}: {_NOT_PORTED[member]}")
+            object.__setattr__(self, knob, member)
         if self.prefix_cache and self.prefill_mode != "streaming":
             raise ValueError(
                 "prefix_cache requires prefill_mode='streaming': the hit "

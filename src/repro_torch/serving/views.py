@@ -1,17 +1,52 @@
 """Slot-view facade over the engine's cache tree (port of
-``repro.serving.views``' ``DenseCacheView`` and ``PagedCacheView``).
+``repro.serving.views``).
 
 A view owns one live cache tree (a list of per-layer caches) and wraps the
 engine's slot protocol, the admission question, the reclaim valve and the
 invariant audit, so the scheduler never threads raw caches and works the
-same for both layouts.
+same for both layouts.  :class:`CacheView` is the protocol;
+:class:`DenseCacheView` and :class:`PagedCacheView` implement it.
 """
 
 from __future__ import annotations
 
+from typing import Any, Protocol, runtime_checkable
+
 from repro_torch.serving.pagedpool import pages_needed
 
-__all__ = ["DenseCacheView", "PagedCacheView"]
+__all__ = ["CacheView", "DenseCacheView", "PagedCacheView"]
+
+
+@runtime_checkable
+class CacheView(Protocol):
+    """One live cache tree and the slot protocol the scheduler drives."""
+
+    caches: Any
+
+    def can_admit(self, n_tokens: int) -> bool:
+        """Would a request whose lifetime holds ``n_tokens`` be admitted now?"""
+        ...
+
+    def prefill_slot(self, batch1: dict, slot: int, admit: bool = True,
+                     reserve_tokens: int | None = None):
+        """Prefill one raw-length prompt into ``slot``; returns its
+        last-position logits."""
+        ...
+
+    def reset_slot(self, slot: int) -> None: ...
+
+    def decode(self, token_batch: dict, pos):
+        """One decode step over all slots; returns logits."""
+        ...
+
+    def reclaim(self, n_tokens: int) -> bool:
+        """Try to free enough backing store to admit ``n_tokens``; True if
+        ``can_admit`` now holds."""
+        ...
+
+    def audit(self) -> dict:
+        """Backing-store invariant report ``{"ok", "issues", ...}``; never raises."""
+        ...
 
 
 class _ViewBase:

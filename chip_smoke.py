@@ -112,6 +112,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
     ``gear_decode`` launches per step and no other kernel, no
     ``torch.distributed`` collective called; decode tok/s and peak memory
     beside path 1's (its launcher run is in phase 21);
+10.2. sampled serving on path 1's model: on one live decode step's
+    final-position logits [4, 32000] of path 1 (decode step 40), the
+    reference's ``jax.random`` stream drawn on the card
+    (``repro_torch.core.prng``) equals the CPU's bit for bit in ``bits``
+    (``gumbel`` reported), and ``sample`` at temperature 0.8 with ``top_k``
+    0 and 40 gives the CPU sampler's ids on the same logits, except rows
+    whose two best perturbed scores lie within ``SAMPLE_MARGIN`` (counted);
+    the sampler's kernel launches and device time a call (one call a decode
+    step); then path 29's 4 requests x 16 tokens through a second
+    ``Engine`` over path 1's model (no new weights) at temperature 0.8,
+    ``top_k`` 40: every request ``OK``, its full budget, ids in the
+    vocabulary, path 1's kernels on the path;
 11. serving, path 2: the same requests through llama2-7b at all its 32
     layers with ``prefill_mode="streaming", layout="paged"`` and a pool of
     two thirds of the dense-equivalent pages, so that a decode step runs
@@ -336,7 +348,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
     and on V, ``bench_ablation.py``'s Fig. 4a variants (sparsity 0 / 0.01 /
     0.02 / 0.05 at rank 4, rank 0 / 2 / 4 / 8 at 2%), kivi2's
     ``quant_error``, and ``lowrank_approx`` against ``svd_topr`` on kivi2's
-    K residual with its top-8 singular values over the first (Fig. 2b), on
+    K residual with its top-8 singular values over the first (Fig. 2b), and
+    (no shipped config has them) gear_kcvt4's ``approx_error`` of K at head
+    dims 80 and 96 and ``lowrank_approx`` at rank 3, on
     the card against the CPU port: each within 1e-3, each ``size_bytes``
     equal, each card ``approx_error`` call timed; the orderings that
     ``bench_error.py`` asserts are printed, not gated (the data are
@@ -2021,6 +2035,7 @@ def serving(model, params, cfg, layers: int, flush, reports: dict) -> dict:
     from repro_torch.core.policy import named_policy
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import gear_decode_ref
+    from repro_torch.serving import scheduler as scheduler_mod
     from repro_torch.serving.engine import Engine, EngineConfig
 
     pol = named_policy("gear_kcvt4")
@@ -2030,8 +2045,12 @@ def serving(model, params, cfg, layers: int, flush, reports: dict) -> dict:
     # and (path 10b) its gear_attend output against the portable attend
     cap = Capture(ops, "gear_decode", 40 * layers)
     att = CallCheck(ops, "gear_attend", 40 * layers, portable_attend_check)
+    # the scheduler's sample call of that step (after the 4 admissions'):
+    # its final-position logits, for phase 10.2
+    smp = Capture(scheduler_mod, "sample", B_SERVE + 40)
     LIVE["path1"] = {}
-    summary = drive(eng, cfg, requests(cfg), [cap, att], keep=LIVE["path1"])
+    summary = drive(eng, cfg, requests(cfg), [cap, att, smp], keep=LIVE["path1"])
+    LIVE["path1_logits"] = smp.args[0]
     launches, steps = summary["launches"], summary["decode_steps"]
     if launches["flash_prefill"] != N_REQUESTS * layers:
         fail(f"flash_prefill launches {launches['flash_prefill']} != 8 prefills x {layers}")
@@ -2140,6 +2159,98 @@ def serving_mesh(model, params, cfg, layers: int, flush, reports: dict, path1: d
         fail(f"path 29: requests {mismatch} leave path 1's tokens")
     record_launches(reports, "mesh_dense", launches)
     summary.update(layers=layers, collectives=coll.calls, shared_params=shared)
+    return summary
+
+
+SAMPLE_TEMPERATURE = 0.8      # phase 10.2
+SAMPLED_TOKENS = 16           # phase 10.2: new tokens of each of path 29's 4 requests
+# phase 10.2: card and CPU samplers on the same logits may pick other ids only
+# where the two best perturbed scores lie this close (the card's f32 division
+# by the temperature is IEEE, as the CPU's: none expected)
+SAMPLE_MARGIN = 1e-5
+
+
+def device_launches(fn, iters: int = 5) -> dict:
+    """CUDA kernels and copies a call of ``fn`` launches (a ``torch.profiler``
+    window of ``iters`` calls): {"kernels": n, "copies": n} per call."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {"kernels": 0, "copies": 0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out["copies" if e.key.startswith(("Memcpy", "Memset")) else "kernels"] += e.count
+    return {k: n / iters for k, n in out.items()}
+
+
+def serving_sampled(model, params, cfg, layers: int, flush, path29: dict) -> dict:
+    """Phase 10.2: the sampler on the card against the CPU's on path 1's
+    live logits, then path 29's requests sampled (module docstring)."""
+    from repro_torch.core import prng
+    from repro_torch.core.policy import named_policy
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.sampling import sample
+
+    lg = LIVE["path1_logits"]
+    if tuple(lg.shape) != (B_SERVE, cfg.vocab_size) or lg.device.type != DEV.type:
+        fail(f"path 1's captured logits are {tuple(lg.shape)} on {lg.device}")
+    key = prng.fold_in(prng.PRNGKey(0), 40)          # a key of the stream, folded as serving does
+    lg_cpu = lg.cpu()
+    bits_equal = torch.equal(prng.bits(key, lg.shape, DEV).cpu(), prng.bits(key, lg.shape))
+    g_card, g_cpu = prng.gumbel(key, lg.shape, DEV).cpu(), prng.gumbel(key, lg.shape)
+    g_ulps = int((g_card.view(torch.int32).long() - g_cpu.view(torch.int32).long()).abs().max())
+    print(f"  bits {tuple(lg.shape)} on the card equal to the CPU's: {bits_equal}; gumbel: "
+          f"{torch.equal(g_card, g_cpu)} (largest gap {g_ulps} ulps)")
+    if not bits_equal:
+        fail("the card's threefry bits differ from the CPU's")
+    out = {"bits_equal": bits_equal, "gumbel_max_ulps": g_ulps}
+    for top_k in (0, 40):
+        got = sample(lg, key, SAMPLE_TEMPERATURE, top_k).cpu()
+        want = sample(lg_cpu, key, SAMPLE_TEMPERATURE, top_k)
+        scores = lg_cpu / SAMPLE_TEMPERATURE
+        if top_k:
+            kth = torch.topk(scores, top_k, dim=-1).values[..., -1:]
+            scores = torch.where(scores < kth, torch.full_like(scores, -1e30), scores)
+        top2 = torch.topk(scores + g_cpu, 2, dim=-1).values
+        near = (top2[:, 0] - top2[:, 1]) <= SAMPLE_MARGIN
+        bad = (got != want) & ~near
+        launches = device_launches(lambda: sample(lg, key, SAMPLE_TEMPERATURE, top_k))
+        ms = time_ms(lambda: sample(lg, key, SAMPLE_TEMPERATURE, top_k), 20, flush)
+        print(f"  sample top_k={top_k}: card ids {got.tolist()}, CPU ids {want.tolist()} "
+              f"({int(near.sum())} rows within the margin {SAMPLE_MARGIN}); "
+              f"{launches['kernels']:g} kernels + {launches['copies']:g} copies a call, "
+              f"{ms:.4f} ms device time a call")
+        if bad.any():
+            fail(f"sample top_k={top_k}: card {got.tolist()} against the CPU's {want.tolist()}")
+        out[f"top_k{top_k}"] = {"ids_equal": bool((got == want).all()),
+                                "rows_in_margin": int(near.sum()), "ms": ms, **launches}
+
+    pol = named_policy("gear_kcvt4")
+    eng = Engine(model, params, EngineConfig(batch=B_SERVE, capacity=CAP_SERVE, policy=pol,
+                                             temperature=SAMPLE_TEMPERATURE, top_k=40),
+                 device=DEV)
+    keep = {}
+    summary = drive(eng, cfg, requests(cfg)[:MESH_REQUESTS], [], SAMPLED_TOKENS, keep=keep)
+    launches, steps = summary["launches"], summary["decode_steps"]
+    if launches["flash_prefill"] != MESH_REQUESTS * layers or \
+            launches["gear_decode"] < steps * layers:
+        fail(f"sampled run: launches {launches} over {steps} steps")
+    greedy = LIVE["path1"]["results"]
+    same = sum(int(np.array_equal(r.tokens, greedy[rid].tokens[:SAMPLED_TOKENS]))
+               for rid, r in keep["results"].items())
+    print(f"  sampled run: {MESH_REQUESTS} requests OK, {SAMPLED_TOKENS} ids each in the "
+          f"vocabulary; sampler {out['top_k40']['kernels']:g} kernel launches a decode step "
+          f"({out['top_k40']['ms']:.4f} ms device time); decode "
+          f"{summary['decode_tok_per_s']:.1f} tok/s (path 29, greedy: "
+          f"{path29['decode_tok_per_s']:.1f}); {same} of {MESH_REQUESTS} requests equal to "
+          f"their greedy tokens; {smi()}")
+    summary.update(out, layers=layers, temperature=SAMPLE_TEMPERATURE, top_k=40)
     return summary
 
 
@@ -3849,6 +3960,7 @@ ERROR_TABLE_ATOL = 1e-3
 # benchmarks/bench_error.py's METHODS_2BIT + METHODS_4BIT
 ERROR_METHODS = ("per_token_q2", "kivi2", "outlier_kivi2", "gear_l_kivi2", "gear_kivi2",
                  "per_token_q4", "kcvt4", "kivi4", "gear_l_kcvt4", "gear_kcvt4")
+ERROR_HEAD_DIMS = (80, 96)    # approx_error at head dims no shipped config has
 
 
 def zero_launches() -> dict:
@@ -4390,7 +4502,9 @@ def error_table(g: torch.Generator) -> dict:
     variants on its input, kivi2's ``quant_error``, and on kivi2's K
     residual ``lowrank_approx`` and ``svd_topr`` at rank 4 (their relative
     errors) and the top-8 singular values over the first of head 0 (Fig.
-    2b).  Every gap within ``ERROR_TABLE_ATOL``."""
+    2b); gear_kcvt4's K at head dims 80 and 96 and ``lowrank_approx`` at
+    rank 3 (shapes no shipped config has).  Every gap within
+    ``ERROR_TABLE_ATOL``."""
     from repro_torch.core import gear, lowrank, quant
     from repro_torch.core.policy import named_policy
 
@@ -4398,10 +4512,14 @@ def error_table(g: torch.Generator) -> dict:
     x = kv_like(g, shape)
     x4a = (kv_like(g, shape, outlier_p=0.003, outlier_scale=5.0, corr_rank=8)
            + 2.0 * kv_like(g, shape, outlier_p=0.0, corr_rank=4))
-    card = {"x": x.to(DEV), "x4a": x4a.to(DEV)}
     cpu = {"x": x, "x4a": x4a}
+    for d in ERROR_HEAD_DIMS:
+        cpu[f"x{d}"] = kv_like(g, shape[:-1] + (d,))
+    card = {name: t.to(DEV) for name, t in cpu.items()}
     cases = {f"{name}/{kind}": ("x", named_policy(name), kind)
              for name in ERROR_METHODS for kind in ("k", "v")}
+    cases.update({f"gear_kcvt4/k d={d}": (f"x{d}", named_policy("gear_kcvt4"), "k")
+                  for d in ERROR_HEAD_DIMS})
     base = named_policy("gear_kivi2")
     for sp in (0.0, 0.01, 0.02, 0.05):
         pol = dc.replace(base, sparsity=max(sp, 1e-9), method="gear" if sp > 0 else "gear_l")
@@ -4431,6 +4549,9 @@ def error_table(g: torch.Generator) -> dict:
               f"{k['ms']:.1f} / {v['ms']:.1f} ms a call (host clock)")
     print("  fig4a " + "; ".join(f"{lb[6:]} {r['err']:.4f} (gap {r['gap']:.1e}, {r['ms']:.1f} ms)"
                                  for lb, r in rows.items() if lb.startswith("fig4a")))
+    print("  head dims no config has: " + "; ".join(
+        f"{lb} {r['err']:.4f} (gap {r['gap']:.1e}, {r['bytes']} B, {r['ms']:.1f} ms)"
+        for lb, r in rows.items() if " d=" in lb))
     if not sizes_equal:
         fail("size_bytes of a compressed matrix on the card differs from the CPU port's")
     e = {name: rows[f"{name}/k"]["err"] for name in ERROR_METHODS}
@@ -4453,11 +4574,13 @@ def error_table(g: torch.Generator) -> dict:
         sv = torch.linalg.svdvals(resid[0, 0])
         return {"lowrank_approx r=4": float(torch.linalg.vector_norm(
                     resid - lowrank.lowrank_approx(resid, 4)) / norm),
+                "lowrank_approx r=3": float(torch.linalg.vector_norm(
+                    resid - lowrank.lowrank_approx(resid, 3)) / norm),
                 "svd_topr r=4": float(torch.linalg.vector_norm(
                     resid - lowrank.svd_topr(resid, 4)) / norm),
                 "spectrum": (sv[:8] / sv[0]).cpu()}
     want, got = residual_errors(cpu["x"]), residual_errors(card["x"])
-    for key in ("lowrank_approx r=4", "svd_topr r=4"):
+    for key in ("lowrank_approx r=4", "lowrank_approx r=3", "svd_topr r=4"):
         extra[key] = (got[key], abs(got[key] - want[key]))
     spectrum_gap = float((got["spectrum"] - want["spectrum"]).abs().max())
     extra["spectrum top8"] = (got["spectrum"].tolist(), spectrum_gap)
@@ -4639,6 +4762,12 @@ def main() -> int:
                   f"first {MESH_REQUESTS} requests (its launcher run is in phase 21)")
             summaries["mesh_dense"] = serving_mesh(*built_models[layers], layers, flush,
                                                    reports, summaries[key])
+            phase(f"[10.2] sampled serving: the jax.random stream on the card against the CPU's "
+                  f"on path 1's live logits, sample at temperature {SAMPLE_TEMPERATURE}, then path "
+                  f"29's {MESH_REQUESTS} requests x {SAMPLED_TOKENS} tokens sampled on path 1's "
+                  f"llama2-7b (depth {layers})")
+            summaries["sampled_dense"] = serving_sampled(*built_models[layers], layers, flush,
+                                                         summaries["mesh_dense"])
     built_models.clear()                  # free llama2-7b before hymba's peak is read
     torch.cuda.empty_cache()
 
@@ -4667,7 +4796,7 @@ def main() -> int:
     phase(f"[16] serving llama2-7b, gear_kcvt4, wave mode (Scheduler.run: monolithic prefill of "
           f"each wave at batch {B_SERVE}, dense layout), depth {wave_layers} (cut from "
           f"{full.num_layers} to make room for path 29, which took "
-          f"{PHASE_S['[11]'] - PHASE_S['[10.1]']:.1f} s)")
+          f"{PHASE_S['[10.2]'] - PHASE_S['[10.1]']:.1f} s)")
     built_models[wave_layers] = build(dc.replace(full, num_layers=wave_layers), full.num_layers)
     summaries["wave_dense"] = serving_wave(*built_models[wave_layers], wave_layers, flush,
                                            reports)

@@ -8,10 +8,8 @@ each rank unit goes to the head whose next singular value removes the most
 energy.  Storage stays static-shaped (factors padded to ``max_rank`` columns,
 those past a head's rank zeroed), and the budget equals uniform rank's.
 
-Where the reference takes a PRNG ``key`` for the power iteration's start
-matrix, the port takes ``init``: a function ``(d, r) -> [d, r]`` f32 start
-matrix; None is the reference's ``PRNGKey(0)`` draw
-(:func:`repro_torch.core.lowrank.pi_init`, a table).
+``key`` picks the power iteration's start matrix, the reference's draw
+(:func:`repro_torch.core.lowrank.pi_init`; None: ``PRNGKey(0)``).
 ``adaptive_error_vs_uniform`` is the evaluation entry point of
 ``benchmarks/bench_adaptive.py``.
 """
@@ -23,10 +21,6 @@ import torch
 from repro_torch.core import lowrank
 
 __all__ = ["allocate_ranks", "adaptive_lowrank", "adaptive_error_vs_uniform"]
-
-
-def _start(init, d: int, r: int):
-    return None if init is None else init(d, r)
 
 
 def _head_spectra(resid: torch.Tensor, max_rank: int) -> torch.Tensor:
@@ -51,7 +45,7 @@ def allocate_ranks(spectra: torch.Tensor, budget: int) -> torch.Tensor:
 
 
 def adaptive_lowrank(resid: torch.Tensor, avg_rank: int, max_rank: int | None = None,
-                     iters: int = 6, init=None):
+                     iters: int = 6, key=None):
     """Per-head factors under a shared budget.  resid [H, n, d].
 
     Returns (A [H, n, max_rank], B [H, d, max_rank], ranks [H]); columns past
@@ -59,20 +53,18 @@ def adaptive_lowrank(resid: torch.Tensor, avg_rank: int, max_rank: int | None = 
     H, n, d = resid.shape
     max_rank = max_rank or min(4 * avg_rank, n, d)
     ranks = allocate_ranks(_head_spectra(resid, max_rank), budget=avg_rank * H)
-    a, b = lowrank.power_iteration(resid, max_rank, iters=iters,
-                                   init=_start(init, d, max_rank))
+    a, b = lowrank.power_iteration(resid, max_rank, iters=iters, key=key)
     mask = (torch.arange(max_rank, device=a.device)[None, :] < ranks[:, None]).to(a.dtype)
     return a * mask[:, None, :], b * mask[:, None, :], ranks
 
 
-def adaptive_error_vs_uniform(resid: torch.Tensor, rank: int, init=None) -> dict:
+def adaptive_error_vs_uniform(resid: torch.Tensor, rank: int, key=None) -> dict:
     """Relative Frobenius error of uniform rank-``rank`` factors and of
     adaptive ones at the same budget."""
-    H, n, d = resid.shape
     base = torch.linalg.vector_norm(resid.to(torch.float32))
-    a_u, b_u = lowrank.power_iteration(resid, rank, iters=6, init=_start(init, d, rank))
+    a_u, b_u = lowrank.power_iteration(resid, rank, iters=6, key=key)
     err_u = torch.linalg.vector_norm(resid - lowrank.apply_lowrank(a_u, b_u)) / base
-    a_a, b_a, ranks = adaptive_lowrank(resid, avg_rank=rank, init=init)
+    a_a, b_a, ranks = adaptive_lowrank(resid, avg_rank=rank, key=key)
     err_a = torch.linalg.vector_norm(resid - lowrank.apply_lowrank(a_a, b_a)) / base
     return {"uniform": float(err_u), "adaptive": float(err_a),
             "ranks": [int(r) for r in ranks]}

@@ -253,17 +253,20 @@ def init_layer_cache(cfg: CacheConfig, dtype=torch.bfloat16, device=None):
 # Compression of chunk batches
 
 
-def _compress_chunks(cfg: CacheConfig, k: torch.Tensor, v: torch.Tensor, rank: int) -> dict:
+def _compress_chunks(cfg: CacheConfig, k: torch.Tensor, v: torch.Tensor, rank: int,
+                     key=None) -> dict:
     """Compress ``k``/``v`` [B, H, C', nb, Dh] -> dict of per-chunk arrays.
 
     The reference's ``fused="off"`` branch (plain ``compress_matrix``) — the
     one monolithic prefill and the decode chunk close take.  Low-rank
-    factors are zero-padded to ``policy.rank`` columns.
+    factors are zero-padded to ``policy.rank`` columns.  ``key`` picks the
+    power iteration's start matrix (None: the reference's ``PRNGKey(0)``),
+    the same for K and V, as the reference's.
     """
     pol = cfg.policy
     out = {}
     for name, x in (("k", k), ("v", v)):
-        cm = gear_lib.compress_matrix(x, pol, name, rank=rank)
+        cm = gear_lib.compress_matrix(x, pol, name, rank=rank, key=key)
         out[f"{name}_packed"] = cm.qt.packed
         out[f"{name}_scale"] = cm.qt.scale.to(torch.bfloat16)
         out[f"{name}_zero"] = cm.qt.zero.to(torch.bfloat16)
@@ -278,7 +281,7 @@ def _compress_chunks(cfg: CacheConfig, k: torch.Tensor, v: torch.Tensor, rank: i
 
 
 def _compress_chunks_fused(cfg: CacheConfig, k: torch.Tensor, v: torch.Tensor,
-                           rank: int) -> dict:
+                           rank: int, key=None) -> dict:
     """Fused-kernel twin of :func:`_compress_chunks` (same output layout):
     one ``gear_compress`` launch for all of K's B*H*C' tiles, one for V's,
     then one batched power iteration per tensor on the kernel's residuals.
@@ -299,7 +302,8 @@ def _compress_chunks_fused(cfg: CacheConfig, k: torch.Tensor, v: torch.Tensor,
         out[f"{name}_scale"] = scale.reshape(lead + tuple(scale.shape[1:])).to(torch.bfloat16)
         out[f"{name}_zero"] = zero.reshape(lead + tuple(zero.shape[1:])).to(torch.bfloat16)
         if pol.use_lowrank:
-            a, b = lr_lib.power_iteration(resid.reshape(lead + (nb, Dh)), rank, pol.power_iters)
+            a, b = lr_lib.power_iteration(resid.reshape(lead + (nb, Dh)), rank,
+                                          pol.power_iters, key)
             pad = pol.rank - rank
             out[f"{name}_a"] = torch.nn.functional.pad(a.to(torch.bfloat16), (0, pad))
             out[f"{name}_b"] = torch.nn.functional.pad(b.to(torch.bfloat16), (0, pad))
@@ -345,10 +349,12 @@ def _store_chunks(cfg: CacheConfig, cache: GEARLayerCache, comp: dict,
                 getattr(cache, f"{kv}_sp_idx")[rows, :, chunk0:chunk0 + n_chunks] = si
 
 
-def prefill_layer_cache(cfg: CacheConfig, cache, k: torch.Tensor, v: torch.Tensor):
+def prefill_layer_cache(cfg: CacheConfig, cache, k: torch.Tensor, v: torch.Tensor,
+                        key=None):
     """Fill a fresh layer cache from prefill K/V [B, H, n, Dh]: an FP16 cache
     takes them whole, a window ring its last ``window`` tokens, a GEAR
-    cache compresses every closed chunk.
+    cache compresses every closed chunk (the power iteration starting from
+    ``key``'s draw; None: ``PRNGKey(0)``'s).
 
     Writes into ``cache`` in place (the reference builds a new tree) and
     returns it.
@@ -379,7 +385,7 @@ def prefill_layer_cache(cfg: CacheConfig, cache, k: torch.Tensor, v: torch.Tenso
         # f32 compression inputs (exact widening of bf16 K/V), as the reference
         kc = k[:, :, :n_full].reshape(B, H, C_new, nb, Dh).to(torch.float32)
         vc = v[:, :, :n_full].reshape(B, H, C_new, nb, Dh).to(torch.float32)
-        comp = _compress_chunks(cfg, kc, vc, cfg.policy.rank)
+        comp = _compress_chunks(cfg, kc, vc, cfg.policy.rank, key)
         _store_chunks(cfg, cache, comp, slice(None), C_new, 0)
     rem = n - n_full
     if rem:
@@ -411,7 +417,7 @@ def _append_rows(cfg: CacheConfig, cache, k_t: torch.Tensor, v_t: torch.Tensor) 
 
 
 def append_token(cfg: CacheConfig, cache, k_t: torch.Tensor, v_t: torch.Tensor,
-                 lengths: np.ndarray):
+                 lengths: np.ndarray, key=None):
     """Append one token's K/V [B, H, Dh] per slot; compress full buffers.
 
     An FP16 or window cache writes the token uncompressed
@@ -421,7 +427,8 @@ def append_token(cfg: CacheConfig, cache, k_t: torch.Tensor, v_t: torch.Tensor,
     buffer row ``length % n_b`` and advances; a slot whose buffer just
     filled (and whose chunk fits the capacity) gets its chunk compressed
     and written to its chunk slot, alone, at batch 1, so its compression
-    never depends on what else shares the batch.  Slots not at a boundary
+    never depends on what else shares the batch (its start matrix is
+    ``key``'s, the same for every slot and step).  Slots not at a boundary
     write nothing else, as the reference's dropped scatter.  All writes are
     in place.
     """
@@ -443,7 +450,7 @@ def append_token(cfg: CacheConfig, cache, k_t: torch.Tensor, v_t: torch.Tensor,
         cidx = int(new[b] - 1) // nb
         kc = cache.buf_k[b:b + 1, :, None].to(torch.float32)          # [1, H, 1, nb, Dh]
         vc = cache.buf_v[b:b + 1, :, None].to(torch.float32)
-        comp = _compress_chunks(cfg, kc, vc, cfg.policy.rank_decode)
+        comp = _compress_chunks(cfg, kc, vc, cfg.policy.rank_decode, key)
         _store_chunks(cfg, cache, comp, slice(b, b + 1), 1, cidx)   # in place
     return cache
 
@@ -486,7 +493,7 @@ def chunk_prefix_view(cfg: CacheConfig, cache: GEARLayerCache, n_chunks: int) ->
 
 
 def streaming_prefill_pipeline(cfg: CacheConfig, cache: GEARLayerCache, n: int, q_heads: int,
-                               project, scale: float, *, start_chunk: int = 0,
+                               project, scale: float, *, key=None, start_chunk: int = 0,
                                tail_is_padded: bool = False, true_n: int | None = None):
     """Shared body of the streaming chunked prefill (port of the
     reference's ``streaming_prefill_pipeline``).
@@ -498,7 +505,8 @@ def streaming_prefill_pipeline(cfg: CacheConfig, cache: GEARLayerCache, n: int, 
     f32 tile buffer [B, H, C', n_b, Dh] each (its Q into [B, H, C', G, n_b,
     Dh]).  Those buffers are the compression input, so every closed chunk
     is compressed in one fused event (:func:`_compress_chunks_fused`: one
-    ``gear_compress`` launch for K, one for V), and the attention input, so
+    ``gear_compress`` launch for K, one for V, the power iteration from
+    ``key``'s start matrix), and the attention input, so
     each chunk's queries attend the compressed history before it plus the
     chunk itself.  The leftover tokens form one more, zero-padded block that
     attends the same way and lands in the FP16 buffer; every block goes
@@ -561,7 +569,8 @@ def streaming_prefill_pipeline(cfg: CacheConfig, cache: GEARLayerCache, n: int, 
         qt[:, :, C_new, :, :rem] = q_c.reshape(B, H, G, rem, Dh)
         qt[:, :, C_new, :, rem:] = 0.0
     if C_new:
-        comp = _compress_chunks_fused(cfg, kt[:, :, :C_new], vt[:, :, :C_new], cfg.policy.rank)
+        comp = _compress_chunks_fused(cfg, kt[:, :, :C_new], vt[:, :, :C_new], cfg.policy.rank,
+                                      key)
         _store_chunks(cfg, cache, comp, slice(None), C_new, start_chunk)
     # every block, the tail too, in one ops.gear_attend_block call
     out = ops.gear_attend_block(cfg, cache, qt, kt, vt,
@@ -578,7 +587,7 @@ def streaming_prefill_pipeline(cfg: CacheConfig, cache: GEARLayerCache, n: int, 
 
 def streaming_prefill_layer_cache(cfg: CacheConfig, cache: GEARLayerCache, q: torch.Tensor,
                                   k: torch.Tensor, v: torch.Tensor, scale: float, *,
-                                  start_chunk: int = 0, tail_is_padded: bool = False,
+                                  key=None, start_chunk: int = 0, tail_is_padded: bool = False,
                                   true_n: int | None = None):
     """Streaming chunked prefill over precomputed q [B, Hq, n, Dh] and k, v
     [B, H, n, Dh], sliced per chunk into :func:`streaming_prefill_pipeline`
@@ -588,7 +597,7 @@ def streaming_prefill_layer_cache(cfg: CacheConfig, cache: GEARLayerCache, q: to
     return streaming_prefill_pipeline(
         cfg, cache, q.shape[2], q.shape[1],
         lambda t0, t1: (q[:, :, t0:t1], k[:, :, t0:t1], v[:, :, t0:t1]), scale,
-        start_chunk=start_chunk, tail_is_padded=tail_is_padded, true_n=true_n)
+        key=key, start_chunk=start_chunk, tail_is_padded=tail_is_padded, true_n=true_n)
 
 
 # ---------------------------------------------------------------------------
@@ -843,17 +852,12 @@ def prefill_into_slot(cfg: CacheConfig, cache, k: torch.Tensor, v: torch.Tensor,
                       key=None, dtype=torch.bfloat16):
     """Prefill one request's K/V [1, H, n, Dh] into batch row ``slot`` of
     ``cache`` (in place; returns it): a batch-1 :func:`prefill_layer_cache`
-    on a copy of :func:`fresh_batch1_cache`'s tree on ``k``'s device, then
-    :func:`splice_slot`.  The reference's ``key`` picks the power
-    iteration's start matrix, which here is always its key-0 draw, so only
-    ``key=None`` is taken."""
-    if key is not None:
-        raise ValueError("prefill_into_slot: the port's power iteration starts from the "
-                         "reference's PRNGKey(0) draw; pass key=None")
+    under ``key`` on a copy of :func:`fresh_batch1_cache`'s tree on ``k``'s
+    device, then :func:`splice_slot`."""
     cfg1 = dataclasses.replace(cfg, batch=1)
     empty = fresh_batch1_cache(cfg1, dtype, k.device)
     one = dataclasses.replace(empty, **{n: t.clone() for n, t in empty.tensors().items()})
-    return splice_slot(cache, prefill_layer_cache(cfg1, one, k, v), slot)
+    return splice_slot(cache, prefill_layer_cache(cfg1, one, k, v, key), slot)
 
 
 def tree_finite(caches) -> torch.Tensor:
@@ -1070,9 +1074,9 @@ def zero_pool_pages(cfg: CacheConfig, pcache: PagedGEARLayerCache,
 
 def append_token_paged(cfg: CacheConfig, pcache: PagedGEARLayerCache, block_tables: np.ndarray,
                        k_t: torch.Tensor, v_t: torch.Tensor,
-                       lengths: np.ndarray) -> PagedGEARLayerCache:
+                       lengths: np.ndarray, key=None) -> PagedGEARLayerCache:
     """Paged twin of :func:`append_token`: the same buffer writes and the same
-    batch-1 chunk compression, stored into the slot's page for that chunk
+    batch-1 chunk compression (under ``key``), stored into the slot's page for that chunk
     (``block_tables`` is the host mirror [B, C]).  A slot whose table names
     page 0 there (an idle slot, or a chunk past its reservation) drops the
     write, so the zero page is never touched.  All writes are in place."""
@@ -1093,7 +1097,7 @@ def append_token_paged(cfg: CacheConfig, pcache: PagedGEARLayerCache, block_tabl
             continue
         comp = _compress_chunks(cfg, pcache.buf_k[b:b + 1, :, None].to(torch.float32),
                                 pcache.buf_v[b:b + 1, :, None].to(torch.float32),
-                                cfg.policy.rank_decode)
+                                cfg.policy.rank_decode, key)
         for field in _chunk_row_axes(cfg):
             pool = getattr(pcache, field)
             pool[page] = comp[field].reshape(pool.shape[1:])

@@ -40,9 +40,10 @@ class CompressedMatrix:
 
 
 def compress_matrix(x: torch.Tensor, policy: CompressionPolicy, kind: str,
-                    rank: int | None = None) -> CompressedMatrix:
+                    rank: int | None = None, key=None) -> CompressedMatrix:
     """Compress ``x`` [..., n, d] as the ``kind`` ('k' or 'v') cache tensor;
-    leading dims are independent matrices."""
+    leading dims are independent matrices.  ``key`` picks the power
+    iteration's start matrix (None: the reference's ``PRNGKey(0)``)."""
     if policy.is_fp16:
         raise ValueError("fp16 policy has no compressed representation")
     scheme, group = policy.scheme_for(kind)
@@ -58,7 +59,7 @@ def compress_matrix(x: torch.Tensor, policy: CompressionPolicy, kind: str,
         resid = x.to(torch.float32) - q.dequantize(qt)
         if sparse is not None:
             resid = resid - ol.densify(sparse)
-        a, b = lr.power_iteration(resid, r, policy.power_iters)
+        a, b = lr.power_iteration(resid, r, policy.power_iters, key)
         a = a.to(torch.bfloat16)
         b = b.to(torch.bfloat16)
     return CompressedMatrix(qt=qt, sparse=sparse, a=a, b=b)

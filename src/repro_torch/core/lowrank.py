@@ -4,11 +4,10 @@ Port of ``repro.core.lowrank.power_iteration``: alternating ``A = X B`` /
 ``B = Xᵀ A`` sweeps with a QR orthonormalization on the final sweep,
 batched over leading dims (the paper's head-wise decomposition).
 
-The reference seeds ``B`` with ``jax.random.normal(PRNGKey(0), (d, rank))``,
-broadcast over the batch, and every caller on the serving path passes key 0.
-Torch cannot reproduce that draw, so the package ships the reference's draws
-as a table (``_pi_init.npz``, keyed by ``(d, rank)``); an unknown shape
-raises rather than drawing from torch.
+The reference seeds ``B`` with ``jax.random.normal(key, (d, rank))``
+(``key`` defaults to ``PRNGKey(0)``, which every caller on the serving path
+takes), broadcast over the batch.  :func:`pi_init` draws the same values, bit
+for bit, with :mod:`repro_torch.core.prng`, for any shape and key.
 
 The QR is :func:`householder_q`, batched Householder with LAPACK's sign
 conventions, on every device; it agrees with LAPACK's Q to rounding.  ``A·Bᵀ``
@@ -21,41 +20,39 @@ compressor (:mod:`repro_torch.optim.grad_compress`) does.
 from __future__ import annotations
 
 import functools
-import pathlib
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
+
+from repro_torch.core import prng
 
 __all__ = ["power_iteration", "householder_q", "pi_init", "apply_lowrank",
            "lowrank_approx", "svd_topr"]
 
 ORTHONORMALIZERS = ("qr", "mgs")
 
-_TABLE = pathlib.Path(__file__).with_name("_pi_init.npz")
+
+def pi_init(d: int, rank: int, key=None) -> np.ndarray:
+    """The reference's power-iteration start ``jax.random.normal(key, (d,
+    rank))`` in f32 (``key`` None: ``PRNGKey(0)``)."""
+    return _pi_init_on(d, rank, _words(key), torch.device("cpu")).numpy().copy()
 
 
-@functools.lru_cache(maxsize=1)
-def _table() -> dict:
-    with np.load(_TABLE) as z:
-        return {k: z[k] for k in z.files}
-
-
-def pi_init(d: int, rank: int) -> np.ndarray:
-    """The reference's power-iteration init ``normal(PRNGKey(0), (d, rank))``."""
-    name = f"d{d}_r{rank}"
-    table = _table()
-    if name not in table:
-        raise KeyError(
-            f"no power-iteration init for (d={d}, rank={rank}); the table "
-            f"holds {sorted(table)} — regenerate it from jax.random.normal")
-    return table[name]
+def _words(key) -> tuple[int, int]:
+    return prng.key_words(prng.PRNGKey(0) if key is None else key)
 
 
 @functools.lru_cache(maxsize=64)
-def _pi_init_on(d: int, rank: int, device: torch.device) -> torch.Tensor:
-    """:func:`pi_init` as a tensor on ``device``, copied there once (a copy
-    from pageable host memory would stall the stream at every compression)."""
-    return torch.from_numpy(pi_init(d, rank)).to(device)
+def _pi_init_on(d: int, rank: int, words: tuple[int, int], device: torch.device) -> torch.Tensor:
+    """:func:`pi_init` under the key ``words`` as a tensor on ``device``: drawn
+    on the host and copied there once (every compression reuses it; a copy
+    from pageable host memory at each one would stall the stream).  A
+    constant of the process, so drawn outside any active dispatch mode: the
+    dry run's op counter must not charge it to the step that first asks."""
+    with _disable_current_modes():
+        host = prng.normal(np.array(words, np.uint32), (d, rank))
+    return host.to(device)
 
 
 def householder_q(x: torch.Tensor) -> torch.Tensor:
@@ -109,11 +106,12 @@ def _mgs_q(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
-def power_iteration(x: torch.Tensor, rank: int, iters: int = 4,
-                    init: torch.Tensor | None = None, orthonormalizer: str = "qr"):
+def power_iteration(x: torch.Tensor, rank: int, iters: int = 4, key=None,
+                    orthonormalizer: str = "qr", init: torch.Tensor | None = None):
     """Approximate top-``rank`` factors of ``x`` [..., n, d] from the start
-    matrix ``init`` [d, rank] (None: the reference's ``PRNGKey(0)`` draw,
-    :func:`pi_init`), broadcast over the leading dims; the final sweep's
+    matrix :func:`pi_init` ``(d, rank, key)`` (the reference's draw; ``key``
+    None is its ``PRNGKey(0)``), or from ``init`` [d, rank] where the caller
+    draws its own (not both), broadcast over the leading dims; the final sweep's
     orthonormalizer is :func:`householder_q` (``"qr"``) or :func:`_mgs_q`
     (``"mgs"``, which the reference runs unscaled, so no rescale here).
 
@@ -125,7 +123,9 @@ def power_iteration(x: torch.Tensor, rank: int, iters: int = 4,
     n, d = x.shape[-2], x.shape[-1]
     lead = x.shape[:-2]
     xf = x.to(torch.float32)
-    b0 = (_pi_init_on(d, rank, xf.device) if init is None
+    if init is not None and key is not None:
+        raise ValueError("power_iteration: pass a key or an init, not both")
+    b0 = (_pi_init_on(d, rank, _words(key), xf.device) if init is None
           else torch.as_tensor(init, dtype=torch.float32, device=xf.device))
     if tuple(b0.shape) != (d, rank):
         raise ValueError(f"power_iteration: init has shape {tuple(b0.shape)}, "
@@ -155,15 +155,9 @@ def apply_lowrank(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def lowrank_approx(x: torch.Tensor, rank: int, iters: int = 4, key=None) -> torch.Tensor:
-    """``A @ Bᵀ`` of :func:`power_iteration` on ``x`` [..., n, d], in f32.
-
-    The reference's ``key`` picks its start matrix; here the start is always
-    the reference's key-0 draw (:func:`pi_init`), so only ``key=None`` is
-    taken."""
-    if key is not None:
-        raise ValueError("lowrank_approx: the port's start matrix is the reference's "
-                         "PRNGKey(0) draw (pi_init); pass key=None")
-    return apply_lowrank(*power_iteration(x, rank, iters))
+    """``A @ Bᵀ`` of :func:`power_iteration` on ``x`` [..., n, d] from the
+    start matrix of ``key``, in f32."""
+    return apply_lowrank(*power_iteration(x, rank, iters, key))
 
 
 def svd_topr(x: torch.Tensor, rank: int) -> torch.Tensor:

@@ -102,6 +102,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import cache as cache_lib
+from repro_torch.core import prng
 from repro_torch.core.policy import FP16, CompressionPolicy
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.compat import all_gather_cat, axis_group, axis_index, axis_size
@@ -871,13 +872,14 @@ class Engine:
         return DenseCacheView(self, caches)
 
     # -- wave mode ----------------------------------------------------------
-    def generate(self, batch: dict, max_new_tokens: int, generator: torch.Generator | None = None,
-                 active=None):
+    def generate(self, batch: dict, max_new_tokens: int, key=None, active=None):
         """Wave generation: one full-batch prefill, then ``max_new_tokens - 1``
         lockstep decode steps.  Returns (tokens [B, T] int32 numpy, stats).
 
-        Tokens come from :func:`~repro_torch.serving.sampling.sample` with
-        ``generator`` (default: seeded 0); at temperature 0 they are greedy.
+        Tokens come from :func:`~repro_torch.serving.sampling.sample` under
+        ``key`` (default: the reference's ``PRNGKey(0)``), folded with the
+        step index before each decode sample, as the reference's; at
+        temperature 0 they are greedy.
         With an ``eos_id`` a row that sampled it keeps emitting it, and the
         loop stops once every row has.  ``active``: optional bool mask [B]
         of rows holding real requests; padded copy rows are left out of
@@ -887,11 +889,10 @@ class Engine:
         and its ``decode_tok_per_s`` counts frames."""
         ecfg = self.ecfg
         eos = ecfg.eos_id if self.cfg.modality != "audio" else -1
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
+        key = prng.PRNGKey(0) if key is None else key
         t0 = time.time()
         logits, caches = self.prefill(batch)
-        tok = sample(logits[:, -1], ecfg.temperature, ecfg.top_k, generator)
+        tok = sample(logits[:, -1], key, ecfg.temperature, ecfg.top_k)
         self._sync()
         t_prefill = time.time() - t0
         prompt_len = self._prompt_len(batch)
@@ -902,7 +903,8 @@ class Engine:
         for t in range(max_new_tokens - 1):
             pos = np.full(B, prompt_len + t, np.int32)
             logits, caches = self.decode({"tokens": tok[:, None]}, caches, pos)
-            tok = sample(logits[:, -1], ecfg.temperature, ecfg.top_k, generator)
+            key = prng.fold_in(key, t)
+            tok = sample(logits[:, -1], key, ecfg.temperature, ecfg.top_k)
             if eos >= 0:
                 done = done | (tok == eos)
                 tok = torch.where(done, torch.full_like(tok, eos), tok)

@@ -43,6 +43,7 @@ from repro_torch.serving.engine import Engine
 from repro_torch.serving.faults import InjectedFault
 from repro_torch.serving.pagedpool import PoolExhausted, pages_needed
 from repro_torch.serving.resilience import AdmissionValve, RequestStatus, RetryPolicy
+from repro_torch.core import prng
 from repro_torch.serving.sampling import sample
 
 __all__ = ["Request", "Result", "Scheduler"]
@@ -80,8 +81,11 @@ class Scheduler:
 
     ``prefix_admission`` is "all" (every request's newly closed prompt
     chunks enter the trie) or "off" (cached prefixes are reused, nothing
-    new is admitted).  ``seed`` seeds the sampling generator (temperature
-    above 0; greedy decoding ignores it).  Resilience knobs, as in the
+    new is admitted).  ``seed`` is the sampling key's, ``PRNGKey(seed)``
+    (temperature above 0; greedy decoding ignores it): 0 gives the
+    reference's ``PRNGKey(0)``, which every wave's ``generate`` starts from
+    and ``run_continuous`` folds with the step count before each decode
+    sample, as the reference's.  Resilience knobs, as in the
     reference: ``retry`` bounds admission and decode-step retries,
     ``valve`` sheds at submit, ``faults`` attaches a
     :class:`~repro_torch.serving.faults.FaultInjector` (wired into the
@@ -115,7 +119,7 @@ class Scheduler:
         self.submitted_rids: list[int] = []
         self._submit_t: dict[int, float] = {}
         self._shed: list[Result] = []
-        self._gen = torch.Generator(device=engine.device).manual_seed(seed)
+        self.seed = seed
 
     def _need_tokens(self, req: Request) -> int:
         """Cache tokens the request's lifetime holds: prompt (+ a VLM's image
@@ -180,9 +184,9 @@ class Scheduler:
         issues += eng_report["issues"]
         return {"ok": not issues, "issues": issues, "engine": eng_report}
 
-    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+    def _sample(self, logits: torch.Tensor, key) -> np.ndarray:
         ecfg = self.engine.ecfg
-        return sample(logits[:, -1], ecfg.temperature, ecfg.top_k, self._gen).cpu().numpy()
+        return sample(logits[:, -1], key, ecfg.temperature, ecfg.top_k).cpu().numpy()
 
     # ------------------------------------------------------------------
     # Wave mode
@@ -204,7 +208,8 @@ class Scheduler:
             wave_pad = max(len(r.tokens) for r in wave)
             prompts = np.stack([_pad(np.asarray(r.tokens, np.int32), wave_pad) for r in wave])
             budget = max(r.max_new_tokens for r in wave)
-            toks, stats = self.engine.generate({"tokens": prompts}, budget, generator=self._gen,
+            toks, stats = self.engine.generate({"tokens": prompts}, budget,
+                                               prng.PRNGKey(self.seed),
                                                active=np.array([r.rid >= 0 for r in wave]))
             for i, r in enumerate(wave):
                 if r.rid < 0:
@@ -263,6 +268,7 @@ class Scheduler:
         prefill_s = np.zeros(B)
         decode_s = np.zeros(B)
         steps = 0
+        key = prng.PRNGKey(self.seed)      # folded with ``steps`` before each decode sample
         waited = set()                     # rids a decode step ran without, for want of pages
         wait_steps = 0                     # decode steps run with such a request waiting
         t_decode_total = 0.0
@@ -376,7 +382,7 @@ class Scheduler:
                 if obs is not None:
                     obs.tracer.unbind()
                     obs.tracer.end(r.rid)          # close "prefill"
-            first = int(self._sample(logits)[0])
+            first = int(self._sample(logits, key)[0])
             prefill_s[s] = time.time() - t0
             if obs is not None:
                 obs.observe_prefill(float(prefill_s[s]))
@@ -465,7 +471,8 @@ class Scheduler:
                 wait_steps += 1
             t0 = time.time()
             logits = view.decode({"tokens": cur[:, None].copy()}, pos)
-            nxt = self._sample(logits)
+            key = prng.fold_in(key, steps)
+            nxt = self._sample(logits, key)
             step_t = time.time() - t0
             t_decode_total += step_t
             steps += 1

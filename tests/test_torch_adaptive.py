@@ -2,8 +2,8 @@
 reference ``repro.core.adaptive``.
 
 Both packages factor from the same start matrices: the reference draws
-``jax.random.normal(key, (d, r))`` and the port is handed that draw through
-``init``.  Singular values come from each package's LAPACK call
+``jax.random.normal(key, (d, r))`` and the port draws it from the same
+``key`` (``repro_torch.core.prng``).  Singular values come from each package's LAPACK call
 (``jnp.linalg.svd`` / ``torch.linalg.svdvals``), the QR of the power
 iteration from LAPACK and from the port's Householder steps.  Limits: ranks
 equal; relative errors within ``ERR_ATOL`` (measured at most 4.5e-5, at
@@ -31,11 +31,6 @@ from repro_torch.core import adaptive, lowrank  # noqa: E402
 
 ERR_ATOL = 1e-4
 KEY = jax.random.PRNGKey(0)
-
-
-def draw(key):
-    """The reference's start matrix for (d, r), as the port's ``init``."""
-    return lambda d, r: np.asarray(jax.random.normal(key, (d, r), jnp.float32))
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,11 +93,11 @@ CASES = [("test", 2), ("test", 4), ("bench", 2)]
 def test_adaptive_matches_reference(which, rank):
     resid = planted_resid() if which == "test" else bench_resid()
     want = ref.adaptive_error_vs_uniform(jnp.asarray(resid), rank, key=KEY)
-    got = adaptive.adaptive_error_vs_uniform(torch.from_numpy(resid), rank, init=draw(KEY))
+    got = adaptive.adaptive_error_vs_uniform(torch.from_numpy(resid), rank, key=KEY)
     assert got["ranks"] == want["ranks"]
     for k in ("uniform", "adaptive"):
         assert abs(got[k] - want[k]) <= ERR_ATOL, (k, got[k], want[k])
-    a, b, ranks = adaptive.adaptive_lowrank(torch.from_numpy(resid), rank, init=draw(KEY))
+    a, b, ranks = adaptive.adaptive_lowrank(torch.from_numpy(resid), rank, key=KEY)
     assert ranks.tolist() == want["ranks"]
     max_rank = a.shape[-1]
     assert max_rank == min(4 * rank, *resid.shape[1:])
@@ -113,7 +108,7 @@ def test_adaptive_matches_reference(which, rank):
 def test_default_init_is_the_reference_key0_draw():
     resid = torch.from_numpy(planted_resid())
     assert adaptive.adaptive_error_vs_uniform(resid, 2) == \
-        adaptive.adaptive_error_vs_uniform(resid, 2, init=draw(KEY))
+        adaptive.adaptive_error_vs_uniform(resid, 2, key=KEY)
     with pytest.raises(ValueError):
         lowrank.power_iteration(resid, 4, init=np.zeros((32, 3), np.float32))
 

@@ -1156,3 +1156,24 @@ def test_kernel_wrappers_refuse_grad_on_the_card(dev):
         assert lsk.linear_scan_chunked.launches == before["scan"] + 2 * layers
         assert lsk.linear_scan_chunked_bwd.launches == before["scan_bwd"] + layers
         assert fp.flash_prefill.launches == before["flash"]
+
+
+@pytest.mark.parametrize("shape", [(7,), (4, 32000), (80, 3)], ids=str)
+def test_prng_draws_on_the_card_equal_the_host_draws(dev, shape):
+    """``repro_torch.core.prng`` on the card: the reference's stream, bit for
+    bit the host's (the CPU tests hold the host's to ``jax.random``), and
+    ``sample`` at temperature 0.8 with ``top_k`` 0 and 40 the host's ids."""
+    from repro_torch.core import prng
+    from repro_torch.serving.sampling import sample
+
+    key = prng.fold_in(prng.PRNGKey(3), 2 ** 31 + 5)
+    for fn in (prng.bits, prng.normal, prng.gumbel):
+        got = fn(key, shape, dev)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), fn(key, shape)), fn.__name__
+    assert torch.equal(prng.uniform(key, shape, -0.5, 2.0, dev).cpu(),
+                       prng.uniform(key, shape, -0.5, 2.0))
+    logits = torch.randn((3,) + shape, generator=torch.Generator().manual_seed(0)) * 3
+    for top_k in (0, 40):
+        want = sample(logits, key, 0.8, top_k)
+        assert torch.equal(sample(logits.to(dev), key, 0.8, top_k).cpu(), want)

@@ -1,7 +1,9 @@
 """The paper's approximation-error API of the port against the JAX reference:
 ``gear.{decompress_matrix, approx_error}``, the ``size_bytes`` of
 ``CompressedMatrix`` / ``QuantizedTensor`` / ``SparseOutliers``,
-``quant.quant_error`` and ``lowrank.{lowrank_approx, svd_topr}``.
+``quant.quant_error`` and ``lowrank.{lowrank_approx, svd_topr}``, also at
+head dims and ranks outside the shipped configs' (the start matrix is drawn
+for any shape).
 
 Inputs are KV-like tensors made with numpy from fixed seeds (heavy-tailed,
 token-correlated, a few large channels and sparse outliers: the recipe of
@@ -64,6 +66,8 @@ METHODS_4BIT = ["per_token_q4", "kcvt4", "kivi4", "gear_l_kcvt4", "gear_kcvt4"]
 POLICIES = METHODS_2BIT + METHODS_4BIT
 SHAPES = {"bench": (1, 4, 1024, 128), "small": (2, 256, 64)}
 RANKS = (1, 2, 8)
+HEAD_DIMS = (80, 96, 512)     # approx_error of gear_kcvt4's K on [2, 128, d]
+WIDE_RANKS = (3, 64)          # lowrank_approx of the bench residual (d 128)
 RANK_POLICY = "gear_kivi2"
 # (policy, kind) pairs whose reference error is also taken from approx_error itself
 CHECKED = (("kivi2", "v"), ("outlier_kivi2", "k"), ("gear_kcvt4", "k"))
@@ -130,7 +134,10 @@ def reference() -> dict:
       program's compile time);
     * ``quant[str(case)]``: ``quant_error`` of each case on the bench input;
     * ``lowrank``: kivi2's K residual of the bench input (Fig. 2b) and per
-      rank its ``lowrank_approx`` and ``svd_topr``."""
+      rank its ``lowrank_approx`` and ``svd_topr``;
+    * ``head_dims[d]``: gear_kcvt4's ``approx_error`` of K on
+      :func:`head_dim_input` ``(d)``;
+    * ``wide_ranks[r]``: ``lowrank_approx`` of that residual at rank r."""
     kivi2 = jnamed("kivi2")
 
     def error(x, cm):
@@ -138,7 +145,7 @@ def reference() -> dict:
         return (jnp.linalg.norm(x - jgear.decompress_matrix(cm))
                 / jnp.maximum(jnp.linalg.norm(x), 1e-8))
 
-    def run(bench, small, x4a):
+    def run(bench, small, x4a, *heads):
         out = {"policies": {}}
         for name in POLICIES:
             jpol = jnamed(name)
@@ -163,9 +170,18 @@ def reference() -> dict:
                                                           *kivi2.scheme_for("k")))
         out["lowrank"] = (resid, {r: (jlr.lowrank_approx(resid, r), jlr.svd_topr(resid, r))
                                   for r in RANKS})
+        out["head_dims"] = {d: jgear.approx_error(x, jnamed("gear_kcvt4"), "k")
+                            for d, x in zip(HEAD_DIMS, heads)}
+        out["wide_ranks"] = {r: jlr.lowrank_approx(resid, r) for r in WIDE_RANKS}
         return out
     return jax.jit(run)(*(jnp.asarray(a) for a in (x_np("bench"), x_np("small"),
-                                                   fig4a_input("small"))))
+                                                   fig4a_input("small"))),
+                        *(jnp.asarray(head_dim_input(d)) for d in HEAD_DIMS))
+
+
+@functools.lru_cache(maxsize=None)
+def head_dim_input(d: int) -> np.ndarray:
+    return kv_like((2, 128, d), seed=0)
 
 
 @pytest.mark.parametrize("kind", ["k", "v"])
@@ -327,6 +343,23 @@ def test_svd_topr_matches_reference(rank):
     assert rel_err(r, got.numpy()) <= rel_err(r, pi.numpy())
 
 
-def test_lowrank_approx_refuses_a_key():
-    with pytest.raises(ValueError, match="key=None"):
-        lowrank.lowrank_approx(torch.zeros(2, 8, 16), 2, key=jax.random.PRNGKey(1))
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_approx_error_at_any_head_dim(d):
+    """Head dims no shipped config has (the port once raised ``KeyError``
+    for want of a start matrix)."""
+    ref = float(reference()["head_dims"][d])
+    port = port_error(head_dim_input(d), named_policy("gear_kcvt4"), "k")
+    assert abs(port - ref) <= ERR_ATOL, (ref, port)
+
+
+@pytest.mark.parametrize("rank", WIDE_RANKS)
+def test_lowrank_approx_at_any_rank(rank):
+    """Ranks no shipped policy has: the approximation's error within
+    ``ERR_ATOL`` of the reference's (observed: 0 at rank 3, 3.9e-6 at rank
+    64, whose trailing columns 4 sweeps leave unconverged), the
+    approximation within ``LOWRANK_RTOL`` (observed: 2.8e-6 / 2.0e-3)."""
+    r, _ = lowrank_reference()
+    want = np.asarray(reference()["wide_ranks"][rank])
+    got = lowrank.lowrank_approx(torch.from_numpy(r), rank).numpy()
+    assert abs(rel_err(r, got) - rel_err(r, want)) <= ERR_ATOL
+    assert rel_err(want, got) <= LOWRANK_RTOL

@@ -623,8 +623,8 @@ def test_decode_close_compresses_each_layer_on_its_own_full_buffer(pair, monkeyp
     inputs = []
     real = pcache._compress_chunks
     monkeypatch.setattr(pcache, "_compress_chunks",
-                        lambda cfg, k, v, rank: inputs.append((k.clone(), v.clone()))
-                        or real(cfg, k, v, rank))
+                        lambda cfg, k, v, rank, key=None: inputs.append((k.clone(), v.clone()))
+                        or real(cfg, k, v, rank, key))
     prompt = np.array([17, 51, 8, 42, 29, 60], np.int32)
     for swap in (False, True):
         logits, caches = pair._ref_prefill(pair.ref.params, jnp.asarray(prompt[None]))

@@ -292,18 +292,21 @@ def test_model_components_match_reference(pos_shape):
 
 def test_sampling_greedy_and_seeded_temperature():
     """Greedy is argmax with ties to the lowest id (as ``jnp.argmax``); a
-    temperature above 0 draws from the given generator, reproducibly, and
-    ``top_k`` keeps the draw inside the k largest logits."""
+    temperature above 0 draws under the given key, reproducibly and as the
+    reference's ``sample`` does with that key, and ``top_k`` keeps the draw
+    inside the k largest logits."""
     from repro.serving.sampling import sample as ref_sample
     from repro_torch.serving.sampling import sample
 
     logits = np.random.RandomState(0).randn(6, 50).astype(np.float32)
     logits[2, [7, 30]] = 9.0                                   # tie: lowest id wins
-    want = np.asarray(ref_sample(jnp.asarray(logits), jax.random.PRNGKey(0)))
-    np.testing.assert_array_equal(sample(torch.from_numpy(logits)).numpy(), want)
-    draws = [sample(torch.from_numpy(logits), 0.8, 3, torch.Generator().manual_seed(5))
-             for _ in range(2)]
+    key = jax.random.PRNGKey(5)
+    want = np.asarray(ref_sample(jnp.asarray(logits), key))
+    np.testing.assert_array_equal(sample(torch.from_numpy(logits), key).numpy(), want)
+    draws = [sample(torch.from_numpy(logits), np.asarray(key), 0.8, 3) for _ in range(2)]
     torch.testing.assert_close(draws[0], draws[1], rtol=0, atol=0)
+    np.testing.assert_array_equal(draws[0].numpy(),
+                                  np.asarray(ref_sample(jnp.asarray(logits), key, 0.8, 3)))
     top3 = np.argsort(-logits, axis=-1)[:, :3]
     assert all(int(t) in top3[i] for i, t in enumerate(draws[0]))
     assert draws[0].dtype == torch.int32

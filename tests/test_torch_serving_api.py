@@ -259,11 +259,10 @@ def test_fresh_batch1_cache_is_one_object_per_geometry_and_never_written():
         wfull = cache.init_layer_cache(window, device="cpu")
         cache.prefill_into_slot(window, wfull, k[:, :, :30], k[:, :, :30], slot)
         assert wfull.length.tolist()[slot] == 30 and (wfull.pos[slot] >= 0).sum() == 16
+        cache.prefill_into_slot(pcfg, cache.init_layer_cache(pcfg, device="cpu"), k, k, slot,
+                                key=np.asarray(jax.random.PRNGKey(1)))
     assert all(not t.any() for t in empty.tensors().values())
     assert (ring.pos == -1).all() and not ring.k.any() and not ring.length.any()
-    with pytest.raises(ValueError, match="key=None"):
-        cache.prefill_into_slot(pcfg, cache.init_layer_cache(pcfg, device="cpu"), k, k, 0,
-                                key=jax.random.PRNGKey(1))
 
 
 # ---------------------------------------------------------------------------
